@@ -3,28 +3,39 @@
 
     python3 chip_smoke.py
 
-Runs from the root of a checkout. It drives the port's main path — the
-offline bounce of a 128-track, 60 s, 48 kHz session through the
-hand-written CUDA mix kernel — and checks the result by the repo's own
-references. It imports no JAX and reads no ``.wb`` project. Phases, one or
-more lines each:
+Runs from the root of a checkout. It drives the port's main paths through
+``bounce(device="cuda")``: the offline bounce of a 128-track, 60 s, 48 kHz
+session through the hand-written CUDA mix kernel, and automated sessions
+through its automation variant (K3). It checks the results by the repo's
+own references. It imports nothing of JAX or of the JAX package and reads
+no ``.wb`` project. Phases, one or more lines each:
 
 1. environment: the card's name and power limit (nvidia-smi), torch and
-   CUDA versions, nvcc, and whether ninja and triton are present;
-2. build: the CUDA kernel from ``whitebox_tpu_torch/csrc`` with nvcc;
-3. kernel vs plain version on small sessions: bit-equal to the plain
-   PyTorch mix on the card; against the NumPy segment reference bit-equal
-   at speed 1 and within the resampling contract (<= 2 ulp or <= 2.4e-7)
-   otherwise; an 8-track speed-1 bounce bit-equal to the NumPy oracle;
-4. headline: ``bounce(device="cuda")`` of the 128-track session with the
-   kernel's launch count reset just before, bit-equal to the NumPy
-   segment reference; then 5 warm carve+plan+upload+kernel iterations,
-   the kernel's time by CUDA events and the plain version's time;
-5. one JSON line per kernel, then the last line
+   CUDA versions, nvcc, whether ninja and triton are present, and which
+   carve walk runs (the native host library or NumPy);
+2. build: the CUDA kernels from ``whitebox_tpu_torch/csrc`` with nvcc and
+   the native host library from ``csrc/host`` with g++, side by side;
+3. kernel vs plain version on small sessions: the mix kernel bit-equal to
+   the plain PyTorch mix on the card; against the NumPy segment reference
+   bit-equal at speed 1 and within the resampling contract (<= 2 ulp or
+   <= 2.4e-7) otherwise; an 8-track speed-1 bounce bit-equal to the NumPy
+   oracle; the automation variant within atol 3e-6 / rtol 1e-5 of its
+   plain version (linear lanes, all nine curves, fades, a muted automated
+   track) and within relative RMS 1e-5 of the f64 host reference, and a
+   constant-0 volume lane bit-equal to a muted track;
+4. headline and headline_resampled: ``bounce(device="cuda")`` of the
+   128-track session with the launch counts reset just before, bit-equal
+   to the NumPy segment reference; then 5 warm carve+plan+upload+kernel
+   iterations, the kernel's time by CUDA events and the plain version's;
+5. automation_32trk and automation_tempo_128trk (the JAX package's
+   benchmark configs 2 and 7): the same through the automation variant,
+   held to relative RMS 1e-5 of the f64 host reference, lane packing
+   counted in the host legs;
+6. one JSON line of kernels, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Exits non-zero, printing no result, when CUDA is unavailable, when the
-repo is not beside it, or when any phase fails.
+port is not beside it, or when any phase fails.
 """
 
 from __future__ import annotations
@@ -37,11 +48,17 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 RATE = 48000.0
 ULP_MAX, ABS_TOL = 2, 2.4e-7  # the JAX package's resampling contract (tests/test_bounce.py)
+AUTO_ATOL, AUTO_RTOL = 3e-6, 1e-5  # its automation-kernel contract (tests/test_auto_kernel.py)
+AUTO_REL_RMS = 1e-5  # against the f64 host reference (tests/test_fades_automation.py)
+# the card's published peaks (NVIDIA H100 SXM data sheet, 700 W): HBM bytes/s
+# and f32 operations/s outside the tensor cores
+HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
 
 
 class SmokeFailure(RuntimeError):
@@ -68,20 +85,29 @@ def ulp_contract(got, ref):
     return ok, int(ulps.max()), float(absd.max())
 
 
-def native_carve_usable() -> bool:
-    """The tracked native objects are built with -march=native: probe the
-    native carve in a child process so an illegal instruction cannot kill
-    this one. False selects the bit-identical NumPy carve."""
-    code = ("from whitebox_tpu.timeline.carve import carve_session\n"
-            "from whitebox_tpu_torch.render.demo import make_demo_session\n"
-            "s = make_demo_session(n_tracks=2, duration_seconds=2.0, seed=1)\n"
-            "carve_session(s, 48000.0, buffer_size=512)\n")
-    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
-                       text=True, timeout=600)
-    if r.returncode < 0:
-        return False
-    check(r.returncode == 0, f"native carve probe failed:\n{r.stderr}")
-    return True
+def rel_rms(got, ref) -> float:
+    import numpy as np
+
+    d = np.asarray(got, np.float64) - np.asarray(ref, np.float64)
+    scale = max(float(np.sqrt(np.mean(np.asarray(ref, np.float64) ** 2))), 1e-9)
+    return float(np.sqrt(np.mean(d ** 2))) / scale
+
+
+def host_reference(session):
+    """The f64 host reference of an automated bounce: the per-track NumPy
+    segment render + the finish stage's gains, sum and clip."""
+    from whitebox_tpu_torch.render.effects_pipeline import reference_finish_mix
+    from whitebox_tpu_torch.timeline.carve import carve_session, render_segments_per_track_numpy
+
+    table, pool = carve_session(session, RATE, buffer_size=512)
+    return reference_finish_mix(render_segments_per_track_numpy(table, pool), session, RATE)
+
+
+def reset_launches() -> None:
+    from whitebox_tpu_torch.ops import mix_cuda
+
+    mix_cuda.mix_kernel_launches = 0
+    mix_cuda.mix_auto_launches = 0
 
 
 # ---------------------------------------------------------------- sessions
@@ -90,8 +116,8 @@ def native_carve_usable() -> bool:
 def _sample(rng, fmt, channels, n):
     import numpy as np
 
-    from whitebox_tpu.core.formats import AudioFormat
-    from whitebox_tpu.session.sample import Sample
+    from whitebox_tpu_torch.core.formats import AudioFormat
+    from whitebox_tpu_torch.session.sample import Sample
 
     if fmt == AudioFormat.I16:
         data = rng.integers(-32768, 32768, size=(channels, n)).astype(np.int16)
@@ -106,8 +132,8 @@ def int_formats_session(seed=11, n_tracks=6):
     """Speed-1 clips of I16/I24/F32 sources (the clamp path) with fades."""
     import numpy as np
 
-    from whitebox_tpu.core.formats import AudioFormat
-    from whitebox_tpu.session import Session
+    from whitebox_tpu_torch.core.formats import AudioFormat
+    from whitebox_tpu_torch.session import Session
 
     rng = np.random.default_rng(seed)
     s = Session(bpm=120.0)
@@ -130,9 +156,9 @@ def reverse_session(seed=12):
     """Reverse and bidirectional loops at speed 1 and resampled."""
     import numpy as np
 
-    from whitebox_tpu.core.formats import AudioFormat
-    from whitebox_tpu.session import Session
-    from whitebox_tpu.session.clip import ClipMode
+    from whitebox_tpu_torch.core.formats import AudioFormat
+    from whitebox_tpu_torch.session import Session
+    from whitebox_tpu_torch.session.clip import ClipMode
 
     rng = np.random.default_rng(seed)
     s = Session(bpm=120.0)
@@ -144,6 +170,76 @@ def reverse_session(seed=12):
         s.add_audio_clip(tr, "c", 0.25 * t, 0.25 * t + 6.0, start_offset=float(100 * t),
                          asset=asset, gain=0.8, speed=speed)
         tr.clips[0].audio.mode = mode
+    return s
+
+
+#: (curve, tension) per segment of the all-curves lane: every CurveType,
+#: both tension signs, and the near-zero tensions that take the linear
+#: branch of the exponential eases
+NINE_CURVES = ((1, 0.0), (2, 2.0), (3, -1.5), (4, 0.9), (5, -0.6), (6, 1.0), (7, -1.0),
+               (2, 0.004), (0, 0.0), (8, 0.0), (3, 0.005), (6, -0.5))
+
+
+def auto_session(seed=3, n_tracks=4, curves=False, fades=False, mute_first=False):
+    """Automated tracks in the shapes of ``tests/test_auto_kernel.py::
+    _auto_session``: every track but the last gets a volume lane, every
+    other one a pan lane; ``curves`` walks the volume lanes of the even
+    tracks through all nine curve types."""
+    from whitebox_tpu_torch.ops.automation import AutomationLane, CurveType, TrackAutomation
+    from whitebox_tpu_torch.render.demo import make_demo_session
+
+    s = make_demo_session(n_tracks=n_tracks, duration_seconds=6.0, seed=seed, fades=fades,
+                          sample_seconds=1.0, clip_speeds=(1.0, 44100 / 48000))
+    for i, tr in enumerate(s.tracks[:-1]):  # the last track keeps its constant gain
+        vol = AutomationLane().add(0.0, 1.0)
+        if curves and i % 2 == 0:
+            for j, (curve, tension) in enumerate(NINE_CURVES):
+                vol.add(0.25 + 0.9 * j, float(0.2 + 0.6 * ((i + j) % 3) / 2),
+                        curve=CurveType(curve), tension=tension)
+            # an earlier point's curve shapes the segment after it
+            vol.points[0].curve = CurveType((i + 4) % 9)
+        else:
+            vol.add(2.0, 0.4).add(5.0, 0.9)
+        pan = (AutomationLane().add(0.0, -0.8 + 0.2 * i).add(8.0, 0.8 - 0.2 * i)
+               if i % 2 == 0 else None)
+        tr.automation = TrackAutomation(volume=vol, pan=pan)
+    if mute_first:
+        s.tracks[0].mute = True
+    return s
+
+
+def automation_32trk(duration=60.0):
+    """The JAX package's benchmark config 2 (``benchmarks/run_all.py:244-257``):
+    32 tracks with volume + pan lanes and clip fades."""
+    from whitebox_tpu_torch.ops.automation import AutomationLane, TrackAutomation
+    from whitebox_tpu_torch.render.demo import make_demo_session
+
+    s = make_demo_session(n_tracks=32, duration_seconds=duration, sample_rate=48000, seed=2, fades=True)
+    beats = duration / s.beat_duration
+    for i, tr in enumerate(s.tracks):
+        tr.automation = TrackAutomation(
+            volume=AutomationLane().add(0.0, 1.0).add(beats * 0.5, 0.4).add(beats, 0.9),
+            pan=AutomationLane().add(0.0, -0.8 + 0.05 * i).add(beats, 0.8 - 0.05 * i),
+        )
+    return s
+
+
+def automation_tempo_128trk(duration=60.0):
+    """The JAX package's benchmark config 7 (``benchmarks/run_all.py:489-506``):
+    128 tracks under a piecewise tempo map (step + linear ramp) with fader
+    lanes."""
+    from whitebox_tpu_torch.ops.automation import AutomationLane, TrackAutomation
+    from whitebox_tpu_torch.render.demo import make_demo_session
+
+    s = make_demo_session(n_tracks=128, duration_seconds=duration, sample_rate=48000, seed=11)
+    beats = duration / s.beat_duration
+    s.set_tempo_point(0.0, 120.0)
+    s.set_tempo_point(beats * 0.25, 90.0, curve="linear", bpm_end=140.0)
+    s.set_tempo_point(beats * 0.6, 128.0)
+    for tr in s.tracks:
+        tr.automation = TrackAutomation(
+            volume=AutomationLane().add(0.0, 1.0).add(beats * 0.5, 0.5).add(beats, 0.9),
+        )
     return s
 
 
@@ -164,6 +260,7 @@ def phase_environment(torch) -> dict:
         "device_count": torch.cuda.device_count(),
         "nvcc": nvcc,
         "nvcc_version": sh([nvcc, "--version"]).splitlines()[-1],
+        "gxx": shutil.which("g++"),
         "ninja": shutil.which("ninja") is not None,
         "triton": importlib.util.find_spec("triton") is not None,
         "smi": smi,
@@ -173,13 +270,22 @@ def phase_environment(torch) -> dict:
 
 
 def phase_build() -> None:
+    """nvcc (the mix kernel) and g++ (the host library) side by side."""
+    from whitebox_tpu_torch.io import native
     from whitebox_tpu_torch.ops import cuda_build
 
     t0 = time.perf_counter()
-    cuda_build.load()
+    with ThreadPoolExecutor(2) as ex:
+        cuda = ex.submit(cuda_build.load)
+        host = ex.submit(native.load)
+        cuda.result()
+        host_lib = host.result()
     print(f"[build] {cuda_build.build_dir() / cuda_build.LIB_NAME}: nvcc "
-          f"{cuda_build.last_build_seconds:.2f} s, build+load {time.perf_counter() - t0:.2f} s "
-          f"({' '.join(cuda_build.NVCC_FLAGS)})")
+          f"{cuda_build.last_build_seconds:.2f} s ({' '.join(cuda_build.NVCC_FLAGS)}); "
+          f"host: {host_lib._name if host_lib else 'no g++'} {native.last_build_seconds:.2f} s; "
+          f"both {time.perf_counter() - t0:.2f} s")
+    carve = "native (csrc/host, g++)" if host_lib is not None else "numpy (no g++)"
+    print(f"[env] carve walk: {carve}")
 
 
 def kernel_vs_plain(name, session, tile=None):
@@ -187,8 +293,8 @@ def kernel_vs_plain(name, session, tile=None):
     import numpy as np
     import torch
 
-    from whitebox_tpu.timeline.carve import carve_session, render_segments_numpy
     from whitebox_tpu_torch.ops import mix_cuda
+    from whitebox_tpu_torch.timeline.carve import carve_session, render_segments_numpy
 
     table, pool = carve_session(session, RATE, buffer_size=512, slow_emit="runs")
     r = mix_cuda.CudaMixRenderer(table, pool, session, device="cuda", tile=tile)
@@ -214,12 +320,47 @@ def kernel_vs_plain(name, session, tile=None):
           f"{'bit-equal' if fast else f'max {mu} ulp / {ma:.3g} abs'}")
 
 
+def auto_vs_plain(name, session, tile=None):
+    """The automation variant vs its plain version on the card (atol/rtol),
+    and vs the f64 host reference (relative RMS)."""
+    import numpy as np
+    import torch
+
+    from whitebox_tpu_torch.ops import mix_cuda
+    from whitebox_tpu_torch.render.effects_pipeline import prepare_automation_tables_host
+    from whitebox_tpu_torch.timeline.carve import carve_session
+
+    table, pool = carve_session(session, RATE, buffer_size=512, slow_emit="runs")
+    r = mix_cuda.CudaMixRenderer(table, pool, session, device="cuda", tile=tile,
+                                 auto_tables=prepare_automation_tables_host(session, RATE))
+    p = r.plan
+    before = mix_cuda.mix_auto_launches
+    got = r.render_device()
+    check(mix_cuda.mix_auto_launches == before + 1, f"{name}: the automation kernel did not launch")
+    plain = mix_cuda.mix_auto_reference(r.pool_device, r.tables, r.auto, p.n_tiles, p.tile, p.channels)
+    torch.cuda.synchronize()
+    g, q = got.cpu().numpy(), plain.cpu().numpy()
+    ulps = int(np.abs(g.view(np.int32).astype(np.int64) - q.view(np.int32).astype(np.int64)).max())
+    max_abs = float(np.abs(g.astype(np.float64) - q).max())
+    check(np.allclose(g, q, atol=AUTO_ATOL, rtol=AUTO_RTOL),
+          f"{name}: automation kernel vs plain max abs {max_abs:.3g} ({ulps} ulp)")
+    out = g[:, : p.total_frames]
+    rr = rel_rms(out, host_reference(session))
+    check(rr < AUTO_REL_RMS, f"{name}: relative RMS {rr:.3g} off the f64 host reference")
+    check(float(np.abs(out).max()) > 0.01, f"{name}: silent render")
+    print(f"[kernel-vs-plain] {name}: tracks={p.num_tracks} tile={p.tile} P={r.auto['vxs'].shape[1]} "
+          f"automated={int(r.auto['use'].sum())} kernel vs plain max {ulps} ulp / {max_abs:.3g} abs "
+          f"(atol {AUTO_ATOL}, rtol {AUTO_RTOL}); vs f64 host reference relative RMS {rr:.3g}")
+
+
 def phase_kernel_vs_plain() -> None:
     import numpy as np
 
-    from whitebox_tpu.timeline.oracle import OracleRenderer
+    from whitebox_tpu_torch.ops.automation import AutomationLane, TrackAutomation
+    from whitebox_tpu_torch.ops import mix_cuda
     from whitebox_tpu_torch.render.bounce import bounce
     from whitebox_tpu_torch.render.demo import make_demo_session
+    from whitebox_tpu_torch.timeline.oracle import OracleRenderer
 
     kernel_vs_plain("speed1_i16_i24_f32_fades", int_formats_session())
     kernel_vs_plain("speed1_i16_i24_f32_fades_tile1024", int_formats_session(), tile=1024)
@@ -236,6 +377,30 @@ def phase_kernel_vs_plain() -> None:
     print(f"[kernel-vs-plain] oracle_8trk_10s: bounce(device='cuda') bit-equal to OracleRenderer "
           f"over {n} frames")
 
+    auto_vs_plain("auto_linear_lanes", auto_session())
+    auto_vs_plain("auto_nine_curves", auto_session(seed=4, curves=True))
+    auto_vs_plain("auto_nine_curves_tile1024", auto_session(seed=4, curves=True), tile=1024)
+    auto_vs_plain("auto_fades", auto_session(seed=5, fades=True))
+    auto_vs_plain("auto_muted_automated_track", auto_session(seed=6, mute_first=True))
+
+    # tracks without lanes keep their constant gains bit for bit: a
+    # constant-0 volume lane silences track 0 exactly as muting it does
+    # (test_fades_automation.py:147-158), through the two kernel variants
+    zero = make_demo_session(n_tracks=3, duration_seconds=4.0, seed=8, sample_seconds=1.0)
+    zero.tracks[0].automation = TrackAutomation(volume=AutomationLane().add(0.0, 0.0))
+    muted = make_demo_session(n_tracks=3, duration_seconds=4.0, seed=8, sample_seconds=1.0)
+    muted.tracks[0].mute = True
+    reset_launches()
+    a = bounce(zero, RATE, device="cuda").audio
+    check(mix_cuda.mix_auto_launches == 1 and mix_cuda.mix_kernel_launches == 0,
+          "constant-0 lane session did not take the automation kernel")
+    b = bounce(muted, RATE, device="cuda").audio
+    check(mix_cuda.mix_kernel_launches == 1, "muted session did not take the plain kernel")
+    check(np.array_equal(a, b) and float(np.abs(b).max()) > 0.01,
+          "constant-0 volume lane != muted track (tracks without lanes must stay bit-equal)")
+    print("[kernel-vs-plain] auto_zero_lane_vs_mute: automation kernel with a constant-0 volume "
+          "lane bit-equal to the plain kernel with the track muted")
+
 
 def _event_ms(torch, fn, iters):
     """Median device ms of ``fn`` over ``iters`` calls, CUDA events around each."""
@@ -249,40 +414,94 @@ def _event_ms(torch, fn, iters):
     return statistics.median(ts), ts
 
 
-def measure_cell(torch, name: str, session, duration: float) -> dict:
-    """5 warm carve+plan+upload+kernel iterations (samples resident on the
-    card, as bench.py keeps them), the kernel's and the plain version's
-    device times by CUDA events, and kernel == plain at full size."""
-    from whitebox_tpu.timeline.carve import carve_session
+def bound(plan, pool_bytes: int, table_bytes: int, auto=None) -> dict:
+    """The least time the card could take for one mix of ``plan``: the
+    larger of the bytes it must move (each input read once, the output
+    written once) over HBM bandwidth and the f32 operations this run's data
+    needs over the f32 peak. Operations counted per covered (slot, frame,
+    channel): 5 for a speed-1 slot (gain, 2 envelope multiplies, track
+    gain, the add), 25 for a resampled one (+ the double-single phase and
+    the lerp); per automated (track, frame) covered by a slot: 2 lane
+    evaluations of 3 (divide and lerp), 2 for the pan position, and per
+    channel a sine counted as 1 plus 3 multiplies."""
+    import numpy as np
+
+    act = plan.me > plan.ms
+    span = np.where(act, plan.me - plan.ms, 0).astype(np.int64)
+    slow = plan.is_slow == 1
+    C = plan.channels
+    ops = C * (5 * int(span.sum()) + 20 * int(span[slow].sum()))
+    if auto is not None:
+        use = auto["use"].cpu().numpy().astype(bool)
+        ops += (3 * 2 + 2 + 4 * C) * int(span[:, use].sum())
+    out_bytes = C * plan.n_tiles * plan.tile * 4
+    bytes_ = out_bytes + pool_bytes + table_bytes
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes": bytes_, "bound_ops": ops}
+
+
+def measure_cell(torch, name: str, session, duration: float, automated: bool = False) -> dict:
+    """5 warm carve+(lane packing)+plan+upload+kernel iterations (samples
+    resident on the card, as bench.py keeps them), the kernel's and the
+    plain version's device times by CUDA events, and kernel vs plain at
+    full size (bit-equal without lanes, atol/rtol with them)."""
     from whitebox_tpu_torch.ops import mix_cuda
     from whitebox_tpu_torch.ops.mix_plan import build_plan
+    from whitebox_tpu_torch.render.effects_pipeline import prepare_automation_tables_host
+    from whitebox_tpu_torch.timeline.carve import carve_session
+
+    def lanes():
+        return prepare_automation_tables_host(session, RATE) if automated else None
 
     table, pool = carve_session(session, RATE, buffer_size=512, slow_emit="runs")
-    warm = mix_cuda.CudaMixRenderer(table, pool, session, device="cuda")
+    warm = mix_cuda.CudaMixRenderer(table, pool, session, device="cuda", auto_tables=lanes())
     rows = []
     for _ in range(5):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         t_, p_ = carve_session(session, RATE, buffer_size=512, pool=pool, slow_emit="runs")
         t1 = time.perf_counter()
-        plan = build_plan(t_, p_, session)
+        auto_tables = lanes()
         t2 = time.perf_counter()
-        r = mix_cuda.CudaMixRenderer(t_, p_, session, device="cuda", plan=plan,
-                                     pool_device=warm.pool_device)
+        plan = build_plan(t_, p_, session)
         t3 = time.perf_counter()
+        r = mix_cuda.CudaMixRenderer(t_, p_, session, device="cuda", plan=plan,
+                                     pool_device=warm.pool_device, auto_tables=auto_tables)
+        t4 = time.perf_counter()
         r.render_device()
         torch.cuda.synchronize()
-        rows.append((t1 - t0, t2 - t1, t3 - t2, time.perf_counter() - t3, time.perf_counter() - t0))
-    carve_s, plan_s, upload_s, launch_s, e2e_med = (statistics.median(c) for c in zip(*rows))
-    e2e_best = min(row[4] for row in rows)
+        t5 = time.perf_counter()
+        rows.append((t1 - t0, t2 - t1, t3 - t2, t4 - t3, t5 - t4, t5 - t0))
+    carve_s, lanes_s, plan_s, upload_s, launch_s, e2e_med = (statistics.median(c) for c in zip(*rows))
+    e2e_best = min(row[-1] for row in rows)
     p = warm.plan
     args = (warm.pool_device, warm.tables, p.n_tiles, p.tile, p.channels)
-    kernel_ms, kernel_all = _event_ms(torch, lambda: mix_cuda.mix_cuda(*args), 20)
-    plain_ms, _ = _event_ms(torch, lambda: mix_cuda.mix_reference(*args), 3)
-    got = mix_cuda.mix_cuda(*args)
-    plain = mix_cuda.mix_reference(*args)
-    max_abs = float((got - plain).abs().max())
-    check(torch.equal(got, plain), f"{name}: kernel != plain version (max abs {max_abs:.3g})")
+    if automated:
+        def kernel():
+            return mix_cuda.mix_auto_cuda(warm.pool_device, warm.tables, warm.auto, *args[2:])
+
+        def plain():
+            return mix_cuda.mix_auto_reference(warm.pool_device, warm.tables, warm.auto, *args[2:])
+    else:
+        def kernel():
+            return mix_cuda.mix_cuda(*args)
+
+        def plain():
+            return mix_cuda.mix_reference(*args)
+    kernel_ms, kernel_all = _event_ms(torch, kernel, 20)
+    plain_ms, _ = _event_ms(torch, plain, 3)
+    got, ref = kernel(), plain()
+    max_abs = float((got - ref).abs().max())
+    if automated:
+        check(torch.allclose(got, ref, atol=AUTO_ATOL, rtol=AUTO_RTOL),
+              f"{name}: automation kernel vs plain max abs {max_abs:.3g}")
+    else:
+        check(torch.equal(got, ref), f"{name}: kernel != plain version (max abs {max_abs:.3g})")
+    table_bytes = sum(t.numel() * t.element_size() for t in warm.tables.values())
+    if automated:
+        table_bytes += sum(t.numel() * t.element_size() for t in warm.auto.values())
     stats = {
         "cell": name, "tracks": p.num_tracks, "audio_seconds": duration,
         "frames": int(p.total_frames), "tile": p.tile, "n_tiles": p.n_tiles, "K": p.max_slots,
@@ -291,33 +510,46 @@ def measure_cell(torch, name: str, session, duration: float) -> dict:
         "pool_mb": pool.data.nbytes / 1e6,
         "e2e_ms_median": e2e_med * 1e3, "e2e_ms_best": e2e_best * 1e3,
         "rtf_median": duration / e2e_med, "rtf_best": duration / e2e_best,
-        "carve_ms": carve_s * 1e3, "plan_ms": plan_s * 1e3, "upload_ms": upload_s * 1e3,
+        "carve_ms": carve_s * 1e3, "lanes_ms": lanes_s * 1e3, "plan_ms": plan_s * 1e3,
+        "upload_ms": upload_s * 1e3,
         "launch_to_sync_ms": launch_s * 1e3,
         "kernel_ms_median": kernel_ms, "kernel_ms_min": min(kernel_all), "plain_ms_median": plain_ms,
         "output_gb_per_s": got.numel() * 4 / (kernel_ms * 1e-3) / 1e9,
         "kernel_vs_plain_max_abs": max_abs,
+        **bound(p, pool.data.nbytes, table_bytes, warm.auto),
     }
+    if automated:
+        stats["lane_points"] = int(warm.auto["vxs"].shape[1])
     print(f"[{name}] " + json.dumps(stats))
     return stats
+
+
+def _kernel_entry(cell: dict, launches: int) -> dict:
+    return {"launches": launches, "max_abs_err": cell["kernel_vs_plain_max_abs"],
+            "ms": cell["kernel_ms_median"], "plain_ms": cell["plain_ms_median"],
+            "bound_ms": cell["bound_ms"], "bound_by": cell["bound_by"],
+            # no single PyTorch call computes the slot mix
+            "library_ms": None}
 
 
 def phase_headline(torch) -> dict:
     import numpy as np
 
-    from whitebox_tpu.timeline.carve import carve_session, render_segments_numpy
     from whitebox_tpu_torch.ops import mix_cuda
     from whitebox_tpu_torch.render.bounce import bounce
     from whitebox_tpu_torch.render.demo import make_demo_session
+    from whitebox_tpu_torch.timeline.carve import carve_session, render_segments_numpy
 
     duration, n_tracks = 60.0, 128
     session = make_demo_session(n_tracks=n_tracks, duration_seconds=duration,
                                 sample_rate=int(RATE), seed=7)
 
     # the main path, through the entry point a user calls
-    mix_cuda.mix_kernel_launches = 0
+    reset_launches()
     res = bounce(session, RATE, device="cuda")
     launches = mix_cuda.mix_kernel_launches
     check(launches > 0, "bounce never launched the CUDA mix kernel")
+    check(mix_cuda.mix_auto_launches == 0, "a session without lanes took the automation kernel")
     print(f"[headline] bounce(device='cuda'): {res.stats.summary()}; mix kernel launches={launches}")
 
     table, pool = carve_session(session, RATE, buffer_size=512, slow_emit="runs")
@@ -336,8 +568,39 @@ def phase_headline(torch) -> dict:
     resampled = make_demo_session(n_tracks=n_tracks, duration_seconds=duration,
                                   sample_rate=int(RATE), seed=7, clip_speeds=(1.0, 44100 / 48000))
     measure_cell(torch, "headline_resampled", resampled, duration)
-    return {"launches": launches, "max_abs_err": k["kernel_vs_plain_max_abs"],
-            "ms": k["kernel_ms_median"], "plain_ms": k["plain_ms_median"]}
+    return _kernel_entry(k, launches)
+
+
+def automation_cell(torch, name: str, session, duration: float) -> tuple[dict, int]:
+    """``bounce(device="cuda")`` of an automated session with the launch
+    counts reset just before, held to the f64 host reference, then timed."""
+    import numpy as np
+
+    from whitebox_tpu_torch.ops import mix_cuda
+    from whitebox_tpu_torch.render.bounce import bounce
+
+    reset_launches()
+    res = bounce(session, RATE, device="cuda")
+    launches = mix_cuda.mix_auto_launches
+    check(launches > 0, f"{name}: bounce never launched the automation kernel")
+    check(mix_cuda.mix_kernel_launches == 0, f"{name}: an automated session took the plain kernel")
+    t0 = time.perf_counter()
+    ref = host_reference(session)
+    ref_s = time.perf_counter() - t0
+    check(res.audio.shape == ref.shape and np.isfinite(res.audio).all(), f"{name}: shape/finite")
+    rr = rel_rms(res.audio, ref)
+    check(rr < AUTO_REL_RMS, f"{name}: relative RMS {rr:.3g} off the f64 host reference")
+    check(float(np.abs(res.audio).max()) > 0.01, f"{name}: silent render")
+    print(f"[{name}] bounce(device='cuda'): {res.stats.summary()}; automation kernel "
+          f"launches={launches}; vs f64 host reference relative RMS {rr:.3g} "
+          f"(reference {ref_s:.1f} s on the host)")
+    return measure_cell(torch, name, session, duration, automated=True), launches
+
+
+def phase_automation(torch) -> dict:
+    automation_cell(torch, "automation_32trk", automation_32trk(), 60.0)
+    k, launches = automation_cell(torch, "automation_tempo_128trk", automation_tempo_128trk(), 60.0)
+    return _kernel_entry(k, launches)
 
 
 def main() -> int:
@@ -350,23 +613,26 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this smoke test needs a CUDA card",
               file=sys.stderr)
         return 2
-    if not (ROOT / "whitebox_tpu_torch" / "csrc").is_dir() or not (ROOT / "whitebox_tpu").is_dir():
-        print(f"chip_smoke: the repo's packages are not beside {__file__}", file=sys.stderr)
+    if not (ROOT / "whitebox_tpu_torch" / "csrc").is_dir():
+        print(f"chip_smoke: the port (whitebox_tpu_torch/) is not beside {__file__}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
     os.chdir(ROOT)
 
     env = phase_environment(torch)
-    if not native_carve_usable():
-        os.environ["WBTPU_NO_NATIVE"] = "1"
-        print("[env] native carve library died in a probe; using the NumPy carve (WBTPU_NO_NATIVE=1)")
     phase_build()
     phase_kernel_vs_plain()
-    k = phase_headline(torch)
-    check("jax" not in sys.modules, "the port loaded jax")
-    print(json.dumps({"kernels": [{
-        "name": "mix_linear", "route": "cuda", "source": "whitebox_tpu_torch/csrc/mix_kernel.cu",
-        "replaces": "whitebox_tpu/ops/mix_pallas.py:407", **k}]}))
+    linear = phase_headline(torch)
+    auto = phase_automation(torch)
+    check("jax" not in sys.modules and "whitebox_tpu" not in sys.modules,
+          "the port loaded jax or the JAX package")
+    src = "whitebox_tpu_torch/csrc/mix_kernel.cu"
+    print(json.dumps({"kernels": [
+        {"name": "mix_linear", "route": "cuda", "source": src,
+         "replaces": "whitebox_tpu/ops/mix_pallas.py:407", **linear},
+        {"name": "mix_automation", "route": "cuda", "source": src,
+         "replaces": "whitebox_tpu/ops/mix_pallas.py:384-460", **auto},
+    ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["device"],
                                              "count": env["device_count"]}}))
     return 0

@@ -5,9 +5,11 @@ Run on a machine with an NVIDIA card and nvcc:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py -q
 
 (``--noconftest``: the suite's conftest configures JAX, which such a
-machine need not have; nothing here imports JAX.) The checks are
-``chip_smoke.py``'s: the kernel bit-equal to its plain PyTorch version on
-the card, and to the NumPy references under the repo's contract.
+machine need not have; nothing here imports JAX or the JAX package.) The
+checks are ``chip_smoke.py``'s: the kernel bit-equal to its plain PyTorch
+version on the card, and to the NumPy references under the repo's
+contract; the automation variant within atol 3e-6 / rtol 1e-5 of its
+plain version and within relative RMS 1e-5 of the f64 host reference.
 """
 
 import numpy as np
@@ -15,11 +17,12 @@ import pytest
 import torch
 
 import chip_smoke
-from whitebox_tpu.timeline.carve import carve_session
-from whitebox_tpu.timeline.oracle import OracleRenderer
 from whitebox_tpu_torch.ops import mix_cuda
 from whitebox_tpu_torch.render.bounce import bounce
 from whitebox_tpu_torch.render.demo import make_demo_session
+from whitebox_tpu_torch.render.effects_pipeline import prepare_automation_tables_host
+from whitebox_tpu_torch.timeline.carve import carve_session
+from whitebox_tpu_torch.timeline.oracle import OracleRenderer
 
 pytestmark = pytest.mark.cuda
 
@@ -28,6 +31,13 @@ SESSIONS = {
     "mixed_speeds_fades": lambda: make_demo_session(
         n_tracks=4, duration_seconds=4.0, seed=3, fades=True, clip_speeds=(1.0, 0.5, 44100 / 48000, 1.37)),
     "reverse_bidirectional": chip_smoke.reverse_session,
+}
+
+AUTO_SESSIONS = {
+    "linear_lanes": chip_smoke.auto_session,
+    "nine_curves": lambda: chip_smoke.auto_session(seed=4, curves=True),
+    "fades": lambda: chip_smoke.auto_session(seed=5, fades=True),
+    "muted_automated_track": lambda: chip_smoke.auto_session(seed=6, mute_first=True),
 }
 
 
@@ -42,6 +52,34 @@ def card():
 @pytest.mark.parametrize("name", list(SESSIONS))
 def test_kernel_matches_plain_and_reference(card, name, tile):
     chip_smoke.kernel_vs_plain(name, SESSIONS[name](), tile=tile)
+
+
+@pytest.mark.parametrize("tile", [None, 1024])
+@pytest.mark.parametrize("name", list(AUTO_SESSIONS))
+def test_automation_kernel_matches_plain_and_reference(card, name, tile):
+    chip_smoke.auto_vs_plain(name, AUTO_SESSIONS[name](), tile=tile)
+
+
+def test_automated_bounce_counts_one_automation_launch(card):
+    s = chip_smoke.auto_session(seed=7, curves=True)
+    chip_smoke.reset_launches()
+    got = bounce(s, 48000.0, device=card).audio
+    assert (mix_cuda.mix_auto_launches, mix_cuda.mix_kernel_launches) == (1, 0)
+    assert chip_smoke.rel_rms(got, chip_smoke.host_reference(s)) < chip_smoke.AUTO_REL_RMS
+
+
+def test_automation_kernel_rejects_malformed_lanes(card):
+    s = chip_smoke.auto_session(seed=8)
+    table, pool = carve_session(s, 48000.0, buffer_size=512, slow_emit="runs")
+    r = mix_cuda.CudaMixRenderer(table, pool, s, device=card,
+                                 auto_tables=prepare_automation_tables_host(s, 48000.0))
+    p = r.plan
+    before = mix_cuda.mix_auto_launches
+    for bad in (dict(r.auto, vys=r.auto["vys"].cpu()), dict(r.auto, use=r.auto["use"][:-1].contiguous()),
+                dict(r.auto, pcv=r.auto["pcv"].to(torch.float32))):
+        with pytest.raises(ValueError):
+            mix_cuda.mix_auto_cuda(r.pool_device, r.tables, bad, p.n_tiles, p.tile, p.channels)
+    assert mix_cuda.mix_auto_launches == before
 
 
 def test_bounce_counts_one_launch_and_matches_oracle(card):

@@ -1,8 +1,9 @@
 """whitebox_tpu_torch.ops.mix_cuda's plain mix against the JAX Pallas kernel (CPU).
 
 ``mix_reference`` is the CUDA kernel's function in plain PyTorch; here it
-is held against the JAX kernel run in interpret mode on the same carve,
-against the NumPy segment reference, and against itself fed the JAX plan.
+is held against the JAX kernel run in interpret mode on the same session
+(each package carving its own copy), against the JAX package's NumPy
+segment reference, and against itself fed the JAX plan.
 
 Tolerances:
 - speed-1 sessions: bit-equal (``np.array_equal``) to both the JAX kernel
@@ -40,10 +41,10 @@ def assert_ulp_contract(got, ref, max_ulps=2, abs_tol=2.4e-7):
 
 @pytest.mark.parametrize("name", CASES)
 def test_plain_mix_matches_pallas_and_reference(name):
-    s, _, tile, table, pool = carve_case(name)
-    jax_out = mix_pallas.render_timeline_pallas(table, pool, s, tile=tile, interpret=True)
-    ref = render_segments_numpy(table, pool, s)
-    out = mix_cuda.render_timeline_cuda(table, pool, s, tile=tile, device="cpu")
+    c = carve_case(name)
+    jax_out = mix_pallas.render_timeline_pallas(c.jtable, c.jpool, c.js, tile=c.tile, interpret=True)
+    ref = render_segments_numpy(c.jtable, c.jpool, c.js)
+    out = mix_cuda.render_timeline_cuda(c.table, c.pool, c.s, tile=c.tile, device="cpu")
     assert out.dtype == np.float32 and out.shape == ref.shape
     if name in SPEED1_CASES:
         np.testing.assert_array_equal(out, jax_out)
@@ -58,25 +59,25 @@ def test_plain_mix_matches_pallas_and_reference(name):
 def test_resampled_port_tracks_f64_reference(name):
     # the unfused lerp: no more samples off the exact-phase NumPy reference
     # than the JAX kernel has, and at most one ulp anywhere
-    s, _, tile, table, pool = carve_case(name)
-    ref = render_segments_numpy(table, pool, s)
-    out = mix_cuda.render_timeline_cuda(table, pool, s, tile=tile, device="cpu")
-    jax_out = mix_pallas.render_timeline_pallas(table, pool, s, tile=tile, interpret=True)
+    c = carve_case(name)
+    ref = render_segments_numpy(c.jtable, c.jpool, c.js)
+    out = mix_cuda.render_timeline_cuda(c.table, c.pool, c.s, tile=c.tile, device="cpu")
+    jax_out = mix_pallas.render_timeline_pallas(c.jtable, c.jpool, c.js, tile=c.tile, interpret=True)
     assert (out != ref).sum() <= (jax_out != ref).sum()
     assert_ulp_contract(out, ref, max_ulps=1, abs_tol=0.0)
 
 
 @pytest.mark.parametrize("name", ["fast", "mixed_speeds", "loop_reverse"])
 def test_plan_from_pallas_renders_the_same(name):
-    s, _, tile, table, pool = carve_case(name)
-    jp = mix_pallas.build_plan(table, pool, s, tile=tile)
+    s, _, tile, table, pool, js, jtable, jpool = carve_case(name)
+    jp = mix_pallas.build_plan(jtable, jpool, js, tile=tile)
     own = mix_cuda.render_timeline_cuda(table, pool, s, tile=tile, device="cpu")
     via_jax = mix_cuda.render_timeline_cuda(table, pool, s, plan=mix_plan.plan_from_pallas(jp), device="cpu")
     np.testing.assert_array_equal(via_jax, own)
 
 
 def test_renderer_keeps_pool_resident_and_clips():
-    s, _, tile, table, pool = carve_case("fast")
+    s, _, tile, table, pool = carve_case("fast")[:5]
     r = mix_cuda.CudaMixRenderer(table, pool, s, device="cpu", tile=tile)
     dev = r.render_device()
     assert dev.shape == (2, r.plan.n_tiles * tile) and dev.dtype == torch.float32
@@ -90,17 +91,17 @@ def test_renderer_keeps_pool_resident_and_clips():
 
 def test_hard_clip_and_gain_order():
     # a loud session: the ordered sum passes +-1 and must clip exactly there
-    s, _, tile, table, pool = carve_case("fast")
-    for t in s.tracks:
+    s, _, tile, table, pool, js, jtable, jpool = carve_case("fast")
+    for t in s.tracks + js.tracks:
         t.volume_db, t.mute = 18.0, False
     r = mix_cuda.CudaMixRenderer(table, pool, s, device="cpu", tile=tile)
     out = r.render()
     assert (np.abs(out) == 1.0).any() and np.abs(out).max() == 1.0
-    np.testing.assert_array_equal(out, render_segments_numpy(table, pool, s))
+    np.testing.assert_array_equal(out, render_segments_numpy(jtable, jpool, js))
 
 
 def test_dispatch_never_launches_on_cpu():
-    s, _, tile, table, pool = carve_case("mixed_speeds")
+    s, _, tile, table, pool = carve_case("mixed_speeds")[:5]
     r = mix_cuda.CudaMixRenderer(table, pool, s, device="cpu", tile=tile)
     before = mix_cuda.mix_kernel_launches
     p = r.plan
@@ -113,7 +114,7 @@ def test_dispatch_never_launches_on_cpu():
 
 
 def test_table_checks():
-    s, _, tile, table, pool = carve_case("fast")
+    s, _, tile, table, pool = carve_case("fast")[:5]
     r = mix_cuda.CudaMixRenderer(table, pool, s, device="cpu", tile=tile)
     p = r.plan
     bad = dict(r.tables, gain=r.tables["gain"].to(torch.float64))

@@ -15,8 +15,8 @@ import sys
 
 
 def _cmd_render(args) -> int:
-    from whitebox_tpu.core.formats import AudioFormat
-    from whitebox_tpu.session.project import read_project
+    from whitebox_tpu_torch.core.formats import AudioFormat
+    from whitebox_tpu_torch.session.project import read_project
     from whitebox_tpu_torch.render.bounce import bounce
 
     session = read_project(args.project)

@@ -6,7 +6,7 @@ ctypes idiom for native code: the sources are compiled at first use by
 ctypes. Nothing includes PyTorch's headers, so a build takes seconds.
 
 - The library lands in ``build/kernels/<hash of the sources and flags>/``
-  beside the package (``build/`` is git-ignored), so an edited source
+  beside the package (``buildlib.build_shared``), so an edited source
   builds anew and an unchanged one is reused.
 - A failed ``nvcc`` raises with its stderr. There is no retry and no
   fallback: on a CUDA device the mix goes through the kernel or raises.
@@ -17,16 +17,13 @@ ctypes. Nothing includes PyTorch's headers, so a build takes seconds.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
-import subprocess
-import time
 from pathlib import Path
 
-_PKG = Path(__file__).resolve().parent.parent
-CSRC_DIR = _PKG / "csrc"
-BUILD_ROOT = _PKG.parent / "build" / "kernels"
+from whitebox_tpu_torch import buildlib
+
+CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 LIB_NAME = "libwbtorch_kernels.so"
 
 NVCC_FLAGS = (
@@ -41,8 +38,8 @@ _LIB: ctypes.CDLL | None = None
 last_build_seconds = 0.0
 
 
-def _sources() -> list[Path]:
-    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+def _sources() -> tuple[list[Path], list[Path]]:
+    return sorted(CSRC_DIR.glob("*.cu")), sorted(CSRC_DIR.glob("*.cuh"))
 
 
 def find_nvcc() -> str:
@@ -57,32 +54,16 @@ def find_nvcc() -> str:
 
 
 def build_dir() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    return BUILD_ROOT / h.hexdigest()[:16]
+    srcs, headers = _sources()
+    return buildlib.content_dir("kernels", NVCC_FLAGS, [*srcs, *headers])
 
 
 def build() -> Path:
     """Compile ``csrc/*.cu`` unless this exact source set is built already."""
     global last_build_seconds
-    out_dir = build_dir()
-    so = out_dir / LIB_NAME
-    if so.is_file():
-        last_build_seconds = 0.0
-        return so
-    out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, so)  # atomic: concurrent builders never see a partial library
-    last_build_seconds = time.perf_counter() - t0
+    srcs, headers = _sources()
+    so, last_build_seconds = buildlib.build_shared(find_nvcc(), NVCC_FLAGS, srcs, "kernels",
+                                                   LIB_NAME, headers=headers)
     return so
 
 
@@ -93,8 +74,12 @@ def load() -> ctypes.CDLL:
         return _LIB
     lib = ctypes.CDLL(str(build()))
     vp, ci = ctypes.c_void_p, ctypes.c_int
+    # wb_mix_linear: 17 pointers, 5 ints (n_tiles, T, K, C, tile), the stream
     lib.wb_mix_linear.restype = ci
-    # 17 pointers, 5 ints (n_tiles, T, K, C, tile), the stream
     lib.wb_mix_linear.argtypes = [vp] * 17 + [ci] * 5 + [vp]
+    # wb_mix_auto: the same, then 10 lane-table pointers (volume xs/ys/cv/tn,
+    # pan xs/ys/cv/tn, mute, use) and the points per lane P
+    lib.wb_mix_auto.restype = ci
+    lib.wb_mix_auto.argtypes = [vp] * 17 + [ci] * 5 + [vp] * 10 + [ci, vp]
     _LIB = lib
     return _LIB

@@ -1,17 +1,22 @@
-"""The timeline mix on the card: CUDA kernel wrapper, plain twin, renderer.
+"""The timeline mix on the card: CUDA kernel wrappers, plain twins, renderer.
 
 Counterpart of the kernel half of ``whitebox_tpu/ops/mix_pallas.py``
 (``_mix_call`` at :603-648, ``PallasMixRenderer`` and
 ``render_timeline_pallas`` at :651-786). One launch of the hand-written
 kernel in ``csrc/mix_kernel.cu`` renders the whole timeline ``[C, F]``:
 ordered track sum, linear resampling, fades, clip gain, track volume*pan
-and the hard clip.
+and the hard clip. The kernel has two variants:
 
-- :func:`mix_cuda` launches the kernel on CUDA tensors (or raises).
-- :func:`mix_reference` is the same function in plain PyTorch: the same
-  f32 operations in the same order, so on any device it is bit-identical
-  to the kernel. The CPU tests run it; ``chip_smoke.py`` holds the kernel
-  against it on the card.
+- ``mix_linear`` (K1 + K2-linear): constant track gains;
+- ``mix_auto`` (+ K3): per-frame volume/pan from the tracks' automation
+  lanes, where a track has any.
+
+- :func:`mix_cuda` / :func:`mix_auto_cuda` launch a variant on CUDA
+  tensors (or raise), each counting its launches.
+- :func:`mix_reference` / :func:`mix_auto_reference` are the same
+  functions in plain PyTorch: the same f32 operations in the same order.
+  The CPU tests run them; ``chip_smoke.py`` holds the kernels against them
+  on the card.
 - :func:`mix` picks by the pool's device: the CPU gets the plain version,
   a CUDA device gets the kernel. Nothing hands CUDA work to the plain
   version or to the CPU.
@@ -25,23 +30,32 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from whitebox_tpu.session.session import Session
-from whitebox_tpu.timeline.carve import SegmentTable
-from whitebox_tpu.timeline.pool import SamplePool
 from whitebox_tpu_torch.device import resolve_device
 from whitebox_tpu_torch.ops import cuda_build
+from whitebox_tpu_torch.ops.automation import eval_lanes, pan_coef
 from whitebox_tpu_torch.ops.dsarith import phase_eval
 from whitebox_tpu_torch.ops.mix_plan import (
     SLOT_FIELDS, MixPlan, build_plan, check_pool_bounds,
 )
+from whitebox_tpu_torch.session.session import Session
+from whitebox_tpu_torch.timeline.carve import SegmentTable
+from whitebox_tpu_torch.timeline.pool import SamplePool
 
-#: launches of the CUDA mix kernel in this process; :func:`mix_cuda` adds
-#: one per launch and nothing else touches it (callers may reset it to 0)
+#: launches of the CUDA mix kernel without automation in this process;
+#: :func:`mix_cuda` adds one per launch and nothing else touches it
+#: (callers may reset it to 0)
 mix_kernel_launches = 0
+#: launches of the automation variant; :func:`mix_auto_cuda` adds one per
+#: launch and nothing else touches it
+mix_auto_launches = 0
 
 #: plan tables in the kernel's argument order
 TABLE_FIELDS = ("src_start",) + SLOT_FIELDS + ("track_gain",)
 _INT_FIELDS = frozenset(("src_start", "ms", "me", "clampf", "fin_start", "fout_end", "is_slow"))
+#: lane tables in the automation kernel's argument order: volume lane
+#: xs/ys/cv/tn [T, P], pan lane xs/ys/cv/tn [T, P], mute [T], use [T]
+AUTO_FIELDS = ("vxs", "vys", "vcv", "vtn", "pxs", "pys", "pcv", "ptn", "mute", "use")
+_AUTO_INT = frozenset(("vxs", "vcv", "pxs", "pcv", "use"))
 
 
 def _check_args(pool: torch.Tensor, tables: dict, n_tiles: int, tile: int, channels: int) -> None:
@@ -59,6 +73,33 @@ def _check_args(pool: torch.Tensor, tables: dict, n_tiles: int, tile: int, chann
                              f"got {x.dtype} {tuple(x.shape)} on {x.device}")
 
 
+def _check_auto(pool: torch.Tensor, tables: dict, auto: dict) -> int:
+    """Validate the lane tables against the plan's T -> points per lane P."""
+    T = tables["ms"].shape[1]
+    P = auto["vxs"].shape[-1] if auto["vxs"].dim() == 2 else 0
+    for f in AUTO_FIELDS:
+        x = auto[f]
+        want = (T,) if f in ("mute", "use") else (T, P)
+        dtype = torch.int32 if f in _AUTO_INT else torch.float32
+        if P < 1 or tuple(x.shape) != want or x.dtype != dtype or x.device != pool.device \
+                or not x.is_contiguous():
+            raise ValueError(f"lane table {f}: want contiguous {dtype} {want} on {pool.device}, "
+                             f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+    return P
+
+
+def _launch(entry, pool, tables, n_tiles, tile, channels, extra=()):
+    _, T, K = tables["ms"].shape
+    out = torch.empty((channels, n_tiles * tile), dtype=torch.float32, device=pool.device)
+    with torch.cuda.device(pool.device):
+        stream = torch.cuda.current_stream(pool.device).cuda_stream
+        rc = entry(pool.data_ptr(), *[tables[f].data_ptr() for f in TABLE_FIELDS],
+                   out.data_ptr(), n_tiles, T, K, channels, tile, *extra, stream)
+    if rc != 0:
+        raise RuntimeError(f"mix kernel launch failed: cudaError_t {rc}")
+    return out
+
+
 def mix_cuda(pool: torch.Tensor, tables: dict, n_tiles: int, tile: int, channels: int) -> torch.Tensor:
     """Launch the CUDA mix kernel -> ``[C, n_tiles*tile]`` f32 on the pool's card.
 
@@ -69,21 +110,32 @@ def mix_cuda(pool: torch.Tensor, tables: dict, n_tiles: int, tile: int, channels
     if pool.device.type != "cuda":
         raise ValueError(f"mix_cuda needs CUDA tensors, got {pool.device}")
     _check_args(pool, tables, n_tiles, tile, channels)
-    _, T, K = tables["ms"].shape
-    lib = cuda_build.load()
-    out = torch.empty((channels, n_tiles * tile), dtype=torch.float32, device=pool.device)
-    with torch.cuda.device(pool.device):
-        stream = torch.cuda.current_stream(pool.device).cuda_stream
-        rc = lib.wb_mix_linear(pool.data_ptr(), *[tables[f].data_ptr() for f in TABLE_FIELDS],
-                               out.data_ptr(), n_tiles, T, K, channels, tile, stream)
-    if rc != 0:
-        raise RuntimeError(f"mix kernel launch failed: cudaError_t {rc}")
+    out = _launch(cuda_build.load().wb_mix_linear, pool, tables, n_tiles, tile, channels)
     mix_kernel_launches += 1
     return out
 
 
-def mix_reference(pool: torch.Tensor, tables: dict, n_tiles: int, tile: int, channels: int) -> torch.Tensor:
-    """The CUDA kernel's function in plain PyTorch -> ``[C, n_tiles*tile]`` f32.
+def mix_auto_cuda(pool: torch.Tensor, tables: dict, auto: dict, n_tiles: int, tile: int,
+                  channels: int) -> torch.Tensor:
+    """Launch the automation variant of the CUDA mix kernel (K3) ->
+    ``[C, n_tiles*tile]`` f32. ``auto`` holds the :data:`AUTO_FIELDS`
+    tensors on the pool's card. Same contract as :func:`mix_cuda`."""
+    global mix_auto_launches
+    if pool.device.type != "cuda":
+        raise ValueError(f"mix_auto_cuda needs CUDA tensors, got {pool.device}")
+    _check_args(pool, tables, n_tiles, tile, channels)
+    P = _check_auto(pool, tables, auto)
+    out = _launch(cuda_build.load().wb_mix_auto, pool, tables, n_tiles, tile, channels,
+                  extra=(*[auto[f].data_ptr() for f in AUTO_FIELDS], P))
+    mix_auto_launches += 1
+    return out
+
+
+def _mix_plain(pool: torch.Tensor, tables: dict, n_tiles: int, tile: int, channels: int,
+               track_gain) -> torch.Tensor:
+    """Both kernels' function in plain PyTorch; ``track_gain(t, g)`` gives
+    track t's gain, broadcastable to ``[n_tiles, K, C, tile]``, at global
+    frames ``g`` ``[n_tiles, tile]``.
 
     Vectorised over ``[n_tiles, K, C, tile]`` per track, with a Python loop
     over tracks (index order) and slots (slot order) for the sum: every
@@ -91,11 +143,11 @@ def mix_reference(pool: torch.Tensor, tables: dict, n_tiles: int, tile: int, cha
     multiply and add as its own op (no lerp, addcmul or alpha, which fuse
     or reorder).
     """
-    _check_args(pool, tables, n_tiles, tile, channels)
     dev = pool.device
     _, T, K = tables["ms"].shape
     pos = torch.arange(tile, dtype=torch.int32, device=dev)
     pos64 = pos.to(torch.int64)
+    g = torch.arange(n_tiles, dtype=torch.int64, device=dev)[:, None] * tile + pos64
     acc = torch.zeros((n_tiles, channels, tile), dtype=torch.float32, device=dev)
     for t in range(T):
         col = {f: tables[f][:, t] for f in SLOT_FIELDS}  # each [nt, K]
@@ -125,7 +177,7 @@ def mix_reference(pool: torch.Tensor, tables: dict, n_tiles: int, tile: int, cha
         env = env * torch.clamp((col["fout_end"][..., None] - pos).to(torch.float32)
                                 * col["fout_inv"][..., None], 0.0, 1.0)
         scaled = (v * col["gain"][..., None, None]) * env[:, :, None, :]
-        scaled = scaled * tables["track_gain"][t][:, None]
+        scaled = scaled * track_gain(t, g)
         contrib = torch.where(mask[:, :, None, :], scaled, 0.0)
         # the kernel skips inactive slots; here they add +0.0, which never
         # changes an accumulator that starts at +0.0 and only grows by adds
@@ -136,21 +188,82 @@ def mix_reference(pool: torch.Tensor, tables: dict, n_tiles: int, tile: int, cha
     return acc.permute(1, 0, 2).reshape(channels, n_tiles * tile)
 
 
-def mix(pool: torch.Tensor, tables: dict, n_tiles: int, tile: int, channels: int) -> torch.Tensor:
-    """The mix on the pool's device: the kernel on CUDA, the plain version on the CPU."""
+def mix_reference(pool: torch.Tensor, tables: dict, n_tiles: int, tile: int, channels: int) -> torch.Tensor:
+    """The CUDA kernel's function in plain PyTorch -> ``[C, n_tiles*tile]`` f32.
+    Bit-identical to :func:`mix_cuda` on any device."""
+    _check_args(pool, tables, n_tiles, tile, channels)
+    return _mix_plain(pool, tables, n_tiles, tile, channels,
+                      lambda t, g: tables["track_gain"][t][:, None])
+
+
+def auto_gains(auto: dict, t: int, g: torch.Tensor, channels: int) -> torch.Tensor:
+    """Track ``t``'s per-frame gains ``[..., C, F]`` at global frames ``g``
+    ``[..., F]``: ``(vol * coef_ch) * mute`` (``mix_pallas.py:443-460``)."""
+    vol = eval_lanes({k: auto["v" + k][t] for k in ("xs", "ys", "cv", "tn")}, g)
+    pan = eval_lanes({k: auto["p" + k][t] for k in ("xs", "ys", "cv", "tn")}, g)
+    return torch.stack([(vol * pan_coef(pan, ch)) * auto["mute"][t] for ch in range(channels)],
+                       dim=-2)
+
+
+def mix_auto_reference(pool: torch.Tensor, tables: dict, auto: dict, n_tiles: int, tile: int,
+                       channels: int) -> torch.Tensor:
+    """The automation kernel's function in plain PyTorch -> ``[C, n_tiles*tile]``.
+
+    Tracks with ``use[t] == 0`` take the constant ``track_gain`` exactly
+    as :func:`mix_reference` does (bit-equal); the others take
+    :func:`auto_gains`. Against the kernel on the card the lane values
+    agree to the ulps of ``sin``/``exp``/``pow`` (``chip_smoke.py``)."""
+    _check_args(pool, tables, n_tiles, tile, channels)
+    _check_auto(pool, tables, auto)
+    use = auto["use"].tolist()
+
+    def track_gain(t, g):
+        if not use[t]:
+            return tables["track_gain"][t][:, None]
+        return auto_gains(auto, t, g, channels)[:, None]  # [nt, 1, C, tile]
+
+    return _mix_plain(pool, tables, n_tiles, tile, channels, track_gain)
+
+
+def mix(pool: torch.Tensor, tables: dict, n_tiles: int, tile: int, channels: int,
+        auto: dict | None = None) -> torch.Tensor:
+    """The mix on the pool's device: the kernel on CUDA, the plain version
+    on the CPU; the automation variant when ``auto`` lane tables are given."""
     if pool.device.type == "cuda":
-        return mix_cuda(pool, tables, n_tiles, tile, channels)
+        if auto is None:
+            return mix_cuda(pool, tables, n_tiles, tile, channels)
+        return mix_auto_cuda(pool, tables, auto, n_tiles, tile, channels)
     if pool.device.type == "cpu":
-        return mix_reference(pool, tables, n_tiles, tile, channels)
+        if auto is None:
+            return mix_reference(pool, tables, n_tiles, tile, channels)
+        return mix_auto_reference(pool, tables, auto, n_tiles, tile, channels)
     raise ValueError(f"no mix for device {pool.device}")
 
 
+def auto_tables_to_device(auto_tables, device: torch.device) -> dict:
+    """Host lane tables ``(vol, pan, mute, use)`` (``render/effects_pipeline.
+    prepare_automation_tables_host``) -> the :data:`AUTO_FIELDS` tensors."""
+    vol, pan, mute, use = auto_tables
+    host = {**{"v" + k: vol[k] for k in ("xs", "ys", "cv", "tn")},
+            **{"p" + k: pan[k] for k in ("xs", "ys", "cv", "tn")},
+            "mute": mute, "use": use}
+    return {f: torch.from_numpy(np.ascontiguousarray(
+                host[f], dtype=np.int32 if f in _AUTO_INT else np.float32)).to(device)
+            for f in AUTO_FIELDS}
+
+
 class CudaMixRenderer:
-    """Holds the plan tables and the pool on the device; renders in one launch."""
+    """Holds the plan tables and the pool on the device; renders in one launch.
+
+    ``auto_tables`` (host lane tables from ``prepare_automation_tables_host``)
+    selects the automation variant: volume/pan lanes evaluate per frame
+    inside the one launch, as the JAX package's fused single pass does.
+    """
 
     def __init__(self, table: SegmentTable, pool: SamplePool, session: Session, *,
                  device=None, channels: int = 2, tile: int | None = None,
-                 plan: MixPlan | None = None, pool_device: torch.Tensor | None = None) -> None:
+                 plan: MixPlan | None = None, pool_device: torch.Tensor | None = None,
+                 auto_tables=None) -> None:
         self.device = resolve_device(device)
         self.plan = plan or build_plan(table, pool, session, channels=channels, tile=tile)
         if pool_device is None:
@@ -162,11 +275,12 @@ class CudaMixRenderer:
         self.pool_device = pool_device
         self.tables = {f: torch.from_numpy(np.ascontiguousarray(getattr(self.plan, f))).to(self.device)
                        for f in TABLE_FIELDS}
+        self.auto = None if auto_tables is None else auto_tables_to_device(auto_tables, self.device)
 
     def render_device(self) -> torch.Tensor:
         """Full render, output stays on the device: ``[C, n_tiles*tile]`` f32."""
         p = self.plan
-        return mix(self.pool_device, self.tables, p.n_tiles, p.tile, p.channels)
+        return mix(self.pool_device, self.tables, p.n_tiles, p.tile, p.channels, auto=self.auto)
 
     def render(self) -> np.ndarray:
         """``[C, total_frames]`` f32 on the host."""

@@ -26,10 +26,11 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from whitebox_tpu.session.session import Session
-from whitebox_tpu.timeline.carve import SegmentTable
-from whitebox_tpu.timeline.pool import MAX_TILE_FRAMES, SamplePool
+from whitebox_tpu_torch.io import native
 from whitebox_tpu_torch.ops.dsarith import split_f64
+from whitebox_tpu_torch.session.session import Session
+from whitebox_tpu_torch.timeline.carve import SegmentTable
+from whitebox_tpu_torch.timeline.pool import MAX_TILE_FRAMES, SamplePool
 
 DEFAULT_TILE = 32768  # largest tile; halved on slot overflow (build_plan tile=None)
 MIN_TILE = 1024       # slot-overflow backoff floor
@@ -227,11 +228,9 @@ def build_plan(
                   num_tracks=T, channels=channels, total_frames=table.total_frames)
 
     # ---- fast-only tables: the native row expansion (io/native.py) ----
-    from whitebox_tpu.io import native as _native
-
     nat = None
     if len(table) and not any_slow:
-        nat = _native.build_mix_plan(table, pool, channels, tile, n_tiles, T, K)
+        nat = native.build_mix_plan(table, pool, channels, tile, n_tiles, T, K)
     if nat is not None:
         row_al, delta, ms, me, gain, clampf, fin_start, fin_inv, fout_end, fout_inv = nat
         zl = np.zeros((n_tiles, T, K), dtype=np.int32)

@@ -1,16 +1,20 @@
 """Offline bounce: session -> mixed audio (and WAV export) on the card.
 
-Counterpart of ``whitebox_tpu/render/bounce.py:117-442`` on its plain
-surface: audio clips (any loop mode, fades, clip gain, speed), track
-volume/pan/mute, the ordered track sum and the hard clip, with
+Counterpart of ``whitebox_tpu/render/bounce.py:117-442`` on the surface
+ported so far: audio clips (any loop mode, fades, clip gain, speed), track
+volume/pan/mute, volume/pan automation lanes (any of the nine curves,
+under a tempo map too), the ordered track sum and the hard clip, with
 ``interpolation="linear"``. The path is the JAX package's Pallas branch:
 carve with ``slow_emit="runs"``, plan the slots, one launch of the CUDA mix
-kernel, trim, write WAV through ``whitebox_tpu.io.wav``.
+kernel (its automation variant when a track has lanes,
+``bounce.py:316-333``), trim, write WAV through ``io/wav.py``.
 
 Every other feature raises ``NotImplementedError`` naming the ROADMAP.md
-item (queue 1) that ports it. A slot overflow that survives the tile
-backoff raises too: the JAX package's fallback to its XLA gather mix is not
-ported yet, and a silent switch would hide the kernel.
+item (queue 1) that ports it: effect chains, effect-parameter and master
+lanes, MIDI, routing, and other interpolations. A slot overflow that
+survives the tile backoff raises too: the JAX package's fallback to its
+XLA gather mix is not ported yet, and a silent switch would hide the
+kernel.
 """
 
 from __future__ import annotations
@@ -19,25 +23,21 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from whitebox_tpu.core.formats import AudioFormat
-from whitebox_tpu.session.bus import session_has_routing
-from whitebox_tpu.session.session import Session
-from whitebox_tpu.timeline.carve import carve_session
+from whitebox_tpu_torch.core.formats import AudioFormat
 from whitebox_tpu_torch.device import resolve_device
+from whitebox_tpu_torch.io.wav import write_wav
 from whitebox_tpu_torch.ops import cuda_build
+from whitebox_tpu_torch.ops.automation import session_has_effect_automation
 from whitebox_tpu_torch.ops.mix_cuda import CudaMixRenderer
 from whitebox_tpu_torch.ops.mix_plan import SlotOverflow, build_plan
+from whitebox_tpu_torch.render.effects_pipeline import (
+    prepare_automation_tables_host, session_has_effects,
+)
 from whitebox_tpu_torch.render.metrics import DeviceTimer, RenderStats, Stopwatch, device_name
-
-
-def session_has_effects(session) -> bool:
-    """``whitebox_tpu/render/effects_pipeline.py::session_has_effects``."""
-    return bool(session.master_effects) or any(t.effects for t in session.tracks)
-
-
-def session_has_automation(session) -> bool:
-    """``whitebox_tpu/ops/automation.py::session_has_automation``."""
-    return any(t.automation is not None for t in session.tracks)
+from whitebox_tpu_torch.session.bus import session_has_routing
+from whitebox_tpu_torch.session.session import Session
+from whitebox_tpu_torch.timeline.carve import carve_session
+from whitebox_tpu_torch.timeline.transport import BlockTransport
 
 
 def session_has_midi(session) -> bool:
@@ -48,8 +48,8 @@ def session_has_midi(session) -> bool:
 
 def _check_supported(session: Session, interpolation: str) -> None:
     todo = [
-        (session_has_automation(session), "automation lanes",
-         "item 2 (automation lanes in the kernel, K3)"),
+        (session_has_effect_automation(session), "effect-parameter or master automation lanes",
+         "items 3 and 6 (per-track mode K4 + finishers; generic effects)"),
         (session_has_effects(session), "effect chains",
          "items 3 and 6 (per-track mode K4 + finishers; generic effects)"),
         (session_has_midi(session), "MIDI clips", "item 5 (MIDI synth)"),
@@ -95,12 +95,11 @@ def bounce(
     carving semantics, not the device schedule. ``tail_seconds`` renders
     past the last clip edge (ignored when ``num_blocks`` is given). On the
     CPU (``device="cpu"``) the plain PyTorch mix renders the same audio.
+    ``stats.carve_seconds`` includes the lane packing and table upload.
     """
     dev = resolve_device(device)
     _check_supported(session, interpolation)
     if num_blocks is None and tail_seconds > 0.0:
-        from whitebox_tpu.timeline.transport import BlockTransport
-
         tr_ = BlockTransport(float(sample_rate), int(buffer_size),
                              session.beat_duration, session.playhead_start,
                              tempo_map=getattr(session, "tempo_map", None))
@@ -120,7 +119,10 @@ def bounce(
         raise SlotOverflow(
             f"{e} even at the smallest tile; the XLA gather fallback "
             "(whitebox_tpu/ops/mix.py) is ROADMAP.md queue 1, item 1") from e
-    renderer = CudaMixRenderer(table, pool, session, device=dev, channels=channels, plan=plan)
+    # automation-only sessions evaluate the volume/pan lanes in the kernel
+    # (the JAX package's fused single pass, bounce.py:316-333)
+    renderer = CudaMixRenderer(table, pool, session, device=dev, channels=channels, plan=plan,
+                               auto_tables=prepare_automation_tables_host(session, sample_rate))
     stats.carve_seconds = watch.lap()
     if dev.type == "cuda":
         cuda_build.load()  # nvcc at first use in the process, not in the mix time
@@ -138,7 +140,5 @@ def bounce(
     stats.frames = out.shape[1]
     stats.wall_seconds = stats.carve_seconds + stats.device_seconds
     if out_path is not None:
-        from whitebox_tpu.io.wav import write_wav
-
         write_wav(out_path, out, int(sample_rate), out_format, dither=out_dither)
     return BounceResult(audio=out, stats=stats)

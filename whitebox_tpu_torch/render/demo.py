@@ -1,18 +1,18 @@
 """Synthetic session builders for benches and demos.
 
-A JAX-free copy of ``whitebox_tpu/render/demo.py`` (that module's package
-``__init__`` loads JAX). Same arguments, same session: both builders draw
-from ``numpy.random.default_rng(seed)`` in the same order, so the sessions
-have equal ``edit_stamp()``s.
+A copy of ``whitebox_tpu/render/demo.py`` on the port's session model.
+Same arguments, same session: both builders draw from
+``numpy.random.default_rng(seed)`` in the same order, so the sessions carve
+to the same tables.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from whitebox_tpu.core.formats import AudioFormat
-from whitebox_tpu.session import Session
-from whitebox_tpu.session.sample import Sample
+from whitebox_tpu_torch.core.formats import AudioFormat
+from whitebox_tpu_torch.session import Session
+from whitebox_tpu_torch.session.sample import Sample
 
 
 def make_demo_session(
