@@ -5,8 +5,10 @@
 
 Runs from the root of a checkout. It drives the port's main paths through
 ``bounce(device="cuda")``: the offline bounce of a 128-track, 60 s, 48 kHz
-session through the hand-written CUDA mix kernel, and automated sessions
-through its automation variant (K3). It checks the results by the repo's
+session through the hand-written CUDA mix kernel, automated sessions
+through its automation variant (K3), and the same 128-track session with
+an EQ on every track and a highpass on the master through its per-track
+mode (K4) and the linear finishers. It checks the results by the repo's
 own references. It imports nothing of JAX or of the JAX package and reads
 no ``.wb`` project. Phases, one or more lines each:
 
@@ -18,11 +20,13 @@ no ``.wb`` project. Phases, one or more lines each:
 3. kernel vs plain version on small sessions: the mix kernel bit-equal to
    the plain PyTorch mix on the card; against the NumPy segment reference
    bit-equal at speed 1 and within the resampling contract (<= 2 ulp or
-   <= 2.4e-7) otherwise; an 8-track speed-1 bounce bit-equal to the NumPy
-   oracle; the automation variant within atol 3e-6 / rtol 1e-5 of its
-   plain version (linear lanes, all nine curves, fades, a muted automated
-   track) and within relative RMS 1e-5 of the f64 host reference, and a
-   constant-0 volume lane bit-equal to a muted track;
+   <= 2.4e-7) otherwise; the per-track kernel on the same sessions against
+   its plain version and ``render_segments_per_track_numpy`` (bit-equal at
+   speed 1, the resampling contract otherwise); an 8-track speed-1 bounce
+   bit-equal to the NumPy oracle; the automation variant within atol 3e-6
+   / rtol 1e-5 of its plain version (linear lanes, all nine curves, fades,
+   a muted automated track) and within relative RMS 1e-5 of the f64 host
+   reference, and a constant-0 volume lane bit-equal to a muted track;
 4. headline and headline_resampled: ``bounce(device="cuda")`` of the
    128-track session with the launch counts reset just before, bit-equal
    to the NumPy segment reference; then 5 warm carve+plan+upload+kernel
@@ -31,7 +35,14 @@ no ``.wb`` project. Phases, one or more lines each:
    benchmark configs 2 and 7): the same through the automation variant,
    held to relative RMS 1e-5 of the f64 host reference, lane packing
    counted in the host legs;
-6. one JSON line of kernels, then the last line
+6. effects_eq_128trk (config 5): ``bounce(device="cuda")`` with
+   ``effects_mode="fir"`` and ``"scan"``, per-track launches counted; the
+   per-track buffers bit-equal to ``render_segments_per_track_numpy``
+   track by track; both modes against an f64 reference (scipy ``sosfilt``)
+   within relative RMS 2e-4 (fir) and 5e-5 (scan), and within 5e-4 of each
+   other; 5 warm iterations with the IR preparation, the per-track kernel,
+   both finishers and the plain per-track version timed;
+7. one JSON line of kernels, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Exits non-zero, printing no result, when CUDA is unavailable, when the
@@ -108,6 +119,7 @@ def reset_launches() -> None:
 
     mix_cuda.mix_kernel_launches = 0
     mix_cuda.mix_auto_launches = 0
+    mix_cuda.mix_per_track_launches = 0
 
 
 # ---------------------------------------------------------------- sessions
@@ -243,6 +255,23 @@ def automation_tempo_128trk(duration=60.0):
     return s
 
 
+def effects_eq_128trk(duration=60.0):
+    """The JAX package's benchmark config 5 (``benchmarks/run_all.py:362-374``):
+    the headline session (128 tracks, seed 7) with a 3-band ParametricEQ on
+    every track and a 25 Hz highpass on the master bus."""
+    from whitebox_tpu_torch.effects import Biquad, EffectChain, ParametricEQ
+    from whitebox_tpu_torch.render.demo import make_demo_session
+
+    s = make_demo_session(n_tracks=128, duration_seconds=duration, sample_rate=48000, seed=7)
+    for i, tr in enumerate(s.tracks):
+        tr.effects = EffectChain([ParametricEQ([
+            ("lowshelf", 100.0, 0.707, 2.0), ("peak", 1000.0 + 37.0 * i, 1.0, -1.5),
+            ("highshelf", 8000.0, 0.707, 1.0),
+        ])])
+    s.master_effects = EffectChain([Biquad("highpass", 25.0)])
+    return s
+
+
 # ---------------------------------------------------------------- phases
 
 
@@ -320,6 +349,47 @@ def kernel_vs_plain(name, session, tile=None):
           f"{'bit-equal' if fast else f'max {mu} ulp / {ma:.3g} abs'}")
 
 
+def per_track_vs_plain(name, session, tile=None):
+    """The per-track kernel (K4) vs its plain version on the card, and vs
+    the NumPy per-track segment reference: bit-equal at speed 1, within
+    the resampling contract otherwise."""
+    import numpy as np
+    import torch
+
+    from whitebox_tpu_torch.ops import mix_cuda
+    from whitebox_tpu_torch.timeline.carve import carve_session, render_segments_per_track_numpy
+
+    table, pool = carve_session(session, RATE, buffer_size=512, slow_emit="runs")
+    r = mix_cuda.CudaMixRenderer(table, pool, session, device="cuda", tile=tile)
+    p = r.plan
+    before = mix_cuda.mix_per_track_launches
+    got = r.render_device_per_track()
+    check(mix_cuda.mix_per_track_launches == before + 1, f"{name}: the per-track kernel did not launch")
+    plain = mix_cuda.mix_per_track_reference(r.pool_device, r.tables, p.n_tiles, p.tile, p.channels)
+    torch.cuda.synchronize()
+    g, q = got.cpu().numpy(), plain.cpu().numpy()
+    fast = bool(table.fast.all())
+    if fast:
+        check(np.array_equal(g, q), f"{name}: per-track kernel != plain version at speed 1")
+    else:
+        ok, mu, ma = ulp_contract(g, q)
+        check(ok, f"{name}: per-track kernel {mu} ulp / {ma:.3g} abs off its plain version")
+    out = g[:, :, : p.total_frames]
+    ref = render_segments_per_track_numpy(table, pool)
+    if fast:
+        check(np.array_equal(out, ref), f"{name}: per-track kernel != render_segments_per_track_numpy")
+        mu, ma = 0, 0.0
+    else:
+        ok, mu, ma = ulp_contract(out, ref)
+        check(ok, f"{name}: per-track kernel {mu} ulp / {ma:.3g} abs off render_segments_per_track_numpy")
+    check(not g[:, :, p.total_frames:].any(), f"{name}: per-track padding not silent")
+    check(float(np.abs(out).max()) > 0.01, f"{name}: silent per-track render")
+    kp_ulps = int(np.abs(g.view(np.int32).astype(np.int64) - q.view(np.int32).astype(np.int64)).max())
+    print(f"[kernel-vs-plain] {name}_per_track: tracks={p.num_tracks} tile={p.tile} "
+          f"out={tuple(got.shape)} kernel vs plain max {kp_ulps} ulp; vs "
+          f"render_segments_per_track_numpy {'bit-equal' if fast else f'max {mu} ulp / {ma:.3g} abs'}")
+
+
 def auto_vs_plain(name, session, tile=None):
     """The automation variant vs its plain version on the card (atol/rtol),
     and vs the f64 host reference (relative RMS)."""
@@ -362,12 +432,17 @@ def phase_kernel_vs_plain() -> None:
     from whitebox_tpu_torch.render.demo import make_demo_session
     from whitebox_tpu_torch.timeline.oracle import OracleRenderer
 
-    kernel_vs_plain("speed1_i16_i24_f32_fades", int_formats_session())
-    kernel_vs_plain("speed1_i16_i24_f32_fades_tile1024", int_formats_session(), tile=1024)
-    kernel_vs_plain("mixed_speeds_fades", make_demo_session(
-        n_tracks=8, duration_seconds=10.0, seed=3, fades=True,
-        clip_speeds=(1.0, 0.5, 44100 / 48000, 1.37)))
-    kernel_vs_plain("reverse_bidirectional", reverse_session())
+    small = {
+        "speed1_i16_i24_f32_fades": (int_formats_session(), None),
+        "speed1_i16_i24_f32_fades_tile1024": (int_formats_session(), 1024),
+        "mixed_speeds_fades": (make_demo_session(
+            n_tracks=8, duration_seconds=10.0, seed=3, fades=True,
+            clip_speeds=(1.0, 0.5, 44100 / 48000, 1.37)), None),
+        "reverse_bidirectional": (reverse_session(), None),
+    }
+    for name, (session, tile) in small.items():
+        kernel_vs_plain(name, session, tile=tile)
+        per_track_vs_plain(name, session, tile=tile)
 
     s = make_demo_session(n_tracks=8, duration_seconds=10.0, seed=5)
     oracle = OracleRenderer(s, RATE, buffer_size=512).render()
@@ -414,27 +489,28 @@ def _event_ms(torch, fn, iters):
     return statistics.median(ts), ts
 
 
-def bound(plan, pool_bytes: int, table_bytes: int, auto=None) -> dict:
+def bound(plan, pool_bytes: int, table_bytes: int, auto=None, per_track: bool = False) -> dict:
     """The least time the card could take for one mix of ``plan``: the
     larger of the bytes it must move (each input read once, the output
     written once) over HBM bandwidth and the f32 operations this run's data
     needs over the f32 peak. Operations counted per covered (slot, frame,
     channel): 5 for a speed-1 slot (gain, 2 envelope multiplies, track
-    gain, the add), 25 for a resampled one (+ the double-single phase and
-    the lerp); per automated (track, frame) covered by a slot: 2 lane
-    evaluations of 3 (divide and lerp), 2 for the pan position, and per
-    channel a sine counted as 1 plus 3 multiplies."""
+    gain, the add; 4 in the per-track mode, which has no track gain), 25
+    for a resampled one (+ the double-single phase and the lerp); per
+    automated (track, frame) covered by a slot: 2 lane evaluations of 3
+    (divide and lerp), 2 for the pan position, and per channel a sine
+    counted as 1 plus 3 multiplies. The per-track mode writes ``[T, C, F]``."""
     import numpy as np
 
     act = plan.me > plan.ms
     span = np.where(act, plan.me - plan.ms, 0).astype(np.int64)
     slow = plan.is_slow == 1
     C = plan.channels
-    ops = C * (5 * int(span.sum()) + 20 * int(span[slow].sum()))
+    ops = C * ((4 if per_track else 5) * int(span.sum()) + 20 * int(span[slow].sum()))
     if auto is not None:
         use = auto["use"].cpu().numpy().astype(bool)
         ops += (3 * 2 + 2 + 4 * C) * int(span[:, use].sum())
-    out_bytes = C * plan.n_tiles * plan.tile * 4
+    out_bytes = (plan.num_tracks if per_track else 1) * C * plan.n_tiles * plan.tile * 4
     bytes_ = out_bytes + pool_bytes + table_bytes
     t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
@@ -603,6 +679,172 @@ def phase_automation(torch) -> dict:
     return _kernel_entry(k, launches)
 
 
+#: the JAX package's bars against the f64 reference (tests/test_effects.py:83,
+#: tests/test_effects_pipeline.py:43,91,98): scan and FIR relative RMS, and
+#: scan vs FIR absolute
+SCAN_REL_RMS, FIR_REL_RMS, SCAN_FIR_ATOL = 5e-5, 2e-4, 5e-4
+
+
+def _run_chain_sosfilt(chain, x, sample_rate: float):
+    """A prepared LTI chain on ``x`` ``[C, F]`` f64 by ``scipy.signal.sosfilt``
+    (transposed direct form II in f64, a C loop) -> f64."""
+    import numpy as np
+    from scipy.signal import sosfilt
+
+    from whitebox_tpu_torch.effects import Biquad, Gain, ParametricEQ
+
+    if chain is None:
+        return x
+    chain.prepare(sample_rate, x.shape[0])
+    for e in chain.effects:
+        if isinstance(e, Gain):
+            x = x * float(e.gain_linear)
+            continue
+        secs = [e.coeffs] if isinstance(e, Biquad) else list(e.coeffs) if isinstance(e, ParametricEQ) else None
+        check(secs is not None, f"no f64 reference for effect {e!r}")
+        sos = np.array([[c.b0, c.b1, c.b2, 1.0, c.a1, c.a2] for c in secs], dtype=np.float64)
+        x = sosfilt(sos, x, axis=-1)
+    return x
+
+
+def effects_reference(session, per_track_dev, table, pool):
+    """The f64 reference of an effects bounce at full width, track by track
+    to bound host memory: each track's per-track kernel buffer read back,
+    held bit-equal to ``render_segments_per_track_numpy``, filtered by its
+    chain in f64 (sosfilt), times its constant f32 fader gain, summed in
+    f64; then the master chain, the clip and one rounding to f32 (the
+    arithmetic of ``reference_finish_mix``, whose per-sample Python filter
+    cannot take 128 x 2 x 2.88 M frames)."""
+    import numpy as np
+
+    from whitebox_tpu_torch.render.effects_pipeline import _chains_of
+    from whitebox_tpu_torch.timeline.carve import render_segments_per_track_numpy
+
+    check(not any(t.automation is not None for t in session.tracks), "lanes need reference_finish_mix")
+    pt_ref = render_segments_per_track_numpy(table, pool)
+    T, C, F = pt_ref.shape
+    chains, master = _chains_of(session)
+    total = np.zeros((C, F), dtype=np.float64)
+    for t, track in enumerate(session.tracks):
+        buf = per_track_dev[t, :, :F].cpu().numpy()
+        check(np.array_equal(buf, pt_ref[t]),
+              f"track {t}: per-track kernel != render_segments_per_track_numpy")
+        y = _run_chain_sosfilt(chains[t], buf.astype(np.float64), RATE)
+        vol = np.float32(0.0) if track.mute else track.volume_linear
+        pan = track.pan_coeffs
+        for ch in range(C):
+            total[ch] += y[ch] * float(np.float32(vol * np.float32(pan[ch % 2])))
+    total = _run_chain_sosfilt(master, total, RATE)
+    return np.clip(total, -1.0, 1.0).astype(np.float32)
+
+
+def phase_effects(torch) -> dict:
+    """``effects_eq_128trk`` (config 5): ``bounce(device="cuda")`` in "fir"
+    and in "scan" mode with the launch counts reset just before each, both
+    held to the f64 reference; then 5 warm carve+plan+upload+IR+K4+FIR
+    iterations, the per-track kernel, the finishers and the plain per-track
+    version timed by CUDA events."""
+    import numpy as np
+
+    from whitebox_tpu_torch.ops import mix_cuda
+    from whitebox_tpu_torch.ops.mix_plan import build_plan
+    from whitebox_tpu_torch.render.bounce import _effects_finisher, bounce
+    from whitebox_tpu_torch.render.effects_fir import prepare_fir_finish
+    from whitebox_tpu_torch.timeline.carve import carve_session
+
+    name, duration = "effects_eq_128trk", 60.0
+    session = effects_eq_128trk(duration)
+    runs = {}
+    for mode in ("fir", "scan"):
+        reset_launches()
+        res = bounce(session, RATE, device="cuda", effects_mode=mode)
+        n = mix_cuda.mix_per_track_launches
+        check(n > 0, f"{name} ({mode}): bounce never launched the per-track kernel")
+        check(mix_cuda.mix_kernel_launches == 0 and mix_cuda.mix_auto_launches == 0,
+              f"{name} ({mode}): an effects session took a summing kernel")
+        check(np.isfinite(res.audio).all(), f"{name} ({mode}): non-finite output")
+        runs[mode] = (res, n)
+        print(f"[{name}] bounce(device='cuda', effects_mode={mode!r}): {res.stats.summary()}; "
+              f"finisher {res.stats.finish_seconds * 1e3:.3f} ms; per-track kernel launches={n}")
+    launches = runs["fir"][1]
+
+    table, pool = carve_session(session, RATE, buffer_size=512, slow_emit="runs")
+    warm = mix_cuda.CudaMixRenderer(table, pool, session, device="cuda")
+    p = warm.plan
+    pt = warm.render_device_per_track()
+    t0 = time.perf_counter()
+    ref = effects_reference(session, pt, table, pool)
+    ref_s = time.perf_counter() - t0
+    fir, scan = runs["fir"][0].audio, runs["scan"][0].audio
+    check(fir.shape == ref.shape == scan.shape, f"{name}: shapes {fir.shape} {scan.shape} {ref.shape}")
+    rr_scan, rr_fir = rel_rms(scan, ref), rel_rms(fir, ref)
+    scan_fir = float(np.abs(scan.astype(np.float64) - fir).max())
+    check(rr_scan < SCAN_REL_RMS, f"{name}: scan relative RMS {rr_scan:.3g} off the f64 reference")
+    check(rr_fir < FIR_REL_RMS, f"{name}: fir relative RMS {rr_fir:.3g} off the f64 reference")
+    check(scan_fir <= SCAN_FIR_ATOL, f"{name}: scan vs fir max abs {scan_fir:.3g}")
+    check(float(np.abs(fir).max()) > 0.01, f"{name}: silent render")
+    print(f"[{name}] per-track kernel bit-equal to render_segments_per_track_numpy on all "
+          f"{p.num_tracks} tracks; vs f64 reference (sosfilt) relative RMS scan {rr_scan:.3g} "
+          f"(< {SCAN_REL_RMS}), fir {rr_fir:.3g} (< {FIR_REL_RMS}); scan vs fir max abs "
+          f"{scan_fir:.3g} (<= {SCAN_FIR_ATOL}); reference {ref_s:.1f} s on the host")
+
+    rows = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t_, p_ = carve_session(session, RATE, buffer_size=512, pool=pool, slow_emit="runs")
+        t1 = time.perf_counter()
+        plan = build_plan(t_, p_, session)
+        t2 = time.perf_counter()
+        r = mix_cuda.CudaMixRenderer(t_, p_, session, device="cuda", plan=plan,
+                                     pool_device=warm.pool_device)
+        t3 = time.perf_counter()
+        finish = prepare_fir_finish(session, RATE, r.tables["track_gain"], None, p.channels,
+                                    device="cuda")
+        t4 = time.perf_counter()
+        finish(r.render_device_per_track())
+        torch.cuda.synchronize()
+        t5 = time.perf_counter()
+        rows.append((t1 - t0, t2 - t1, t3 - t2, t4 - t3, t5 - t4, t5 - t0))
+    carve_s, plan_s, upload_s, ir_s, launch_s, e2e_med = (statistics.median(c) for c in zip(*rows))
+    e2e_best = min(row[-1] for row in rows)
+
+    args = (warm.pool_device, warm.tables, p.n_tiles, p.tile, p.channels)
+    fir_finish = prepare_fir_finish(session, RATE, warm.tables["track_gain"], None, p.channels,
+                                    device="cuda")
+    scan_finish = _effects_finisher(session, warm, p, RATE, p.channels, "scan", False,
+                                    torch.device("cuda"))
+    kernel_ms, kernel_all = _event_ms(torch, lambda: mix_cuda.mix_per_track_cuda(*args), 20)
+    fir_ms, _ = _event_ms(torch, lambda: fir_finish(pt), 5)
+    scan_ms, _ = _event_ms(torch, lambda: scan_finish(pt), 1)
+    plain_ms, _ = _event_ms(torch, lambda: mix_cuda.mix_per_track_reference(*args), 1)
+    got, plain = mix_cuda.mix_per_track_cuda(*args), mix_cuda.mix_per_track_reference(*args)
+    max_abs = float((got - plain).abs().max())
+    check(torch.equal(got, plain), f"{name}: per-track kernel != plain version (max abs {max_abs:.3g})")
+    del got, plain
+    table_bytes = sum(t.numel() * t.element_size() for t in warm.tables.values())
+    stats = {
+        "cell": name, "tracks": p.num_tracks, "audio_seconds": duration,
+        "frames": int(p.total_frames), "tile": p.tile, "n_tiles": p.n_tiles, "K": p.max_slots,
+        "active_slots": int((p.me > p.ms).sum()), "pool_mb": pool.data.nbytes / 1e6,
+        "per_track_gb": p.num_tracks * p.channels * p.n_tiles * p.tile * 4 / 1e9,
+        "e2e_ms_median": e2e_med * 1e3, "e2e_ms_best": e2e_best * 1e3,
+        "rtf_median": duration / e2e_med, "rtf_best": duration / e2e_best,
+        "carve_ms": carve_s * 1e3, "plan_ms": plan_s * 1e3, "upload_ms": upload_s * 1e3,
+        "ir_ms": ir_s * 1e3, "launch_to_sync_ms": launch_s * 1e3,
+        "kernel_ms_median": kernel_ms, "kernel_ms_min": min(kernel_all), "plain_ms_median": plain_ms,
+        "fir_finish_ms": fir_ms, "scan_finish_ms": scan_ms,
+        "output_gb_per_s": p.num_tracks * p.channels * p.n_tiles * p.tile * 4 / (kernel_ms * 1e-3) / 1e9,
+        "kernel_vs_plain_max_abs": max_abs, "scan_rel_rms": rr_scan, "fir_rel_rms": rr_fir,
+        "scan_vs_fir_max_abs": scan_fir, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        **bound(p, pool.data.nbytes, table_bytes, per_track=True),
+    }
+    print(f"[{name}] " + json.dumps(stats))
+    print(f"[{name}] " + sh(["nvidia-smi", "--query-gpu=name,power.limit,power.draw,clocks.sm,"
+                             "temperature.gpu", "--format=csv,noheader"]))
+    return _kernel_entry(stats, launches)
+
+
 def main() -> int:
     try:
         import torch
@@ -624,6 +866,7 @@ def main() -> int:
     phase_kernel_vs_plain()
     linear = phase_headline(torch)
     auto = phase_automation(torch)
+    per_track = phase_effects(torch)
     check("jax" not in sys.modules and "whitebox_tpu" not in sys.modules,
           "the port loaded jax or the JAX package")
     src = "whitebox_tpu_torch/csrc/mix_kernel.cu"
@@ -632,6 +875,8 @@ def main() -> int:
          "replaces": "whitebox_tpu/ops/mix_pallas.py:407", **linear},
         {"name": "mix_automation", "route": "cuda", "source": src,
          "replaces": "whitebox_tpu/ops/mix_pallas.py:384-460", **auto},
+        {"name": "mix_per_track", "route": "cuda", "source": src,
+         "replaces": "whitebox_tpu/ops/mix_pallas.py:431-436,581-593,608-610", **per_track},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["device"],
                                              "count": env["device_count"]}}))

@@ -180,7 +180,8 @@ def test_effect_and_master_lanes_still_raise(what):
         js.tracks[-1].automation = TrackAutomation(effects={(0, "gain_db"): AutomationLane().add(0.0, 0.5)})
     else:
         js.master_automation = {(0, "gain_db"): AutomationLane().add(0.0, 0.5)}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, items 3 and 6"):
+    # the time-varying biquad half and the generic pipeline are item 6
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 6"):
         bounce(from_reference(js), RATE, device="cpu")
 
 

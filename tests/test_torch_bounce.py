@@ -3,8 +3,11 @@
 The port's ``bounce(device="cpu")`` renders with the plain PyTorch mix,
 the CUDA kernel's twin; at speed 1 it must be bit-equal to the JAX
 package's ``bounce(engine="pallas")`` (interpret mode here) and to the
-NumPy oracle. Sessions are built with the JAX package's builders and
-carried to the port by ``from_reference``.
+NumPy oracle. With effect chains it runs the per-track mode's twin and the
+finishers: within relative RMS 1e-5 of the JAX bounce, and within the JAX
+package's bars of the f64 reference (scan 5e-5, FIR 2e-4). Sessions are
+made with the JAX package's session functions and carried to the port by
+``from_reference``.
 """
 
 import json
@@ -14,6 +17,7 @@ import pytest
 import torch
 
 from tests.test_carve import random_session
+from chip_smoke import rel_rms
 from tests.test_torch_mix import assert_ulp_contract
 from tests.test_torch_mix_plan import dense_session, make_case
 from whitebox_tpu.core.formats import AudioFormat
@@ -22,7 +26,7 @@ from whitebox_tpu.render.bounce import bounce as jax_bounce
 from whitebox_tpu.render.demo import make_demo_session as jax_make_demo_session
 from whitebox_tpu.session.project import write_project
 from whitebox_tpu.timeline.carve import carve_session as jax_carve_session
-from whitebox_tpu.timeline.carve import render_segments_numpy
+from whitebox_tpu.timeline.carve import render_segments_numpy, render_segments_per_track_numpy
 from whitebox_tpu.timeline.oracle import OracleRenderer
 from whitebox_tpu_torch import cli
 from whitebox_tpu_torch.device import resolve_device
@@ -109,17 +113,18 @@ def test_demo_session_matches_jax_builder():
 
 
 def _unsupported_sessions():
-    from whitebox_tpu.effects.gain import Gain
+    from whitebox_tpu.effects import Compressor, Limiter
     from whitebox_tpu.midi.notes import MidiNoteBuffer
     from whitebox_tpu.ops.automation import AutomationLane, TrackAutomation
 
     def base():
         return random_session(6, rate=48000, bpm=120.0, n_tracks=2, n_clips=1)
 
+    # linear chains render (K4 + finishers); dynamics are the generic pipeline
     s_fx = base()
-    s_fx.tracks[0].effects.append(Gain(-3.0))
+    s_fx.tracks[0].effects.append(Compressor(-18.0, 4.0))
     s_master = base()
-    s_master.master_effects.append(Gain(-1.0))
+    s_master.master_effects.append(Limiter(-0.3))
     s_lane = base()  # an effect-parameter lane (volume/pan lanes render, K3)
     s_lane.tracks[0].automation = TrackAutomation(effects={(0, "gain_db"): AutomationLane().add(0.0, 1.0)})
     s_midi = base()
@@ -140,6 +145,142 @@ def test_unsupported_features_raise(feature):
     s, kw = _unsupported_sessions()[feature]
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         bounce(s, 48000.0, device="cpu", **kw)
+
+
+def test_unported_effects_name_their_item():
+    s, _ = _unsupported_sessions()["effects"]
+    with pytest.raises(NotImplementedError, match="Compressor.*item 6"):
+        bounce(s, 48000.0, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 6"):
+        bounce(random_session(6, rate=48000, bpm=120.0, n_tracks=1, n_clips=1), 48000.0,
+               device="cpu", effects_mode="routed")
+    with pytest.raises(ValueError, match="effects_mode"):
+        bounce(random_session(6, rate=48000, bpm=120.0, n_tracks=1, n_clips=1), 48000.0,
+               device="cpu", effects_mode="bogus")
+
+
+def _eq_session(seed=10, n_tracks=3):
+    from tests.test_torch_effects import _add_chains
+
+    return _add_chains(random_session(seed, rate=48000, bpm=120.0, n_tracks=n_tracks, n_clips=2))
+
+
+def _f64_reference(js):
+    from whitebox_tpu.render.effects_pipeline import reference_finish_mix
+
+    table, pool = jax_carve_session(js, 48000.0, buffer_size=512)
+    return reference_finish_mix(render_segments_per_track_numpy(table, pool), js, 48000.0)
+
+
+@pytest.fixture(scope="module")
+def eq_case():
+    js = _eq_session()
+    return js, _f64_reference(js)
+
+
+@pytest.mark.parametrize("mode,bar", [("scan", 5e-5), ("fir", 2e-4)])
+def test_eq_bounce_matches_jax_pallas_and_f64_reference(eq_case, mode, bar):
+    js, ref = eq_case
+    before = mix_cuda.mix_per_track_launches
+    got = bounce(js, 48000.0, device="cpu", effects_mode=mode)
+    assert mix_cuda.mix_per_track_launches == before  # the CPU takes the plain twin
+    want = jax_bounce(js, 48000.0, engine="pallas", effects_mode=mode).audio
+    assert got.audio.shape == want.shape == ref.shape
+    assert rel_rms(got.audio, want) < 1e-5
+    assert rel_rms(got.audio, ref) < bar
+    assert got.stats.finish_seconds > 0 and got.stats.track_peak is None
+
+
+def test_eq_bounce_scan_and_fir_agree(eq_case):
+    js, _ = eq_case
+    a = bounce(js, 48000.0, device="cpu", effects_mode="scan").audio
+    b = bounce(js, 48000.0, device="cpu", effects_mode="fir").audio
+    np.testing.assert_allclose(a, b, atol=5e-4)
+
+
+def test_eq_bounce_meters_match_jax(eq_case):
+    js, _ = eq_case
+    got = bounce(js, 48000.0, device="cpu", meters=True, effects_mode="fir").stats
+    want = jax_bounce(js, 48000.0, engine="pallas", meters=True).stats
+    for f in ("track_peak", "track_rms", "output_peak", "output_rms"):
+        np.testing.assert_allclose(getattr(got, f), getattr(want, f), rtol=1e-5, atol=1e-7, err_msg=f)
+    assert got.track_peak.shape == (3, 2)
+
+
+def test_eq_bounce_with_lanes_and_plain_tracks():
+    # lanes evaluate in the finisher's gains; a track without a chain passes
+    # the identity sections
+    from tests.test_auto_kernel import _auto_session
+    from tests.test_torch_effects import _add_chains
+
+    js = _add_chains(_auto_session(seed=3), master=False)
+    got = bounce(js, 48000.0, device="cpu").audio
+    assert rel_rms(got, _f64_reference(js)) < 5e-5
+
+
+def test_eq_project_round_trips(tmp_path):
+    from whitebox_tpu_torch.effects import Biquad, EffectChain, Gain, ParametricEQ
+    from whitebox_tpu_torch.session.project import read_project
+    from whitebox_tpu_torch.session.project import write_project as port_write_project
+
+    js = _eq_session(seed=8)
+    wb = tmp_path / "eq.wb"
+    write_project(js, wb)
+    s = read_project(wb)
+    t0, t1 = s.tracks[0].effects, s.tracks[1].effects
+    assert isinstance(t0, EffectChain) and [type(e) for e in t0.effects] == [Biquad, Gain]
+    assert (t0.effects[0].ftype.value, t0.effects[0].freq_hz, t0.effects[1].gain_db) == ("lowpass", 2000.0, -3.0)
+    assert isinstance(t1.effects[0], ParametricEQ)
+    assert [(t.value, f, q, g) for (t, f, q, g) in t1.effects[0].bands] == \
+        [(t.value, f, q, g) for (t, f, q, g) in js.tracks[1].effects.effects[0].bands]
+    assert isinstance(s.master_effects.effects[0], Biquad)
+    # the port writes what it read, and renders it like the session itself
+    wb2 = tmp_path / "eq2.wb"
+    port_write_project(s, wb2)
+    s2 = read_project(wb2)
+    assert [type(e) for e in s2.tracks[0].effects.effects] == [Biquad, Gain]
+    np.testing.assert_array_equal(port_bounce(s2, 48000.0, device="cpu").audio,
+                                  bounce(js, 48000.0, device="cpu").audio)
+
+
+def test_cli_renders_eq_project(tmp_path, eq_case):
+    js, ref = eq_case
+    wb, out = tmp_path / "eq.wb", tmp_path / "eq.wav"
+    write_project(js, wb)
+    assert cli.main(["render", str(wb), str(out), "--device", "cpu", "--effects-mode", "fir"]) == 0
+    audio, _ = wav.read_wav(out)
+    assert rel_rms(audio, ref) < 2e-4
+
+
+def test_unported_effect_in_project_raises(tmp_path):
+    from whitebox_tpu_torch.session.project import read_project
+
+    js = _unsupported_sessions()["effects"][0]
+    write_project(js, tmp_path / "c.wb")
+    with pytest.raises(NotImplementedError, match="item 6"):
+        read_project(tmp_path / "c.wb")
+
+
+def test_freeze_track_renders_its_chain():
+    from whitebox_tpu_torch.effects import EffectChain
+
+    js = _eq_session(seed=9, n_tracks=2)
+    s = from_reference(js)
+    s.freeze_track(1, 48000.0, device="cpu")
+    js.freeze_track(1, 48000.0)
+    got = np.stack(s.tracks[1].clips[0].audio.asset.sample.data)
+    want = np.stack(js.tracks[1].clips[0].audio.asset.sample.data)
+    assert got.shape == want.shape and np.abs(got).max() > 0.01
+    assert rel_rms(got, want) < 1e-5
+    assert s.tracks[1].effects == [] and isinstance(s.tracks[1].frozen["effects"], EffectChain)
+
+
+def test_per_track_guard_raises_naming_item_1(monkeypatch, eq_case):
+    from whitebox_tpu_torch.render import bounce as bounce_mod
+
+    monkeypatch.setattr(bounce_mod, "PER_TRACK_LIMIT_BYTES", 1 << 10)
+    with pytest.raises(NotImplementedError, match="6 GiB.*item 1"):
+        bounce(eq_case[0], 48000.0, device="cpu")
 
 
 def test_slot_overflow_raises_instead_of_switching():

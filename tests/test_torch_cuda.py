@@ -9,7 +9,10 @@ machine need not have; nothing here imports JAX or the JAX package.) The
 checks are ``chip_smoke.py``'s: the kernel bit-equal to its plain PyTorch
 version on the card, and to the NumPy references under the repo's
 contract; the automation variant within atol 3e-6 / rtol 1e-5 of its
-plain version and within relative RMS 1e-5 of the f64 host reference.
+plain version and within relative RMS 1e-5 of the f64 host reference; the
+per-track kernel (K4) against its plain version and the NumPy per-track
+reference, and an EQ bounce in both effects modes against the f64 host
+reference (relative RMS 5e-5 scan, 2e-4 fir) and the CPU bounce.
 """
 
 import numpy as np
@@ -55,6 +58,12 @@ def test_kernel_matches_plain_and_reference(card, name, tile):
 
 
 @pytest.mark.parametrize("tile", [None, 1024])
+@pytest.mark.parametrize("name", list(SESSIONS))
+def test_per_track_kernel_matches_plain_and_reference(card, name, tile):
+    chip_smoke.per_track_vs_plain(name, SESSIONS[name](), tile=tile)
+
+
+@pytest.mark.parametrize("tile", [None, 1024])
 @pytest.mark.parametrize("name", list(AUTO_SESSIONS))
 def test_automation_kernel_matches_plain_and_reference(card, name, tile):
     chip_smoke.auto_vs_plain(name, AUTO_SESSIONS[name](), tile=tile)
@@ -90,6 +99,31 @@ def test_bounce_counts_one_launch_and_matches_oracle(card):
     ref = OracleRenderer(s, 48000.0, buffer_size=512).render()
     n = min(ref.shape[1], got.shape[1])
     np.testing.assert_array_equal(got[:, :n], ref[:, :n])
+
+
+def _eq_session():
+    from whitebox_tpu_torch.effects import Biquad, EffectChain, Gain, ParametricEQ
+
+    s = make_demo_session(n_tracks=4, duration_seconds=4.0, seed=9, clip_speeds=(1.0, 44100 / 48000))
+    s.tracks[0].effects = EffectChain([Biquad("lowpass", 2000.0), Gain(-3.0)])
+    s.tracks[1].effects = EffectChain([ParametricEQ([("lowshelf", 120.0, 0.707, 4.0),
+                                                     ("peak", 1500.0, 1.2, -3.0)])])
+    s.master_effects = EffectChain([Biquad("highpass", 30.0)])
+    return s
+
+
+@pytest.mark.parametrize("mode", ["scan", "fir"])
+def test_eq_bounce_counts_one_per_track_launch(card, mode):
+    s = _eq_session()
+    chip_smoke.reset_launches()
+    got = bounce(s, 48000.0, device=card, effects_mode=mode).audio
+    assert (mix_cuda.mix_per_track_launches, mix_cuda.mix_kernel_launches,
+            mix_cuda.mix_auto_launches) == (1, 0, 0)
+    bar = chip_smoke.SCAN_REL_RMS if mode == "scan" else chip_smoke.FIR_REL_RMS
+    assert chip_smoke.rel_rms(got, chip_smoke.host_reference(s)) < bar
+    # the same session on the CPU: the plain per-track mix and finisher
+    cpu = bounce(s, 48000.0, device="cpu", effects_mode=mode).audio
+    assert chip_smoke.rel_rms(got, cpu) < 1e-5
 
 
 def test_kernel_rejects_malformed_tables(card):

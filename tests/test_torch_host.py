@@ -268,23 +268,37 @@ _BOUNCE_AUTOMATED = (
     "assert bounce(s, 48000.0, device='cpu').audio.any()\n")
 
 
+_BOUNCE_EQ = (
+    "import sys\n"
+    "from whitebox_tpu_torch.effects import Biquad, EffectChain, ParametricEQ\n"
+    "from whitebox_tpu_torch.render.bounce import bounce\n"
+    "from whitebox_tpu_torch.render.demo import make_demo_session\n"
+    "s = make_demo_session(n_tracks=2, duration_seconds=2.0, sample_seconds=1.0, seed=1)\n"
+    "s.tracks[0].effects = EffectChain([ParametricEQ([('peak', 1000.0, 1.0, -3.0)])])\n"
+    "s.master_effects = EffectChain([Biquad('highpass', 25.0)])\n"
+    "for mode in ('scan', 'fir'):\n"
+    "    assert bounce(s, 48000.0, device='cpu', effects_mode=mode).audio.any()\n")
+
+
 _BANNED = {"jax": ("jax", "jaxlib"), "whitebox_tpu": ("whitebox_tpu",)}
 
 
 @pytest.mark.parametrize("case", ["sources_jax", "sources_whitebox_tpu", "modules_import",
-                                  "modules_after_automated_bounce"])
+                                  "modules_after_automated_bounce", "modules_after_eq_bounce"])
 def test_port_import_guard(case):
     """The port stands alone: no source of ``whitebox_tpu_torch/`` or
     ``chip_smoke.py`` imports JAX or the JAX package (by AST), and neither
     is loaded after importing every module or after a CPU bounce of an
-    automated session (a fresh process)."""
+    automated session or of an EQ session in both effects modes (a fresh
+    process)."""
     if case.startswith("sources_"):
         roots = _BANNED[case.removeprefix("sources_")]
         bad = [f"{p.relative_to(REPO)}: {m}" for p in _PORT_FILES for m in _imports_of(p)
                if m.split(".")[0] in roots]
         assert not bad, bad
         return
-    code = _IMPORT_ALL if case == "modules_import" else _BOUNCE_AUTOMATED
+    code = {"modules_import": _IMPORT_ALL, "modules_after_automated_bounce": _BOUNCE_AUTOMATED,
+            "modules_after_eq_bounce": _BOUNCE_EQ}[case]
     code += ("bad = sorted(m for m in sys.modules if m.split('.')[0] in "
              "('jax', 'jaxlib', 'whitebox_tpu'))\nprint('loaded:', bad)\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,

@@ -1,7 +1,9 @@
 """whitebox_tpu_torch.ops.mix_cuda's plain mix against the JAX Pallas kernel (CPU).
 
-``mix_reference`` is the CUDA kernel's function in plain PyTorch; here it
-is held against the JAX kernel run in interpret mode on the same session
+``mix_reference`` is the CUDA kernel's function in plain PyTorch, and
+``mix_per_track_reference`` that of its per-track mode (K4, ``[T, C, F]``
+pre-gain buffers); here each is held against the JAX kernel (with
+``per_track=True`` for K4) run in interpret mode on the same session
 (each package carving its own copy), against the JAX package's NumPy
 segment reference, and against itself fed the JAX plan.
 
@@ -27,7 +29,7 @@ import torch
 
 from tests.test_torch_mix_plan import CASES, SPEED1_CASES, carve_case
 from whitebox_tpu.ops import mix_pallas
-from whitebox_tpu.timeline.carve import render_segments_numpy
+from whitebox_tpu.timeline.carve import render_segments_numpy, render_segments_per_track_numpy
 from whitebox_tpu_torch.ops import mix_cuda, mix_plan
 
 
@@ -52,6 +54,29 @@ def test_plain_mix_matches_pallas_and_reference(name):
     else:
         assert_ulp_contract(out, jax_out)
         assert_ulp_contract(out, ref)
+    assert np.abs(out).max() > 0.01
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_per_track_plain_matches_pallas_and_reference(name):
+    # K4's plain twin against the JAX kernel's per_track=True mode and the
+    # NumPy per-track reference: [T, C, n_tiles*tile], pre-gain, no clip
+    c = carve_case(name)
+    jr = mix_pallas.PallasMixRenderer(c.jtable, c.jpool, c.js, tile=c.tile, interpret=True)
+    jax_out = np.asarray(jr.render_device_per_track())
+    jax_out = jax_out.reshape(jax_out.shape[0], 2, -1)
+    r = mix_cuda.CudaMixRenderer(c.table, c.pool, c.s, tile=c.tile, device="cpu")
+    out = r.render_device_per_track().numpy()
+    assert out.shape == jax_out.shape == (len(c.s.tracks), 2, r.plan.n_tiles * r.plan.tile)
+    ref = render_segments_per_track_numpy(c.jtable, c.jpool)
+    F = ref.shape[-1]
+    assert not out[..., F:].any()
+    if name in SPEED1_CASES:
+        np.testing.assert_array_equal(out, jax_out)
+        np.testing.assert_array_equal(out[..., :F], ref)
+    else:
+        assert_ulp_contract(out, jax_out)
+        assert_ulp_contract(out[..., :F], ref)
     assert np.abs(out).max() > 0.01
 
 
@@ -103,14 +128,33 @@ def test_hard_clip_and_gain_order():
 def test_dispatch_never_launches_on_cpu():
     s, _, tile, table, pool = carve_case("mixed_speeds")[:5]
     r = mix_cuda.CudaMixRenderer(table, pool, s, device="cpu", tile=tile)
-    before = mix_cuda.mix_kernel_launches
+    before = (mix_cuda.mix_kernel_launches, mix_cuda.mix_per_track_launches)
     p = r.plan
-    np.testing.assert_array_equal(
-        mix_cuda.mix(r.pool_device, r.tables, p.n_tiles, p.tile, p.channels).numpy(),
-        mix_cuda.mix_reference(r.pool_device, r.tables, p.n_tiles, p.tile, p.channels).numpy())
+    args = (r.pool_device, r.tables, p.n_tiles, p.tile, p.channels)
+    np.testing.assert_array_equal(mix_cuda.mix(*args).numpy(), mix_cuda.mix_reference(*args).numpy())
+    np.testing.assert_array_equal(mix_cuda.mix(*args, per_track=True).numpy(),
+                                  mix_cuda.mix_per_track_reference(*args).numpy())
     with pytest.raises(ValueError, match="CUDA"):
-        mix_cuda.mix_cuda(r.pool_device, r.tables, p.n_tiles, p.tile, p.channels)
-    assert mix_cuda.mix_kernel_launches == before
+        mix_cuda.mix_cuda(*args)
+    with pytest.raises(ValueError, match="CUDA"):
+        mix_cuda.mix_per_track_cuda(*args)
+    with pytest.raises(ValueError, match="lane tables"):
+        mix_cuda.mix(*args, auto={}, per_track=True)
+    assert (mix_cuda.mix_kernel_launches, mix_cuda.mix_per_track_launches) == before
+
+
+def test_per_track_sum_is_the_mix():
+    # the per-track buffers times the track gains, summed in track order and
+    # clipped, are the summing kernel's mix (bit-equal at speed 1 where one
+    # slot of a track covers each frame, as here)
+    s, _, tile, table, pool = carve_case("fades")[:5]
+    r = mix_cuda.CudaMixRenderer(table, pool, s, device="cpu", tile=tile)
+    pt = r.render_device_per_track()
+    acc = torch.zeros(pt.shape[1:])
+    for t in range(pt.shape[0]):
+        acc = acc + pt[t] * r.tables["track_gain"][t][:, None]
+    acc = torch.clamp(acc, -1.0, 1.0)
+    np.testing.assert_array_equal(acc.numpy(), r.render_device().numpy())
 
 
 def test_table_checks():

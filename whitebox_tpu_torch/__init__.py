@@ -16,12 +16,14 @@ built with the JAX package across.
 - ``core``, ``session``, ``midi``, ``timeline``, ``io`` : the host layer
                  (session model, projects, carve, sample pool, NumPy
                  oracle, WAV, the native carve and plan library).
-- ``ops``      : automation lanes, double-single phase arithmetic, the GPU
-                 mix plan, the CUDA mix kernel's build, binding and plain
-                 PyTorch twins.
-- ``render``   : the offline bounce, the automation finish stage's host
-                 tables and f64 reference, render metrics, the demo
-                 session builder.
+- ``effects``  : the linear effects (``Gain``, ``Biquad``,
+                 ``ParametricEQ``) and ``EffectChain``.
+- ``ops``      : automation lanes, biquad design and scan, double-single
+                 phase arithmetic, the GPU mix plan, the CUDA mix kernel's
+                 build, binding and plain PyTorch twins.
+- ``render``   : the offline bounce, the effect finishers (biquad scan and
+                 FFT-FIR) with their f64 reference, render metrics, the
+                 demo session builder.
 - ``cli``      : ``python -m whitebox_tpu_torch.cli render in.wb out.wav``.
 - ``buildlib`` : content-keyed builds of the native sources into ``build/``.
 - ``csrc``     : CUDA C++ sources (``nvcc``) and ``csrc/host`` C++ (``g++``),

@@ -4,7 +4,8 @@ Counterpart of ``whitebox_tpu/cli.py`` (``_cmd_render`` and its parser),
 on the surface the port's ``bounce`` covers:
 
     python -m whitebox_tpu_torch.cli render project.wb out.wav \\
-        [--rate 48000] [--buffer-size 512] [--format f32] [--device cuda] [--json]
+        [--rate 48000] [--buffer-size 512] [--format f32] [--device cuda]
+        [--effects-mode scan|fir] [--json]
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ def _cmd_render(args) -> int:
     fmt = {"f32": AudioFormat.F32, "i16": AudioFormat.I16, "i24": AudioFormat.I24,
            "i32": AudioFormat.I32}[args.format]
     result = bounce(session, sample_rate=args.rate, device=args.device,
-                    buffer_size=args.buffer_size, out_path=args.out, out_format=fmt)
+                    buffer_size=args.buffer_size, effects_mode=args.effects_mode,
+                    out_path=args.out, out_format=fmt)
     print(result.stats.summary())
     if args.json:
         print(json.dumps({"frames": result.frames, "rtf": result.stats.rtf,
@@ -45,6 +47,8 @@ def main(argv=None) -> int:
     p.add_argument("--format", choices=["f32", "i16", "i24", "i32"], default="f32")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; 'cpu' renders with the plain PyTorch mix)")
+    p.add_argument("--effects-mode", choices=["scan", "fir"], default="scan",
+                   help="effect-chain finisher: biquad scan (default) or FFT-FIR")
     p.add_argument("--json", action="store_true")
     p.set_defaults(fn=_cmd_render)
 

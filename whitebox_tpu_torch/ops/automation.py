@@ -86,9 +86,9 @@ class TrackAutomation:
     volume: AutomationLane | None = None  # linear gain
     pan: AutomationLane | None = None  # [-1, 1]
     #: timed *effect*-parameter lanes, keyed ``(slot_index, param_name)``
-    #: into the track's effect chain. The port renders no effect chains
-    #: yet, so ``bounce`` refuses sessions that have any (ROADMAP.md
-    #: queue 1, items 3 and 6).
+    #: into the track's effect chain. Their time-varying sections are not
+    #: ported yet, so ``bounce`` refuses sessions that have any (ROADMAP.md
+    #: queue 1, item 6).
     effects: dict = field(default_factory=dict)
 
     def has_track_lanes(self) -> bool:

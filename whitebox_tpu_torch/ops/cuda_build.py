@@ -81,5 +81,8 @@ def load() -> ctypes.CDLL:
     # pan xs/ys/cv/tn, mute, use) and the points per lane P
     lib.wb_mix_auto.restype = ci
     lib.wb_mix_auto.argtypes = [vp] * 17 + [ci] * 5 + [vp] * 10 + [ci, vp]
+    # wb_mix_per_track (K4): wb_mix_linear's arguments; out is [T, C, n_tiles*tile]
+    lib.wb_mix_per_track.restype = ci
+    lib.wb_mix_per_track.argtypes = [vp] * 17 + [ci] * 5 + [vp]
     _LIB = lib
     return _LIB

@@ -3,18 +3,28 @@
 Counterpart of ``whitebox_tpu/render/bounce.py:117-442`` on the surface
 ported so far: audio clips (any loop mode, fades, clip gain, speed), track
 volume/pan/mute, volume/pan automation lanes (any of the nine curves,
-under a tempo map too), the ordered track sum and the hard clip, with
-``interpolation="linear"``. The path is the JAX package's Pallas branch:
-carve with ``slow_emit="runs"``, plan the slots, one launch of the CUDA mix
-kernel (its automation variant when a track has lanes,
-``bounce.py:316-333``), trim, write WAV through ``io/wav.py``.
+under a tempo map too), linear effect chains on tracks and the master bus
+(``Gain``, ``Biquad``, ``ParametricEQ``), level meters, the ordered track
+sum and the hard clip, with ``interpolation="linear"``. The path is the
+JAX package's Pallas branch: carve with ``slow_emit="runs"``, plan the
+slots, then
+
+- a session with effect chains or ``meters=True``: one launch of the
+  per-track kernel (K4) into ``[T, C, F]`` pre-gain buffers, then the
+  finisher, ``effects_mode="scan"`` (the batched biquad scan,
+  ``effects_pipeline.finish_mix``) or ``"fir"`` (overlap-save FFT,
+  ``effects_fir``); meters force the scan (``bounce.py:305-415``);
+- any other session: one launch of the mix kernel, its automation variant
+  when a track has lanes (``bounce.py:316-333``);
+
+then trim and write the WAV through ``io/wav.py``.
 
 Every other feature raises ``NotImplementedError`` naming the ROADMAP.md
-item (queue 1) that ports it: effect chains, effect-parameter and master
-lanes, MIDI, routing, and other interpolations. A slot overflow that
-survives the tile backoff raises too: the JAX package's fallback to its
-XLA gather mix is not ported yet, and a silent switch would hide the
-kernel.
+item (queue 1) that ports it: non-linear or unported effects,
+effect-parameter and master lanes, routing (6), MIDI (5) and other
+interpolations (4, 7). So do a slot overflow that survives the tile
+backoff and per-track buffers above 6 GiB (item 1, the JAX package's
+chunked XLA gather path): a silent switch would hide the kernel.
 """
 
 from __future__ import annotations
@@ -30,14 +40,21 @@ from whitebox_tpu_torch.ops import cuda_build
 from whitebox_tpu_torch.ops.automation import session_has_effect_automation
 from whitebox_tpu_torch.ops.mix_cuda import CudaMixRenderer
 from whitebox_tpu_torch.ops.mix_plan import SlotOverflow, build_plan
+from whitebox_tpu_torch.render.effects_fir import prepare_fir_finish
+from whitebox_tpu_torch.render.effects_generic import _chains_of, chain_is_packable
 from whitebox_tpu_torch.render.effects_pipeline import (
-    prepare_automation_tables_host, session_has_effects,
+    finish_mix, prepare_automation_tables, prepare_automation_tables_host, prepare_effect_tables,
+    session_has_effects,
 )
 from whitebox_tpu_torch.render.metrics import DeviceTimer, RenderStats, Stopwatch, device_name
 from whitebox_tpu_torch.session.bus import session_has_routing
 from whitebox_tpu_torch.session.session import Session
 from whitebox_tpu_torch.timeline.carve import carve_session
 from whitebox_tpu_torch.timeline.transport import BlockTransport
+
+#: per-track buffers above this many bytes take the JAX package's chunked
+#: XLA path (``whitebox_tpu/render/bounce.py:314``), not ported yet
+PER_TRACK_LIMIT_BYTES = 6 << 30
 
 
 def session_has_midi(session) -> bool:
@@ -46,14 +63,23 @@ def session_has_midi(session) -> bool:
                for t in session.tracks for c in t.clips)
 
 
-def _check_supported(session: Session, interpolation: str) -> None:
+def _unported_effects(session) -> list[str]:
+    """Type names of the effects in chains the linear finishers cannot take."""
+    chains, master = _chains_of(session)
+    return sorted({getattr(e, "type_name", type(e).__name__)
+                   for c in [*chains, master] if c is not None for e in c.effects
+                   if not chain_is_packable([e])})
+
+
+def _check_supported(session: Session, interpolation: str, effects_mode: str) -> None:
+    generic = "item 6 (generic effects and routing)"
+    unported = _unported_effects(session)
     todo = [
-        (session_has_effect_automation(session), "effect-parameter or master automation lanes",
-         "items 3 and 6 (per-track mode K4 + finishers; generic effects)"),
-        (session_has_effects(session), "effect chains",
-         "items 3 and 6 (per-track mode K4 + finishers; generic effects)"),
+        (session_has_effect_automation(session), "effect-parameter or master automation lanes", generic),
+        (bool(unported), f"effect chains with {', '.join(unported)}", generic),
+        (effects_mode in ("routed", "generic"), f"effects_mode={effects_mode!r}", generic),
         (session_has_midi(session), "MIDI clips", "item 5 (MIDI synth)"),
-        (session_has_routing(session), "bus routing", "item 6 (generic effects and routing)"),
+        (session_has_routing(session), "bus routing", generic),
         (interpolation != "linear", f"interpolation={interpolation!r}",
          "item 4 (catmull/poly) and item 7 (sinc/prerender)"),
     ]
@@ -62,6 +88,8 @@ def _check_supported(session: Session, interpolation: str) -> None:
             raise NotImplementedError(
                 f"whitebox_tpu_torch bounce does not render {what} yet: "
                 f"ROADMAP.md queue 1, {item}")
+    if effects_mode not in ("scan", "fir"):
+        raise ValueError(f"effects_mode must be 'scan' or 'fir', got {effects_mode!r}")
 
 
 @dataclass
@@ -72,6 +100,20 @@ class BounceResult:
     @property
     def frames(self) -> int:
         return self.audio.shape[1]
+
+
+def _effects_finisher(session, renderer, plan, sample_rate, channels, effects_mode, meters, dev):
+    """Host preparation of the finisher -> ``finish(per_track)``: the chain
+    tables (scan) or impulse responses (fir) and the lane tables, on
+    ``dev``."""
+    auto = prepare_automation_tables(session, sample_rate, device=dev)
+    tg = renderer.tables["track_gain"]
+    T = plan.num_tracks
+    if effects_mode == "fir":
+        return prepare_fir_finish(session, sample_rate, tg, auto, channels, device=dev)
+    (S, coeffs), (Sm, mcoeffs) = prepare_effect_tables(session, sample_rate, channels, device=dev)
+    return lambda pt: finish_mix(pt, coeffs, mcoeffs, tg, auto, T=T, C=channels, S=S, Sm=Sm,
+                                 with_meters=meters, valid_frames=plan.total_frames)
 
 
 def bounce(
@@ -85,6 +127,8 @@ def bounce(
     trim_frames: int | None = None,
     tail_seconds: float = 0.0,
     interpolation: str = "linear",
+    effects_mode: str = "scan",
+    meters: bool = False,
     out_path=None,
     out_format: AudioFormat = AudioFormat.F32,
     out_dither: str | None = None,
@@ -93,12 +137,19 @@ def bounce(
 
     ``buffer_size`` is the emulated engine block size: it defines event
     carving semantics, not the device schedule. ``tail_seconds`` renders
-    past the last clip edge (ignored when ``num_blocks`` is given). On the
-    CPU (``device="cpu"``) the plain PyTorch mix renders the same audio.
-    ``stats.carve_seconds`` includes the lane packing and table upload.
+    past the last clip edge (ignored when ``num_blocks`` is given), so
+    effect tails ring out. ``effects_mode``: ``"scan"`` (the eigenbasis
+    biquad scan, ~1e-7 accuracy) or ``"fir"`` (chains collapsed to impulse
+    responses, overlap-save FFT, ~-120 dB truncation). ``meters``: also
+    fill ``stats.track_peak``/``track_rms``/``output_peak``/``output_rms``;
+    forces the scan. On the CPU (``device="cpu"``) the plain PyTorch
+    versions render the same audio. ``stats.carve_seconds`` includes the
+    lane and chain preparation and the table upload.
     """
     dev = resolve_device(device)
-    _check_supported(session, interpolation)
+    _check_supported(session, interpolation, effects_mode)
+    if meters:
+        effects_mode = "scan"  # the spectral FIR sum never holds per-track audio
     if num_blocks is None and tail_seconds > 0.0:
         tr_ = BlockTransport(float(sample_rate), int(buffer_size),
                              session.beat_duration, session.playhead_start,
@@ -119,20 +170,48 @@ def bounce(
         raise SlotOverflow(
             f"{e} even at the smallest tile; the XLA gather fallback "
             "(whitebox_tpu/ops/mix.py) is ROADMAP.md queue 1, item 1") from e
-    # automation-only sessions evaluate the volume/pan lanes in the kernel
-    # (the JAX package's fused single pass, bounce.py:316-333)
-    renderer = CudaMixRenderer(table, pool, session, device=dev, channels=channels, plan=plan,
-                               auto_tables=prepare_automation_tables_host(session, sample_rate))
+
+    has_fx = session_has_effects(session) or meters
+    finish = None
+    if has_fx:
+        per_track_bytes = plan.num_tracks * channels * plan.n_tiles * plan.tile * 4
+        if per_track_bytes > PER_TRACK_LIMIT_BYTES:
+            raise NotImplementedError(
+                f"per-track buffers of {per_track_bytes / 2**30:.2f} GiB exceed the 6 GiB guard; "
+                "the chunked XLA path (whitebox_tpu/ops/mix.py) is ROADMAP.md queue 1, item 1")
+        # per-track mode (K4): lanes evaluate in the finisher's gains
+        renderer = CudaMixRenderer(table, pool, session, device=dev, channels=channels, plan=plan)
+        finish = _effects_finisher(session, renderer, plan, sample_rate, channels, effects_mode,
+                                   meters, dev)
+    else:
+        # automation-only sessions evaluate the volume/pan lanes in the kernel
+        # (the JAX package's fused single pass, bounce.py:316-333)
+        renderer = CudaMixRenderer(table, pool, session, device=dev, channels=channels, plan=plan,
+                                   auto_tables=prepare_automation_tables_host(session, sample_rate))
     stats.carve_seconds = watch.lap()
     if dev.type == "cuda":
         cuda_build.load()  # nvcc at first use in the process, not in the mix time
     stats.compile_seconds = watch.lap()
 
+    res = None
     with DeviceTimer(dev) as timer:
-        out_dev = renderer.render_device()
+        if finish is None:
+            out_dev = renderer.render_device()
+        else:
+            pt = renderer.render_device_per_track()
+            with DeviceTimer(dev) as ftimer:
+                res = finish(pt)
+            out_dev = res[0] if meters else res
     stats.device_seconds = timer.seconds
+    if finish is not None:
+        stats.finish_seconds = ftimer.seconds
     watch.lap()
     out = out_dev[:, : plan.total_frames].cpu().numpy()
+    if meters:
+        tp, trms, op, orms = (m.cpu().numpy() for m in res[1])
+        T = len(session.tracks)
+        stats.track_peak, stats.track_rms = tp[:T], trms[:T]
+        stats.output_peak, stats.output_rms = op, orms
     stats.readback_seconds = watch.lap()
 
     if trim_frames is not None:

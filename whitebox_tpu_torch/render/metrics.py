@@ -16,6 +16,7 @@ from __future__ import annotations
 import time
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 
@@ -34,8 +35,18 @@ class RenderStats:
     carve_seconds: float = 0.0
     #: kernel build/load at first use in the process (0 once built)
     compile_seconds: float = 0.0
+    #: the mix kernel, plus the effects finisher when the session has one
     device_seconds: float = 0.0
+    #: the effects finisher's share of ``device_seconds`` (0 without one)
+    finish_seconds: float = 0.0
     readback_seconds: float = 0.0
+    #: level meters (``bounce(meters=True)``): per-track peak and RMS
+    #: ``[T, C]`` post chain + volume/pan, pre sum (track.cpp:728-733), and
+    #: the output's ``[C]`` post master and clip; None otherwise
+    track_peak: np.ndarray | None = None
+    track_rms: np.ndarray | None = None
+    output_peak: np.ndarray | None = None
+    output_rms: np.ndarray | None = None
 
     @property
     def audio_seconds(self) -> float:

@@ -11,9 +11,14 @@ port an equal one.
 
 from __future__ import annotations
 
+import enum
+
 import numpy as np
 
 from whitebox_tpu_torch.core.formats import AudioFormat
+from whitebox_tpu_torch.effects import (
+    Biquad, Effect, EffectChain, Gain, ParametricEQ, UnportedEffect,
+)
 from whitebox_tpu_torch.core.meter import MeterMap, MeterPoint
 from whitebox_tpu_torch.core.tempo import TempoMap, TempoPoint
 from whitebox_tpu_torch.midi.notes import (
@@ -103,10 +108,49 @@ def _automation(a) -> TrackAutomation | None:
     return TrackAutomation(volume=_lane(a.volume), pan=_lane(a.pan), effects=_lanes(a.effects))
 
 
+def _plain(v):
+    """An attribute value as plain data: enums by value, arrays (anything
+    with ``__array__``) as NumPy copies, containers element by element,
+    other objects by ``repr``."""
+    if v is None or isinstance(v, (bool, int, float, str)):
+        return v
+    if isinstance(v, enum.Enum):
+        return v.value
+    if isinstance(v, np.generic):
+        return v.item()
+    if isinstance(v, (list, tuple)):
+        return type(v)(_plain(x) for x in v)
+    if isinstance(v, dict):
+        return {_plain(k): _plain(x) for k, x in v.items()}
+    if hasattr(v, "__array__"):
+        return np.array(v, copy=True)
+    return repr(v)
+
+
+def _effect(e) -> Effect:
+    """A port effect rebuilt from a reference effect's attributes, by class
+    name; a type without a port class becomes an :class:`UnportedEffect`."""
+    kind = type(e).__name__
+    if kind == "Gain":
+        return Gain(e.gain_db)
+    if kind == "Biquad":
+        return Biquad(e.ftype.value, e.freq_hz, e.q, e.gain_db)
+    if kind == "ParametricEQ":
+        return ParametricEQ([(t.value, f, q, g) for (t, f, q, g) in e.bands])
+    if kind == "EffectChain":
+        return EffectChain([_effect(x) for x in e.effects])
+    return UnportedEffect(kind, str(getattr(e, "name", kind)),
+                          {k: _plain(v) for k, v in vars(e).items()})
+
+
 def _chain(effects):
-    """The reference's chain object itself (a list or an EffectChain), or
-    a fresh empty list."""
-    return effects if effects else []
+    """A reference chain (a list or an EffectChain) rebuilt from port
+    effects, in the same container kind; an empty chain -> ``[]``."""
+    if not effects:
+        return []
+    if type(effects).__name__ == "EffectChain":
+        return EffectChain([_effect(e) for e in effects.effects])
+    return [_effect(e) for e in effects]
 
 
 def from_reference(ref) -> Session:
@@ -114,10 +158,11 @@ def from_reference(ref) -> Session:
 
     Carries tracks, clips (loop modes, fades, gains, speeds), sample and
     MIDI assets with copies of their data, the tempo and meter maps,
-    buses and sends, and automation lanes (volume/pan and effect-param).
-    Effect chains have no port classes yet: they are carried as the
-    reference's own objects so that ``bounce`` sees them and refuses the
-    session (ROADMAP.md queue 1, items 3 and 6). A recording input
+    buses and sends, automation lanes (volume/pan and effect-param), and
+    effect chains rebuilt as port effects (``Gain``, ``Biquad``,
+    ``ParametricEQ``; any other type as an ``UnportedEffect``, which
+    ``bounce`` refuses: ROADMAP.md queue 1, item 6). No object of the
+    reference survives in the result. A recording input
     (``session/input.py``, not copied yet) raises ``NotImplementedError``.
     """
     s = Session(bpm=ref.bpm, ppq=ref.ppq)

@@ -37,11 +37,10 @@ PROJECT_VERSION = 1
 
 _log = logging.getLogger("whitebox_tpu_torch.project")
 
-#: the port has no effect classes yet: a project that stores a chain
-#: neither reads nor writes (the JAX package's ``effects/`` arrive with the
-#: finishers)
-_EFFECTS_TODO = ("whitebox_tpu_torch has no effect chains yet: ROADMAP.md queue 1, "
-                 "items 3 and 6 (K4 + linear finishers; generic effects)")
+#: the port has the linear effects only (gain, biquad, eq): a project that
+#: stores another type neither reads nor writes
+_EFFECTS_TODO = ("whitebox_tpu_torch has only the gain, biquad and eq effects yet: "
+                 "ROADMAP.md queue 1, item 6 (generic effects)")
 _INPUT_TODO = ("whitebox_tpu_torch has no recording inputs yet (session/input.py): "
                "ROADMAP.md queue 1, item 14")
 
@@ -61,12 +60,43 @@ def find_file_recursive(root, filename: str, max_depth: int = 8):
     return None
 
 
+def _effect_to_doc(e) -> dict:
+    from whitebox_tpu_torch.effects import Biquad, Gain, ParametricEQ
+
+    if isinstance(e, Gain):
+        return {"type": "gain", "gain_db": e.gain_db}
+    if isinstance(e, Biquad):
+        return {"type": "biquad", "ftype": e.ftype.value, "freq": e.freq_hz, "q": e.q, "gain_db": e.gain_db}
+    if isinstance(e, ParametricEQ):
+        return {"type": "eq", "bands": [[t.value, f, q, g] for (t, f, q, g) in e.bands]}
+    raise NotImplementedError(f"cannot write effect {e!r}: {_EFFECTS_TODO}")
+
+
+def _effect_from_doc(d):
+    from whitebox_tpu_torch.effects import Biquad, Gain, ParametricEQ
+
+    t = _as_str(d.get("type"))
+    if t == "gain":
+        return Gain(float(d.get("gain_db", 0.0)))
+    if t == "biquad":
+        return Biquad(_as_str(d.get("ftype", "lowpass")), float(d.get("freq", 1000.0)),
+                      float(d.get("q", 0.7071067811865476)), float(d.get("gain_db", 0.0)))
+    if t == "eq":
+        return ParametricEQ([(_as_str(b[0]), float(b[1]), float(b[2]), float(b[3])) for b in d.get("bands", [])])
+    raise NotImplementedError(f"cannot read effect type {t!r}: {_EFFECTS_TODO}")
+
+
 def _chain_to_doc(effects) -> list:
-    raise NotImplementedError(_EFFECTS_TODO)
+    from whitebox_tpu_torch.effects import EffectChain
+
+    effs = effects.effects if isinstance(effects, EffectChain) else list(effects or [])
+    return [_effect_to_doc(e) for e in effs]
 
 
 def _chain_from_doc(docs):
-    raise NotImplementedError(_EFFECTS_TODO)
+    from whitebox_tpu_torch.effects import EffectChain
+
+    return EffectChain([_effect_from_doc(d) for d in docs])
 
 
 def _lane_to_doc(lane) -> list:
