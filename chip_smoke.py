@@ -8,7 +8,11 @@ Runs from the root of a checkout. It drives the port's main paths through
 session through the hand-written CUDA mix kernel, automated sessions
 through its automation variant (K3), and the same 128-track session with
 an EQ on every track and a highpass on the master through its per-track
-mode (K4) and the linear finishers. It checks the results by the repo's
+mode (K4) and the linear finishers, and 128-track sessions of resampled
+clips in the export-quality interpolation modes: Catmull-Rom and six
+polynomial taps in the kernel (K2-catmull, K2-poly) and the sinc
+prerender, which extends the sample pool on the card and mixes speed-1
+rows over it with the same kernel. It checks the results by the repo's
 own references. It imports nothing of JAX or of the JAX package and reads
 no ``.wb`` project. Phases, one or more lines each:
 
@@ -26,15 +30,26 @@ no ``.wb`` project. Phases, one or more lines each:
    bit-equal to the NumPy oracle; the automation variant within atol 3e-6
    / rtol 1e-5 of its plain version (linear lanes, all nine curves, fades,
    a muted automated track) and within relative RMS 1e-5 of the f64 host
-   reference, and a constant-0 volume lane bit-equal to a muted track;
+   reference, and a constant-0 volume lane bit-equal to a muted track; the
+   Catmull-Rom and polynomial-tap modes of all three variants on the
+   resampled, reverse and faded sessions within the resampling contract
+   of their plain versions (0 ulp expected) and atol 3e-6 of
+   ``render_segments_numpy(interp=...)``, frames and tracks of speed-1
+   rows bit-equal; the sinc prerender on small sessions (rational,
+   Taylor, reverse runs): the extension built on the card within 1e-6 of
+   ``apply_prerender_host``, the bounce within 3e-6 of ``resolve_sinc_host``
+   + ``render_segments_numpy``, and a 1 kHz sine at speed 44100/48000 and
+   at 2^(1/12) above 90 dB SNR;
 4. headline and headline_resampled: ``bounce(device="cuda")`` of the
    128-track session with the launch counts reset just before, bit-equal
    to the NumPy segment reference; then 5 warm carve+plan+upload+kernel
    iterations, the kernel's time by CUDA events and the plain version's;
 5. automation_32trk and automation_tempo_128trk (the JAX package's
    benchmark configs 2 and 7): the same through the automation variant,
-   held to relative RMS 1e-5 of the f64 host reference, lane packing
-   counted in the host legs;
+   held to relative RMS 1e-5 of the f64 host reference (config 7's over
+   the first 15 s of the session: the reference is per-sample Python on
+   the host; the timing stays at 60 s), lane packing counted in the host
+   legs;
 6. effects_eq_128trk (config 5): ``bounce(device="cuda")`` with
    ``effects_mode="fir"`` and ``"scan"``, per-track launches counted; the
    per-track buffers bit-equal to ``render_segments_per_track_numpy``
@@ -42,7 +57,19 @@ no ``.wb`` project. Phases, one or more lines each:
    within relative RMS 2e-4 (fir) and 5e-5 (scan), and within 5e-4 of each
    other; 5 warm iterations with the IR preparation, the per-track kernel,
    both finishers and the plain per-track version timed;
-7. one JSON line of kernels, then the last line
+7. catmull_128trk, sinc_prerender_128trk, sinc_irrational_128trk and
+   sinc_oversample_128trk (the JAX package's benchmark config 3 and its
+   two sinc extras): ``bounce(device="cuda", interpolation=...)`` with the
+   launch counts reset just before (one mix launch, in the expected
+   mode); the prerender cells read the extended pool back once, hold the
+   kernel's mix over it bit-equal to ``render_segments_numpy`` on the
+   rewritten table and the extension of the first two tracks' runs within
+   1e-6 of the f64 host extension; the Catmull-Rom and oversampled cells
+   hold a 5 s head against ``render_segments_numpy(interp=...)``; 5 warm
+   iterations with the host legs, the extension's build and the kernel
+   by CUDA events, the plain version, the bounds, peak memory, and a
+   sweep of the extension's slab size;
+8. one JSON line of kernels, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Exits non-zero, printing no result, when CUDA is unavailable, when the
@@ -67,6 +94,10 @@ RATE = 48000.0
 ULP_MAX, ABS_TOL = 2, 2.4e-7  # the JAX package's resampling contract (tests/test_bounce.py)
 AUTO_ATOL, AUTO_RTOL = 3e-6, 1e-5  # its automation-kernel contract (tests/test_auto_kernel.py)
 AUTO_REL_RMS = 1e-5  # against the f64 host reference (tests/test_fades_automation.py)
+# Catmull-Rom, polynomial taps and the sinc prerender against the NumPy segment
+# reference (tests/test_catmull.py:28, tests/test_prerender.py:142,258); the
+# prerendered extension on the device against the host's (test_prerender.py:129)
+INTERP_ATOL, EXT_ATOL, SINE_SNR_DB = 3e-6, 1e-6, 90.0
 # the card's published peaks (NVIDIA H100 SXM data sheet, 700 W): HBM bytes/s
 # and f32 operations/s outside the tensor cores
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
@@ -104,14 +135,61 @@ def rel_rms(got, ref) -> float:
     return float(np.sqrt(np.mean(d ** 2))) / scale
 
 
-def host_reference(session):
+def host_reference(session, mode="linear", seconds=None):
     """The f64 host reference of an automated bounce: the per-track NumPy
-    segment render + the finish stage's gains, sum and clip."""
+    segment render (resampled rows in ``mode``, see :func:`resolve_mode`) +
+    the finish stage's gains, sum and clip; of the first ``seconds`` of the
+    session only, when given."""
     from whitebox_tpu_torch.render.effects_pipeline import reference_finish_mix
     from whitebox_tpu_torch.timeline.carve import carve_session, render_segments_per_track_numpy
 
-    table, pool = carve_session(session, RATE, buffer_size=512)
-    return reference_finish_mix(render_segments_per_track_numpy(table, pool), session, RATE)
+    blocks = None if seconds is None else int(seconds * RATE) // 512
+    table, pool = carve_session(session, RATE, buffer_size=512, num_blocks=blocks)
+    table, pool, interp = resolve_mode(table, pool, mode)
+    return reference_finish_mix(render_segments_per_track_numpy(table, pool, interp=interp),
+                                session, RATE)
+
+
+def resolve_mode(table, pool, mode):
+    """-> (table, pool, interp) for the kernel's interpolation ``mode``:
+    "linear" and "catmull" as they are; "poly" rewrites the resampled rows
+    onto a 4x oversampled copy of their samples and gives the six
+    LS-optimal taps (what ``bounce(interpolation="sinc", prerender=False)``
+    renders)."""
+    from whitebox_tpu_torch.timeline.oversample import resolve_interpolation
+
+    if mode == "poly":
+        return resolve_interpolation(table, pool, "sinc")
+    return table, pool, mode
+
+
+def make_renderer(session, mode="linear", tile=None, auto=False, seconds=None):
+    """-> (renderer, table, pool, interp): the carve of ``session`` resolved
+    to ``mode`` and a ``CudaMixRenderer`` on the card (16 slots for the
+    oversampled rows, as ``bounce`` allows them)."""
+    from whitebox_tpu_torch.ops import mix_cuda
+    from whitebox_tpu_torch.ops.mix_plan import build_plan
+    from whitebox_tpu_torch.render.effects_pipeline import prepare_automation_tables_host
+    from whitebox_tpu_torch.timeline.carve import carve_session
+
+    blocks = None if seconds is None else int(seconds * RATE) // 512
+    table, pool = carve_session(session, RATE, buffer_size=512, slow_emit="runs", num_blocks=blocks)
+    table, pool, interp = resolve_mode(table, pool, mode)
+    plan = build_plan(table, pool, session, tile=tile, max_slots=16 if mode == "poly" else 8)
+    r = mix_cuda.CudaMixRenderer(
+        table, pool, session, device="cuda", plan=plan, interp=interp,
+        auto_tables=prepare_automation_tables_host(session, RATE) if auto else None)
+    return r, table, pool, interp
+
+
+def slow_frames(table, n):
+    """Mask [n] of the frames that a resampled row of ``table`` covers."""
+    import numpy as np
+
+    m = np.zeros(n, bool)
+    for i in np.nonzero(~table.fast)[0]:
+        m[int(table.dst_start[i]) : int(table.dst_start[i]) + int(table.length[i])] = True
+    return m
 
 
 def reset_launches() -> None:
@@ -120,6 +198,8 @@ def reset_launches() -> None:
     mix_cuda.mix_kernel_launches = 0
     mix_cuda.mix_auto_launches = 0
     mix_cuda.mix_per_track_launches = 0
+    for mode in mix_cuda.interp_launches:
+        mix_cuda.interp_launches[mode] = 0
 
 
 # ---------------------------------------------------------------- sessions
@@ -317,55 +397,76 @@ def phase_build() -> None:
     print(f"[env] carve walk: {carve}")
 
 
-def kernel_vs_plain(name, session, tile=None):
-    """Kernel vs plain version on the card, and vs the NumPy reference."""
+def kernel_vs_plain(name, session, tile=None, mode="linear"):
+    """Kernel vs plain version on the card, and vs the NumPy reference. In
+    the Catmull-Rom and polynomial modes: the resampling contract against
+    the plain version (0 ulp expected), atol 3e-6 against
+    ``render_segments_numpy(interp=...)``, and bit-equal to it on every
+    frame that only speed-1 rows cover."""
     import numpy as np
     import torch
 
     from whitebox_tpu_torch.ops import mix_cuda
-    from whitebox_tpu_torch.timeline.carve import carve_session, render_segments_numpy
+    from whitebox_tpu_torch.timeline.carve import render_segments_numpy
 
-    table, pool = carve_session(session, RATE, buffer_size=512, slow_emit="runs")
-    r = mix_cuda.CudaMixRenderer(table, pool, session, device="cuda", tile=tile)
+    r, table, pool, interp = make_renderer(session, mode, tile)
     p = r.plan
+    before = mix_cuda.interp_launches[mode]
     got = r.render_device()
-    plain = mix_cuda.mix_reference(r.pool_device, r.tables, p.n_tiles, p.tile, p.channels)
+    check(mix_cuda.interp_launches[mode] == before + 1, f"{name}: the {mode} kernel did not launch")
+    plain = mix_cuda.mix_reference(r.pool_device, r.tables, p.n_tiles, p.tile, p.channels,
+                                   interp=interp)
     torch.cuda.synchronize()
-    check(torch.equal(got, plain), f"{name}: kernel != plain version "
-          f"(max abs {float((got - plain).abs().max()):.3g})")
+    kp_abs = float((got - plain).abs().max())
+    if mode == "linear":
+        check(torch.equal(got, plain), f"{name}: kernel != plain version (max abs {kp_abs:.3g})")
+        kp = "bit-equal"
+    else:
+        ok, ku, ka = ulp_contract(got.cpu().numpy(), plain.cpu().numpy())
+        check(ok, f"{name}: {mode} kernel {ku} ulp / {ka:.3g} abs off its plain version")
+        kp = f"max {ku} ulp"
     out = got[:, : p.total_frames].cpu().numpy()
-    ref = render_segments_numpy(table, pool, session)
+    ref = render_segments_numpy(table, pool, session, interp=interp)
     fast = bool(table.fast.all())
     if fast:
         check(np.array_equal(out, ref), f"{name}: kernel != render_segments_numpy at speed 1")
-        ok, mu, ma = True, 0, 0.0
-    else:
+        vs = "bit-equal"
+    elif mode == "linear":
         ok, mu, ma = ulp_contract(out, ref)
         check(ok, f"{name}: {mu} ulp / {ma:.3g} abs off render_segments_numpy")
+        vs = f"max {mu} ulp / {ma:.3g} abs"
+    else:
+        ma = float(np.abs(out.astype(np.float64) - ref).max())
+        check(ma <= INTERP_ATOL, f"{name}: {mode} {ma:.3g} abs off render_segments_numpy(interp)")
+        keep = ~slow_frames(table, p.total_frames)
+        check(keep.any() and np.array_equal(out[:, keep], ref[:, keep]),
+              f"{name}: {mode} moved frames that only speed-1 rows cover")
+        vs = f"max {ma:.3g} abs (atol {INTERP_ATOL}), speed-1 frames bit-equal"
     check(float(np.abs(out).max()) > 0.01, f"{name}: silent render")
-    print(f"[kernel-vs-plain] {name}: tracks={p.num_tracks} tile={p.tile} n_tiles={p.n_tiles} "
+    print(f"[kernel-vs-plain] {name} {mode}: tracks={p.num_tracks} tile={p.tile} n_tiles={p.n_tiles} "
           f"K={p.max_slots} slow_slots={int((p.is_slow * (p.me > p.ms)).sum())} "
-          f"kernel==plain bit-equal; vs render_segments_numpy "
-          f"{'bit-equal' if fast else f'max {mu} ulp / {ma:.3g} abs'}")
+          f"kernel vs plain {kp}; vs render_segments_numpy {vs}")
+    return kp_abs
 
 
-def per_track_vs_plain(name, session, tile=None):
+def per_track_vs_plain(name, session, tile=None, mode="linear"):
     """The per-track kernel (K4) vs its plain version on the card, and vs
     the NumPy per-track segment reference: bit-equal at speed 1, within
-    the resampling contract otherwise."""
+    the resampling contract otherwise (atol 3e-6 in the Catmull-Rom and
+    polynomial modes, where tracks of speed-1 rows only stay bit-equal)."""
     import numpy as np
     import torch
 
     from whitebox_tpu_torch.ops import mix_cuda
-    from whitebox_tpu_torch.timeline.carve import carve_session, render_segments_per_track_numpy
+    from whitebox_tpu_torch.timeline.carve import render_segments_per_track_numpy
 
-    table, pool = carve_session(session, RATE, buffer_size=512, slow_emit="runs")
-    r = mix_cuda.CudaMixRenderer(table, pool, session, device="cuda", tile=tile)
+    r, table, pool, interp = make_renderer(session, mode, tile)
     p = r.plan
     before = mix_cuda.mix_per_track_launches
     got = r.render_device_per_track()
     check(mix_cuda.mix_per_track_launches == before + 1, f"{name}: the per-track kernel did not launch")
-    plain = mix_cuda.mix_per_track_reference(r.pool_device, r.tables, p.n_tiles, p.tile, p.channels)
+    plain = mix_cuda.mix_per_track_reference(r.pool_device, r.tables, p.n_tiles, p.tile, p.channels,
+                                             interp=interp)
     torch.cuda.synchronize()
     g, q = got.cpu().numpy(), plain.cpu().numpy()
     fast = bool(table.fast.all())
@@ -375,39 +476,45 @@ def per_track_vs_plain(name, session, tile=None):
         ok, mu, ma = ulp_contract(g, q)
         check(ok, f"{name}: per-track kernel {mu} ulp / {ma:.3g} abs off its plain version")
     out = g[:, :, : p.total_frames]
-    ref = render_segments_per_track_numpy(table, pool)
+    ref = render_segments_per_track_numpy(table, pool, interp=interp)
     if fast:
         check(np.array_equal(out, ref), f"{name}: per-track kernel != render_segments_per_track_numpy")
         mu, ma = 0, 0.0
-    else:
+    elif mode == "linear":
         ok, mu, ma = ulp_contract(out, ref)
         check(ok, f"{name}: per-track kernel {mu} ulp / {ma:.3g} abs off render_segments_per_track_numpy")
+    else:
+        mu, ma = -1, float(np.abs(out.astype(np.float64) - ref).max())
+        check(ma <= INTERP_ATOL, f"{name}: {mode} per-track {ma:.3g} abs off the NumPy reference")
+        speed1 = [t for t in range(p.num_tracks) if table.fast[table.track == t].all()]
+        check(all(np.array_equal(out[t], ref[t]) for t in speed1),
+              f"{name}: {mode} moved a track of speed-1 rows only")
     check(not g[:, :, p.total_frames:].any(), f"{name}: per-track padding not silent")
     check(float(np.abs(out).max()) > 0.01, f"{name}: silent per-track render")
     kp_ulps = int(np.abs(g.view(np.int32).astype(np.int64) - q.view(np.int32).astype(np.int64)).max())
-    print(f"[kernel-vs-plain] {name}_per_track: tracks={p.num_tracks} tile={p.tile} "
+    print(f"[kernel-vs-plain] {name}_per_track {mode}: tracks={p.num_tracks} tile={p.tile} "
           f"out={tuple(got.shape)} kernel vs plain max {kp_ulps} ulp; vs "
-          f"render_segments_per_track_numpy {'bit-equal' if fast else f'max {mu} ulp / {ma:.3g} abs'}")
+          f"render_segments_per_track_numpy "
+          f"{'bit-equal' if fast else f'max {mu} ulp / {ma:.3g} abs' if mode == 'linear' else f'max {ma:.3g} abs'}")
 
 
-def auto_vs_plain(name, session, tile=None):
+def auto_vs_plain(name, session, tile=None, mode="linear"):
     """The automation variant vs its plain version on the card (atol/rtol),
-    and vs the f64 host reference (relative RMS)."""
+    and vs the f64 host reference (relative RMS), resampled rows in
+    ``mode``."""
     import numpy as np
     import torch
 
     from whitebox_tpu_torch.ops import mix_cuda
-    from whitebox_tpu_torch.render.effects_pipeline import prepare_automation_tables_host
-    from whitebox_tpu_torch.timeline.carve import carve_session
 
-    table, pool = carve_session(session, RATE, buffer_size=512, slow_emit="runs")
-    r = mix_cuda.CudaMixRenderer(table, pool, session, device="cuda", tile=tile,
-                                 auto_tables=prepare_automation_tables_host(session, RATE))
+    r, table, pool, interp = make_renderer(session, mode, tile, auto=True)
     p = r.plan
-    before = mix_cuda.mix_auto_launches
+    before = mix_cuda.mix_auto_launches, mix_cuda.interp_launches[mode]
     got = r.render_device()
-    check(mix_cuda.mix_auto_launches == before + 1, f"{name}: the automation kernel did not launch")
-    plain = mix_cuda.mix_auto_reference(r.pool_device, r.tables, r.auto, p.n_tiles, p.tile, p.channels)
+    check((mix_cuda.mix_auto_launches, mix_cuda.interp_launches[mode]) == (before[0] + 1, before[1] + 1),
+          f"{name}: the {mode} automation kernel did not launch")
+    plain = mix_cuda.mix_auto_reference(r.pool_device, r.tables, r.auto, p.n_tiles, p.tile,
+                                        p.channels, interp=interp)
     torch.cuda.synchronize()
     g, q = got.cpu().numpy(), plain.cpu().numpy()
     ulps = int(np.abs(g.view(np.int32).astype(np.int64) - q.view(np.int32).astype(np.int64)).max())
@@ -415,12 +522,79 @@ def auto_vs_plain(name, session, tile=None):
     check(np.allclose(g, q, atol=AUTO_ATOL, rtol=AUTO_RTOL),
           f"{name}: automation kernel vs plain max abs {max_abs:.3g} ({ulps} ulp)")
     out = g[:, : p.total_frames]
-    rr = rel_rms(out, host_reference(session))
+    rr = rel_rms(out, host_reference(session, mode))
     check(rr < AUTO_REL_RMS, f"{name}: relative RMS {rr:.3g} off the f64 host reference")
     check(float(np.abs(out).max()) > 0.01, f"{name}: silent render")
-    print(f"[kernel-vs-plain] {name}: tracks={p.num_tracks} tile={p.tile} P={r.auto['vxs'].shape[1]} "
+    print(f"[kernel-vs-plain] {name} {mode}: tracks={p.num_tracks} tile={p.tile} P={r.auto['vxs'].shape[1]} "
           f"automated={int(r.auto['use'].sum())} kernel vs plain max {ulps} ulp / {max_abs:.3g} abs "
           f"(atol {AUTO_ATOL}, rtol {AUTO_RTOL}); vs f64 host reference relative RMS {rr:.3g}")
+
+
+def sinc_small(name, session):
+    """The sinc prerender on a small session: the extension built on the
+    card against the host's, and the bounce against the NumPy mix of the
+    host-prerendered table, one mix launch."""
+    import numpy as np
+
+    from whitebox_tpu_torch.ops import mix_cuda
+    from whitebox_tpu_torch.render.bounce import bounce
+    from whitebox_tpu_torch.timeline import prerender as pre
+    from whitebox_tpu_torch.timeline.carve import carve_session, render_segments_numpy
+
+    table, pool = carve_session(session, RATE, buffer_size=512, slow_emit="runs")
+    plan = pre.plan_prerender(table, pool, partial=True)
+    check(plan is not None and plan.uncovered_rows is None, f"{name}: the prerender does not cover the session")
+    _, p2 = pre.apply_prerender_host(table, pool, plan)
+    _, _, full = pre.apply_prerender_device(table, pool, plan, device="cuda")
+    ext_err = float(np.abs(full.cpu().numpy() - p2.data).max())
+    check(full.shape[0] == p2.data.shape[0] and ext_err < EXT_ATOL,
+          f"{name}: extension on the card {ext_err:.3g} off apply_prerender_host")
+    reset_launches()
+    res = bounce(session, RATE, device="cuda", interpolation="sinc")
+    check((mix_cuda.mix_kernel_launches, mix_cuda.mix_auto_launches, mix_cuda.mix_per_track_launches)
+          == (1, 0, 0), f"{name}: a sinc bounce must launch the mix kernel once")
+    t2, p2, interp = pre.resolve_sinc_host(table, pool)
+    ref = render_segments_numpy(t2, p2, session, interp=interp)
+    err = float(np.abs(res.audio.astype(np.float64) - ref).max())
+    check(res.audio.shape == ref.shape and err < INTERP_ATOL,
+          f"{name}: sinc bounce {err:.3g} off resolve_sinc_host + render_segments_numpy")
+    kinds = sorted({g[0] for g in plan.groups})
+    print(f"[kernel-vs-plain] {name}: {len(plan.runs)} runs in groups {kinds}, reverse "
+          f"{sum(r.rev for r in plan.runs)}; extension on the card vs apply_prerender_host max "
+          f"{ext_err:.3g} abs (< {EXT_ATOL}); bounce(interpolation='sinc') vs resolve_sinc_host + "
+          f"render_segments_numpy max {err:.3g} abs (< {INTERP_ATOL}); mix launches=1; "
+          f"prerender {res.stats.prerender_seconds * 1e3:.3f} ms")
+
+
+def sinc_sine_snr():
+    """A 1 kHz sine from a 44.1 kHz sample (speed 44100/48000, the exact
+    polyphase path, hard left) and from a 48 kHz sample at a semitone (the
+    Taylor path, hard right): each against its ideal resampled sine."""
+    import numpy as np
+
+    from whitebox_tpu_torch.core.formats import AudioFormat
+    from whitebox_tpu_torch.render.bounce import bounce
+    from whitebox_tpu_torch.session import Session
+    from whitebox_tpu_torch.session.sample import Sample
+
+    irr = 2.0 ** (1.0 / 12.0)
+    s = Session(bpm=120.0)
+    for i, (rate, speed, pan) in enumerate(((44100, 1.0, -1.0), (48000, irr, 1.0))):
+        x = (0.5 * np.sin(2 * np.pi * 1000.0 * np.arange(rate * 2) / rate)).astype(np.float32)
+        asset = s.sample_table.add_sample(Sample.from_planar(x[None], rate, AudioFormat.F32), key=f"sine{i}")
+        s.add_audio_clip(s.add_track(f"t{i}", volume_db=0.0, pan=pan), "c", 0.0, 3.0, asset=asset, speed=speed)
+    out = bounce(s, RATE, device="cuda", interpolation="sinc").audio
+    m = np.arange(out.shape[1]) / RATE
+    amp = 0.5 * float(np.sqrt(2.0))  # the -3 dB pan law on the hard side
+    lo, hi = 2000, int(1.4 * RATE)
+    snrs = []
+    for ch, freq in ((0, 1000.0), (1, 1000.0 * irr)):
+        ideal = amp * np.sin(2 * np.pi * freq * m)
+        noise = out[ch, lo:hi] - ideal[lo:hi]
+        snrs.append(10 * np.log10(np.mean(ideal[lo:hi] ** 2) / max(np.mean(noise ** 2), 1e-30)))
+        check(snrs[-1] > SINE_SNR_DB, f"sinc sine at {freq:.1f} Hz: SNR {snrs[-1]:.1f} dB")
+    print(f"[kernel-vs-plain] sinc_sine_snr: 1 kHz sine at speed 44100/48000 {snrs[0]:.1f} dB, at "
+          f"2^(1/12) {snrs[1]:.1f} dB (> {SINE_SNR_DB} dB)")
 
 
 def phase_kernel_vs_plain() -> None:
@@ -443,6 +617,19 @@ def phase_kernel_vs_plain() -> None:
     for name, (session, tile) in small.items():
         kernel_vs_plain(name, session, tile=tile)
         per_track_vs_plain(name, session, tile=tile)
+    # the Catmull-Rom and polynomial-tap slots (K2-catmull, K2-poly) in all
+    # three variants, on the resampled, reverse and faded sessions
+    for mode in ("catmull", "poly"):
+        for name in ("mixed_speeds_fades", "reverse_bidirectional"):
+            kernel_vs_plain(name, small[name][0], mode=mode)
+            per_track_vs_plain(name, small[name][0], mode=mode)
+        kernel_vs_plain("mixed_speeds_fades_tile1024", small["mixed_speeds_fades"][0], tile=1024, mode=mode)
+        auto_vs_plain("auto_fades", auto_session(seed=5, fades=True), mode=mode)
+    sinc_small("sinc_rational_taylor", make_demo_session(
+        n_tracks=4, duration_seconds=6.0, seed=9, sample_seconds=1.0, fades=True,
+        clip_speeds=(1.0, 44100 / 48000, 2 ** (1 / 12), 0.5)))
+    sinc_small("sinc_reverse_bidirectional", reverse_session())
+    sinc_sine_snr()
 
     s = make_demo_session(n_tracks=8, duration_seconds=10.0, seed=5)
     oracle = OracleRenderer(s, RATE, buffer_size=512).render()
@@ -489,14 +676,22 @@ def _event_ms(torch, fn, iters):
     return statistics.median(ts), ts
 
 
-def bound(plan, pool_bytes: int, table_bytes: int, auto=None, per_track: bool = False) -> dict:
+#: f32 operations of a resampled slot's sample beyond a copy's, by mode: the
+#: double-single phase (17) plus the lerp (3), the Catmull-Rom cubic (19) or
+#: six Horner chains of degree 5 and their weighted sum (6 * 10 + 12)
+SLOW_OPS = {"linear": 17 + 3, "catmull": 17 + 19, "poly": 17 + 72}
+
+
+def bound(plan, pool_bytes: int, table_bytes: int, auto=None, per_track: bool = False,
+          mode: str = "linear") -> dict:
     """The least time the card could take for one mix of ``plan``: the
     larger of the bytes it must move (each input read once, the output
-    written once) over HBM bandwidth and the f32 operations this run's data
-    needs over the f32 peak. Operations counted per covered (slot, frame,
-    channel): 5 for a speed-1 slot (gain, 2 envelope multiplies, track
-    gain, the add; 4 in the per-track mode, which has no track gain), 25
-    for a resampled one (+ the double-single phase and the lerp); per
+    written once; ``pool_bytes`` is the pool the kernel reads, extended or
+    oversampled where it is) over HBM bandwidth and the f32 operations this
+    run's data needs over the f32 peak. Operations counted per covered
+    (slot, frame, channel): 5 for a speed-1 slot (gain, 2 envelope
+    multiplies, track gain, the add; 4 in the per-track mode, which has no
+    track gain), plus :data:`SLOW_OPS` of ``mode`` for a resampled one; per
     automated (track, frame) covered by a slot: 2 lane evaluations of 3
     (divide and lerp), 2 for the pan position, and per channel a sine
     counted as 1 plus 3 multiplies. The per-track mode writes ``[T, C, F]``."""
@@ -506,7 +701,7 @@ def bound(plan, pool_bytes: int, table_bytes: int, auto=None, per_track: bool = 
     span = np.where(act, plan.me - plan.ms, 0).astype(np.int64)
     slow = plan.is_slow == 1
     C = plan.channels
-    ops = C * ((4 if per_track else 5) * int(span.sum()) + 20 * int(span[slow].sum()))
+    ops = C * ((4 if per_track else 5) * int(span.sum()) + SLOW_OPS[mode] * int(span[slow].sum()))
     if auto is not None:
         use = auto["use"].cpu().numpy().astype(bool)
         ops += (3 * 2 + 2 + 4 * C) * int(span[:, use].sum())
@@ -518,22 +713,83 @@ def bound(plan, pool_bytes: int, table_bytes: int, auto=None, per_track: bool = 
             "bound_bytes": bytes_, "bound_ops": ops}
 
 
-def measure_cell(torch, name: str, session, duration: float, automated: bool = False) -> dict:
-    """5 warm carve+(lane packing)+plan+upload+kernel iterations (samples
-    resident on the card, as bench.py keeps them), the kernel's and the
-    plain version's device times by CUDA events, and kernel vs plain at
-    full size (bit-equal without lanes, atol/rtol with them)."""
+def ext_bound(plan, pool_bytes: int, channels: int) -> dict:
+    """The least time the card could take for the prerender's extension as
+    it is computed: the f32 operations of its banded products (two per
+    multiply-add of each group's einsum, plus the Taylor correction's 5 per
+    sample) over the f32 peak, or its bytes (the pool and each group's
+    matrix read once, the extension written once) over HBM bandwidth.
+    ``banded_flops`` counts the taps alone (32 multiply-adds per sample, 96
+    for a Taylor group): what the zeros inside the matrices cost shows as
+    the ratio of the two."""
+    from whitebox_tpu_torch.timeline import prerender as pre
+
+    flops = banded = mat_bytes = 0
+    for kind, Pp, Qp, _, n_sub in plan.groups:
+        if kind == "taylor":
+            _, _, _, Wb = pre._taylor_matrices(Pp, Qp, plan.taps, plan.atten_db)
+            flops += channels * n_sub * Qp * (2 * 3 * Wb + 5)
+            banded += channels * n_sub * Qp * (2 * 3 * plan.taps + 5)
+            mat_bytes += 3 * Qp * Wb * 4
+        else:
+            flops += channels * n_sub * pre._QF * Qp * 2 * (Pp + plan.taps)
+            banded += channels * n_sub * pre._QF * Qp * 2 * plan.taps
+            mat_bytes += Qp * (Pp + plan.taps) * 4
+    bytes_ = pool_bytes + mat_bytes + plan.ext_len * 4
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, flops / F32_OPS_PER_S
+    return {"ext_bound_ms": max(t_bytes, t_ops) * 1e3,
+            "ext_bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "ext_bound_bytes": bytes_, "ext_matmul_flops": flops, "ext_banded_flops": banded}
+
+
+def measure_cell(torch, name: str, session, duration: float, automated: bool = False,
+                 mode: str = "linear") -> dict:
+    """5 warm carve+(lane packing)+(resolve)+plan+upload+kernel iterations
+    (samples resident on the card, as bench.py keeps them), the kernel's
+    and the plain version's device times by CUDA events, and kernel vs
+    plain at full size (bit-equal without lanes, atol/rtol with them; the
+    resampling contract in the Catmull-Rom and polynomial modes).
+
+    ``mode`` is the interpolation as the bounce resolves it: "linear",
+    "catmull", "poly" (``interpolation="sinc", prerender=False``: each
+    iteration oversamples the resampled samples on the host and finds the
+    4x pool on the card by its hash) or "prerender"
+    (``interpolation="sinc"``: each iteration plans the prerender on the
+    host and builds the pool extension on the card, then mixes speed-1
+    rows over it with the linear kernel)."""
+
     from whitebox_tpu_torch.ops import mix_cuda
     from whitebox_tpu_torch.ops.mix_plan import build_plan
     from whitebox_tpu_torch.render.effects_pipeline import prepare_automation_tables_host
+    from whitebox_tpu_torch.timeline import prerender as pre
     from whitebox_tpu_torch.timeline.carve import carve_session
+    from whitebox_tpu_torch.timeline.oversample import device_pool_cached
 
     def lanes():
         return prepare_automation_tables_host(session, RATE) if automated else None
 
+    def resolve(table, pool, base_dev):
+        """-> (table, pool, interp, pool on the card, prerender plan)"""
+        if mode == "prerender":
+            pplan = pre.plan_prerender(table, pool, partial=True)
+            check(pplan is not None and pplan.uncovered_rows is None,
+                  f"{name}: the prerender does not cover every run")
+            t2, p2, full = pre.apply_prerender_device(table, pool, pplan, pool_device=base_dev)
+            return t2, p2, "linear", full, pplan
+        t2, p2, interp = resolve_mode(table, pool, mode)
+        return t2, p2, interp, base_dev if p2 is pool else device_pool_cached(p2, base_dev.device), None
+
+    slots = 16 if mode == "poly" else 8
     table, pool = carve_session(session, RATE, buffer_size=512, slow_emit="runs")
-    warm = mix_cuda.CudaMixRenderer(table, pool, session, device="cuda", auto_tables=lanes())
-    rows = []
+    base_dev = torch.from_numpy(pool.data).to("cuda")
+    t2, p2, interp, pool_dev, pplan = resolve(table, pool, base_dev)
+    warm = mix_cuda.CudaMixRenderer(t2, p2, session, device="cuda", auto_tables=lanes(), interp=interp,
+                                    pool_device=pool_dev,
+                                    plan=build_plan(t2, p2, session, max_slots=slots))
+    del t2, p2
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rows, ext_ms = [], []
     for _ in range(5):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -541,31 +797,39 @@ def measure_cell(torch, name: str, session, duration: float, automated: bool = F
         t1 = time.perf_counter()
         auto_tables = lanes()
         t2 = time.perf_counter()
-        plan = build_plan(t_, p_, session)
+        t_, p_, interp_, pool_dev_, pplan_ = resolve(t_, p_, base_dev)
         t3 = time.perf_counter()
-        r = mix_cuda.CudaMixRenderer(t_, p_, session, device="cuda", plan=plan,
-                                     pool_device=warm.pool_device, auto_tables=auto_tables)
+        plan = build_plan(t_, p_, session, max_slots=slots)
         t4 = time.perf_counter()
+        r = mix_cuda.CudaMixRenderer(t_, p_, session, device="cuda", plan=plan, interp=interp_,
+                                     pool_device=pool_dev_, auto_tables=auto_tables)
+        t5 = time.perf_counter()
         r.render_device()
         torch.cuda.synchronize()
-        t5 = time.perf_counter()
-        rows.append((t1 - t0, t2 - t1, t3 - t2, t4 - t3, t5 - t4, t5 - t0))
-    carve_s, lanes_s, plan_s, upload_s, launch_s, e2e_med = (statistics.median(c) for c in zip(*rows))
+        t6 = time.perf_counter()
+        rows.append((t1 - t0, t2 - t1, t3 - t2, t4 - t3, t5 - t4, t6 - t5, t6 - t0))
+        if pplan_ is not None:
+            ext_ms.append(pplan_.ext_seconds * 1e3)
+        del r, pool_dev_
+    carve_s, lanes_s, resolve_s, plan_s, upload_s, launch_s, e2e_med = (
+        statistics.median(c) for c in zip(*rows))
     e2e_best = min(row[-1] for row in rows)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     p = warm.plan
     args = (warm.pool_device, warm.tables, p.n_tiles, p.tile, p.channels)
     if automated:
         def kernel():
-            return mix_cuda.mix_auto_cuda(warm.pool_device, warm.tables, warm.auto, *args[2:])
+            return mix_cuda.mix_auto_cuda(warm.pool_device, warm.tables, warm.auto, *args[2:], interp=interp)
 
         def plain():
-            return mix_cuda.mix_auto_reference(warm.pool_device, warm.tables, warm.auto, *args[2:])
+            return mix_cuda.mix_auto_reference(warm.pool_device, warm.tables, warm.auto, *args[2:],
+                                               interp=interp)
     else:
         def kernel():
-            return mix_cuda.mix_cuda(*args)
+            return mix_cuda.mix_cuda(*args, interp=interp)
 
         def plain():
-            return mix_cuda.mix_reference(*args)
+            return mix_cuda.mix_reference(*args, interp=interp)
     kernel_ms, kernel_all = _event_ms(torch, kernel, 20)
     plain_ms, _ = _event_ms(torch, plain, 3)
     got, ref = kernel(), plain()
@@ -573,29 +837,40 @@ def measure_cell(torch, name: str, session, duration: float, automated: bool = F
     if automated:
         check(torch.allclose(got, ref, atol=AUTO_ATOL, rtol=AUTO_RTOL),
               f"{name}: automation kernel vs plain max abs {max_abs:.3g}")
+    elif mode in ("catmull", "poly"):
+        ok, ku, ka = ulp_contract(got.cpu().numpy(), ref.cpu().numpy())
+        check(ok, f"{name}: {mode} kernel {ku} ulp / {ka:.3g} abs off its plain version")
     else:
         check(torch.equal(got, ref), f"{name}: kernel != plain version (max abs {max_abs:.3g})")
     table_bytes = sum(t.numel() * t.element_size() for t in warm.tables.values())
     if automated:
         table_bytes += sum(t.numel() * t.element_size() for t in warm.auto.values())
+    pool_bytes = warm.pool_device.numel() * 4
     stats = {
-        "cell": name, "tracks": p.num_tracks, "audio_seconds": duration,
+        "cell": name, "mode": mode, "tracks": p.num_tracks, "audio_seconds": duration,
         "frames": int(p.total_frames), "tile": p.tile, "n_tiles": p.n_tiles, "K": p.max_slots,
         "active_slots": int((p.me > p.ms).sum()),
         "slow_slots": int(((p.me > p.ms) & (p.is_slow == 1)).sum()),
-        "pool_mb": pool.data.nbytes / 1e6,
+        "pool_mb": pool_bytes / 1e6,
         "e2e_ms_median": e2e_med * 1e3, "e2e_ms_best": e2e_best * 1e3,
         "rtf_median": duration / e2e_med, "rtf_best": duration / e2e_best,
-        "carve_ms": carve_s * 1e3, "lanes_ms": lanes_s * 1e3, "plan_ms": plan_s * 1e3,
-        "upload_ms": upload_s * 1e3,
+        "carve_ms": carve_s * 1e3, "lanes_ms": lanes_s * 1e3, "resolve_ms": resolve_s * 1e3,
+        "plan_ms": plan_s * 1e3, "upload_ms": upload_s * 1e3,
         "launch_to_sync_ms": launch_s * 1e3,
         "kernel_ms_median": kernel_ms, "kernel_ms_min": min(kernel_all), "plain_ms_median": plain_ms,
         "output_gb_per_s": got.numel() * 4 / (kernel_ms * 1e-3) / 1e9,
-        "kernel_vs_plain_max_abs": max_abs,
-        **bound(p, pool.data.nbytes, table_bytes, warm.auto),
+        "kernel_vs_plain_max_abs": max_abs, "peak_mem_gb": peak_gb,
+        **bound(p, pool_bytes, table_bytes, warm.auto, mode="linear" if mode == "prerender" else mode),
     }
     if automated:
         stats["lane_points"] = int(warm.auto["vxs"].shape[1])
+    if pplan is not None:
+        # resolve_ms holds the host plan and the extension's build (which
+        # waits for the card); prerender_ms is the build's device time
+        stats.update(prerender_ms=statistics.median(ext_ms), prerender_runs=len(pplan.runs),
+                     prerender_groups=[list(g[:3]) + [g[4]] for g in pplan.groups],
+                     ext_mb=pplan.ext_len * 4 / 1e6,
+                     **ext_bound(pplan, pool.data.nbytes, p.channels))
     print(f"[{name}] " + json.dumps(stats))
     return stats
 
@@ -647,9 +922,12 @@ def phase_headline(torch) -> dict:
     return _kernel_entry(k, launches)
 
 
-def automation_cell(torch, name: str, session, duration: float) -> tuple[dict, int]:
+def automation_cell(torch, name: str, session, duration: float,
+                    reference_seconds=None) -> tuple[dict, int]:
     """``bounce(device="cuda")`` of an automated session with the launch
-    counts reset just before, held to the f64 host reference, then timed."""
+    counts reset just before, held to the f64 host reference (of the first
+    ``reference_seconds`` of the session where given: the reference is
+    per-sample Python on the host), then timed at full length."""
     import numpy as np
 
     from whitebox_tpu_torch.ops import mix_cuda
@@ -661,21 +939,25 @@ def automation_cell(torch, name: str, session, duration: float) -> tuple[dict, i
     check(launches > 0, f"{name}: bounce never launched the automation kernel")
     check(mix_cuda.mix_kernel_launches == 0, f"{name}: an automated session took the plain kernel")
     t0 = time.perf_counter()
-    ref = host_reference(session)
+    ref = host_reference(session, seconds=reference_seconds)
     ref_s = time.perf_counter() - t0
-    check(res.audio.shape == ref.shape and np.isfinite(res.audio).all(), f"{name}: shape/finite")
-    rr = rel_rms(res.audio, ref)
+    check(res.audio.shape[0] == ref.shape[0] and 0 < ref.shape[1] <= res.audio.shape[1]
+          and (reference_seconds is not None or ref.shape == res.audio.shape)
+          and np.isfinite(res.audio).all(), f"{name}: shape/finite")
+    rr = rel_rms(res.audio[:, : ref.shape[1]], ref)
     check(rr < AUTO_REL_RMS, f"{name}: relative RMS {rr:.3g} off the f64 host reference")
     check(float(np.abs(res.audio).max()) > 0.01, f"{name}: silent render")
     print(f"[{name}] bounce(device='cuda'): {res.stats.summary()}; automation kernel "
-          f"launches={launches}; vs f64 host reference relative RMS {rr:.3g} "
+          f"launches={launches}; vs f64 host reference relative RMS {rr:.3g} over "
+          f"{'the whole session' if reference_seconds is None else f'its first {reference_seconds:g} s'} "
           f"(reference {ref_s:.1f} s on the host)")
     return measure_cell(torch, name, session, duration, automated=True), launches
 
 
 def phase_automation(torch) -> dict:
     automation_cell(torch, "automation_32trk", automation_32trk(), 60.0)
-    k, launches = automation_cell(torch, "automation_tempo_128trk", automation_tempo_128trk(), 60.0)
+    k, launches = automation_cell(torch, "automation_tempo_128trk", automation_tempo_128trk(), 60.0,
+                                  reference_seconds=15.0)
     return _kernel_entry(k, launches)
 
 
@@ -845,6 +1127,177 @@ def phase_effects(torch) -> dict:
     return _kernel_entry(stats, launches)
 
 
+#: the sessions of the four interpolation cells: the JAX package's benchmark
+#: config 3 (``benchmarks/run_all.py:260-324``: 44.1 kHz material and
+#: half-speed clips in a 48 kHz session) and its irrational-speed extra
+#: (``run_all.py:423-433``: a semitone up, a semitone down, the golden ratio)
+CONFIG3_SPEEDS = (1.0, 1.088435374149660, 0.5)
+IRRATIONAL_SPEEDS = (2 ** (1 / 12), 2 ** (-1 / 12), 1.6180339887498949)
+#: slab sizes swept for the extension's build (``prerender._EXT_SLAB_BYTES``)
+SLAB_SWEEP_MIB = (64, 256, 1024, 8192)
+
+
+def prerender_check(torch, name: str, session) -> None:
+    """The prerender at full width: the extended pool read back once, the
+    kernel's mix over it bit-equal to ``render_segments_numpy`` on the
+    rewritten table (its rows are speed-1 copies; a reverse run's speed
+    -1.0 rows fall under the resampling contract), and the extension of
+    the first two tracks' runs within 1e-6 of the f64 host extension."""
+    import dataclasses
+
+    import numpy as np
+
+    from whitebox_tpu_torch.ops import mix_cuda
+    from whitebox_tpu_torch.ops.mix_plan import build_plan
+    from whitebox_tpu_torch.timeline import prerender as pre
+    from whitebox_tpu_torch.timeline.carve import carve_session, render_segments_numpy
+
+    table, pool = carve_session(session, RATE, buffer_size=512, slow_emit="runs")
+    plan = pre.plan_prerender(table, pool, partial=True)
+    check(plan is not None and plan.uncovered_rows is None, f"{name}: the prerender does not cover every run")
+    t2, p2, full = pre.apply_prerender_device(table, pool, plan, device="cuda")
+    r = mix_cuda.CudaMixRenderer(t2, p2, session, device="cuda", pool_device=full,
+                                 plan=build_plan(t2, p2, session))
+    got = r.render()
+    data = full.cpu().numpy()  # the one read-back of the extended pool
+    t0 = time.perf_counter()
+    ref = render_segments_numpy(t2, dataclasses.replace(p2, data=data), session)
+    if t2.fast.all():
+        check(np.array_equal(got, ref), f"{name}: mix over the extended pool != render_segments_numpy")
+        vs = "bit-equal"
+    else:
+        ok, mu, ma = ulp_contract(got, ref)
+        check(ok, f"{name}: {mu} ulp / {ma:.3g} abs off render_segments_numpy on the rewritten table")
+        vs = f"max {mu} ulp / {ma:.3g} abs"
+    ref_s = time.perf_counter() - t0
+    check(float(np.abs(got).max()) > 0.01, f"{name}: silent render")
+
+    C = pool.channel_base.shape[1]
+    sub = pre.restrict_plan(plan, lambda run: run.trk < 2, C)
+    t0 = time.perf_counter()
+    _, p64 = pre.apply_prerender_host(table, pool, sub, f64=True)
+    origin = pool.data.shape[0] + (-pool.data.shape[0]) % 128
+    err = 0.0
+    for a, b in zip([run for run in plan.runs if run.trk < 2], sub.runs):
+        n = a.nsub * (a.Qp if a.taylor else pre._QF * a.Qp)
+        for ch in range(C):
+            x = data[origin + a.ext_base + ch * a.stride_group:][:n]
+            y = p64.data[origin + b.ext_base + ch * b.stride_group:][:n]
+            err = max(err, float(np.abs(x.astype(np.float64) - y).max()))
+    check(len(sub.runs) > 0 and err < EXT_ATOL,
+          f"{name}: extension {err:.3g} off the f64 host extension on the first two tracks")
+    print(f"[{name}] extended pool {data.nbytes / 1e9:.3f} GB read back once: kernel mix over it vs "
+          f"render_segments_numpy on the rewritten table {vs} ({ref_s:.1f} s on the host); "
+          f"{len(sub.runs)} runs of tracks 0-1 (of {len(plan.runs)}) vs apply_prerender_host(f64) "
+          f"max {err:.3g} abs (< {EXT_ATOL}, {time.perf_counter() - t0:.1f} s on the host)")
+
+
+def head_check(name: str, session, mode: str, seconds: float = 5.0) -> None:
+    """The first ``seconds`` of the session in ``mode`` on the card against
+    ``render_segments_numpy(interp=...)``."""
+    import numpy as np
+
+    from whitebox_tpu_torch.timeline.carve import render_segments_numpy
+
+    r, table, pool, interp = make_renderer(session, mode, seconds=seconds)
+    got = r.render()
+    ref = render_segments_numpy(table, pool, session, interp=interp)
+    ma = float(np.abs(got.astype(np.float64) - ref).max())
+    check(got.shape == ref.shape and ma <= INTERP_ATOL,
+          f"{name}: {mode} head {ma:.3g} abs off render_segments_numpy(interp)")
+    keep = ~slow_frames(table, got.shape[1])
+    check(np.array_equal(got[:, keep], ref[:, keep]), f"{name}: {mode} moved speed-1 frames")
+    print(f"[{name}] first {seconds:g} s ({got.shape[1]} frames) vs render_segments_numpy(interp={mode}) "
+          f"max {ma:.3g} abs (<= {INTERP_ATOL}); frames of speed-1 rows only bit-equal")
+
+
+def slab_sweep(torch, name: str, session) -> None:
+    """The extension's build at several slab sizes: device ms (median of 3)
+    and peak memory on the card."""
+    from whitebox_tpu_torch.timeline import prerender as pre
+    from whitebox_tpu_torch.timeline.carve import carve_session
+
+    table, pool = carve_session(session, RATE, buffer_size=512, slow_emit="runs")
+    plan = pre.plan_prerender(table, pool, partial=True)
+    base = torch.from_numpy(pool.data).to("cuda")
+    default, out = pre._EXT_SLAB_BYTES, {}
+    try:
+        for mib in SLAB_SWEEP_MIB:
+            pre._EXT_SLAB_BYTES = mib << 20
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            ms = []
+            for _ in range(4):
+                full = pre.apply_prerender_device(table, pool, plan, pool_device=base)[2]
+                ms.append(plan.ext_seconds * 1e3)
+                del full
+            out[f"{mib}MiB"] = {"ext_ms": statistics.median(ms[1:]),
+                                "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    finally:
+        pre._EXT_SLAB_BYTES = default
+    print(f"[{name}] slab sweep (default {default >> 20} MiB) " + json.dumps(out))
+
+
+def interpolation_cell(torch, name: str, session, duration: float, mode: str) -> tuple[dict, int]:
+    """One interpolation cell: ``bounce(device="cuda")`` with the launch
+    counts reset just before (one mix launch, in the expected mode), its
+    checks, then the timing."""
+    import numpy as np
+
+    from whitebox_tpu_torch.ops import mix_cuda
+    from whitebox_tpu_torch.render.bounce import bounce
+
+    kw = {"catmull": {"interpolation": "catmull"}, "prerender": {"interpolation": "sinc"},
+          "poly": {"interpolation": "sinc", "prerender": False}}[mode]
+    kernel_mode = "linear" if mode == "prerender" else mode
+    reset_launches()
+    res = bounce(session, RATE, device="cuda", **kw)
+    launches = mix_cuda.mix_kernel_launches
+    check(launches == 1 and mix_cuda.mix_auto_launches == 0 and mix_cuda.mix_per_track_launches == 0,
+          f"{name}: bounce must launch the summing kernel once, got {launches}")
+    check(mix_cuda.interp_launches == {**dict.fromkeys(mix_cuda.interp_launches, 0), kernel_mode: 1},
+          f"{name}: launched in modes {mix_cuda.interp_launches}, expected one {kernel_mode}")
+    check(np.isfinite(res.audio).all() and float(np.abs(res.audio).max()) > 0.01,
+          f"{name}: silent or non-finite render")
+    check((res.stats.prerender_seconds > 0) == (mode == "prerender"), f"{name}: prerender_seconds")
+    print(f"[{name}] bounce(device='cuda', {', '.join(f'{k}={v!r}' for k, v in kw.items())}): "
+          f"{res.stats.summary()}; prerender {res.stats.prerender_seconds * 1e3:.3f} ms; mix kernel "
+          f"launches={launches} ({kernel_mode})")
+    if mode == "prerender":
+        prerender_check(torch, name, session)
+    else:
+        head_check(name, session, mode)
+    return measure_cell(torch, name, session, duration, mode=mode), launches
+
+
+def phase_interpolation(torch) -> dict:
+    """The export-quality interpolation modes at full width: Catmull-Rom
+    in the kernel, the sinc prerender on rational and on irrational
+    speeds, and the oversampled sinc through the polynomial taps."""
+    from whitebox_tpu_torch.render.demo import make_demo_session
+
+    duration = 60.0
+    config3 = make_demo_session(n_tracks=128, duration_seconds=duration, sample_rate=44100, seed=7,
+                                clip_speeds=CONFIG3_SPEEDS)
+    irrational = make_demo_session(n_tracks=128, duration_seconds=duration, sample_rate=int(RATE), seed=7,
+                                   clip_speeds=IRRATIONAL_SPEEDS)
+    out = {}
+    for name, session, mode, kernel in (
+            ("catmull_128trk", config3, "catmull", "mix_catmull"),
+            ("sinc_prerender_128trk", config3, "prerender", "mix_prerendered"),
+            ("sinc_irrational_128trk", irrational, "prerender", None),
+            ("sinc_oversample_128trk", config3, "poly", "mix_poly")):
+        cell, launches = interpolation_cell(torch, name, session, duration, mode)
+        if kernel is not None:
+            out[kernel] = _kernel_entry(cell, launches)
+    slab_sweep(torch, "sinc_prerender_128trk", config3)
+    slab_sweep(torch, "sinc_irrational_128trk", irrational)
+    print("[interpolation] " + sh(["nvidia-smi", "--query-gpu=name,power.limit,power.draw,clocks.sm,"
+                                   "temperature.gpu", "--format=csv,noheader"]))
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -867,6 +1320,7 @@ def main() -> int:
     linear = phase_headline(torch)
     auto = phase_automation(torch)
     per_track = phase_effects(torch)
+    interp = phase_interpolation(torch)
     check("jax" not in sys.modules and "whitebox_tpu" not in sys.modules,
           "the port loaded jax or the JAX package")
     src = "whitebox_tpu_torch/csrc/mix_kernel.cu"
@@ -877,6 +1331,12 @@ def main() -> int:
          "replaces": "whitebox_tpu/ops/mix_pallas.py:384-460", **auto},
         {"name": "mix_per_track", "route": "cuda", "source": src,
          "replaces": "whitebox_tpu/ops/mix_pallas.py:431-436,581-593,608-610", **per_track},
+        {"name": "mix_catmull", "route": "cuda", "source": src,
+         "replaces": "whitebox_tpu/ops/mix_pallas.py:518-519,557-563", **interp["mix_catmull"]},
+        {"name": "mix_poly", "route": "cuda", "source": src,
+         "replaces": "whitebox_tpu/ops/mix_pallas.py:515-517,549-556", **interp["mix_poly"]},
+        {"name": "mix_prerendered", "route": "cuda", "source": src,
+         "replaces": "whitebox_tpu/timeline/prerender.py:737-752,818-828", **interp["mix_prerendered"]},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["device"],
                                              "count": env["device_count"]}}))

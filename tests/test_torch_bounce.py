@@ -133,17 +133,33 @@ def _unsupported_sessions():
     s_bus = base()
     s_bus.add_bus("b")
     s_bus.set_track_output(0, 0)
+    # catmull and sinc render; what still raises around them: the 16 slots
+    # of the oversampled form overflowing at the smallest tile (the JAX
+    # package switches to its XLA gather path there), and an unknown mode
+    s_dense = dense_session()
+    for i, c in enumerate(s_dense.tracks[0].clips):  # twice 12 runs within one 1024-frame tile
+        c.min_time, c.max_time = i * 0.0015, i * 0.0015 + 0.0012
+    for i in range(12):
+        s_dense.add_audio_clip(s_dense.tracks[0], f"e{i}", 0.02 + i * 0.0015, 0.02 + i * 0.0015 + 0.0012,
+                               start_offset=0.0, asset=s_dense.tracks[0].clips[0].audio.asset,
+                               speed=1.1 + 0.017 * i)
     return {"effects": (s_fx, {}), "master_effects": (s_master, {}),
             "effect_lane": (s_lane, {}), "midi": (s_midi, {}), "routing": (s_bus, {}),
-            "catmull": (base(), {"interpolation": "catmull"}),
-            "sinc": (base(), {"interpolation": "sinc"})}
+            "sinc_slot_overflow": (s_dense, {"interpolation": "sinc", "prerender": False}),
+            "unknown_interpolation": (base(), {"interpolation": "cubic"})}
 
 
 @pytest.mark.parametrize("feature", ["effects", "master_effects", "effect_lane", "midi",
-                                     "routing", "catmull", "sinc"])
+                                     "routing", "sinc_slot_overflow", "unknown_interpolation"])
 def test_unsupported_features_raise(feature):
     s, kw = _unsupported_sessions()[feature]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
+    if feature == "unknown_interpolation":
+        with pytest.raises(ValueError, match="interpolation must be"):
+            bounce(s, 48000.0, device="cpu", **kw)
+        return
+    error = SlotOverflow if feature == "sinc_slot_overflow" else NotImplementedError
+    with pytest.raises(error, match="max 16.*ROADMAP.md queue 1, item 1"
+                       if feature == "sinc_slot_overflow" else "ROADMAP.md queue 1"):
         bounce(s, 48000.0, device="cpu", **kw)
 
 
@@ -325,3 +341,20 @@ def test_cli_render_matches_oracle(tmp_path, capsys):
     write_project(s, wb)
     assert cli.main(["render", str(wb), str(out), "--device", "cpu"]) == 2
     assert "ROADMAP" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags,kw", [
+    (["--interpolation", "catmull"], {"interpolation": "catmull"}),
+    (["--interpolation", "sinc"], {"interpolation": "sinc"}),
+    (["--interpolation", "sinc", "--no-prerender"], {"interpolation": "sinc", "prerender": False})])
+def test_cli_renders_with_interpolation(tmp_path, flags, kw):
+    from whitebox_tpu_torch.session.project import read_project
+
+    js, rate, _ = make_case("mixed_speeds")
+    wb, out = tmp_path / "r.wb", tmp_path / "r.wav"
+    write_project(js, wb)
+    assert cli.main(["render", str(wb), str(out), "--device", "cpu", *flags]) == 0
+    audio, _ = wav.read_wav(out)
+    want = port_bounce(read_project(wb), rate, device="cpu", **kw).audio
+    np.testing.assert_array_equal(audio, want)
+    assert np.abs(want - port_bounce(read_project(wb), rate, device="cpu").audio).max() > 1e-5

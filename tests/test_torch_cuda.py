@@ -12,7 +12,11 @@ contract; the automation variant within atol 3e-6 / rtol 1e-5 of its
 plain version and within relative RMS 1e-5 of the f64 host reference; the
 per-track kernel (K4) against its plain version and the NumPy per-track
 reference, and an EQ bounce in both effects modes against the f64 host
-reference (relative RMS 5e-5 scan, 2e-4 fir) and the CPU bounce.
+reference (relative RMS 5e-5 scan, 2e-4 fir) and the CPU bounce; the
+Catmull-Rom and polynomial-tap modes of all three variants against their
+plain versions (the resampling contract; 0 ulp expected) and the NumPy
+references (atol 3e-6); the sinc prerender's extension against the host's
+(1e-6) and the sinc bounce against the CPU bounce (3e-6), one mix launch.
 """
 
 import numpy as np
@@ -67,6 +71,59 @@ def test_per_track_kernel_matches_plain_and_reference(card, name, tile):
 @pytest.mark.parametrize("name", list(AUTO_SESSIONS))
 def test_automation_kernel_matches_plain_and_reference(card, name, tile):
     chip_smoke.auto_vs_plain(name, AUTO_SESSIONS[name](), tile=tile)
+
+
+@pytest.mark.parametrize("mode", ["catmull", "poly"])
+@pytest.mark.parametrize("name", ["mixed_speeds_fades", "reverse_bidirectional"])
+def test_interp_kernels_match_plain_and_reference(card, name, mode):
+    chip_smoke.kernel_vs_plain(name, SESSIONS[name](), mode=mode)
+    chip_smoke.per_track_vs_plain(name, SESSIONS[name](), tile=1024, mode=mode)
+
+
+@pytest.mark.parametrize("mode", ["catmull", "poly"])
+def test_interp_automation_kernel_matches_plain_and_reference(card, mode):
+    chip_smoke.auto_vs_plain("fades", AUTO_SESSIONS["fades"](), mode=mode)
+
+
+@pytest.mark.parametrize("name", ["mixed_speeds_fades", "reverse_bidirectional"])
+def test_sinc_prerender_on_the_card(card, name):
+    chip_smoke.sinc_small(name, SESSIONS[name]())
+
+
+def test_sinc_sine_snr_on_the_card(card):
+    chip_smoke.sinc_sine_snr()
+
+
+@pytest.mark.parametrize("kw,mode", [({"interpolation": "catmull"}, "catmull"),
+                                     ({"interpolation": "sinc"}, "linear"),
+                                     ({"interpolation": "sinc", "prerender": False}, "poly")])
+def test_interp_bounce_counts_one_launch_and_matches_cpu(card, kw, mode):
+    s = SESSIONS["mixed_speeds_fades"]()
+    chip_smoke.reset_launches()
+    got = bounce(s, 48000.0, device=card, **kw)
+    assert mix_cuda.mix_kernel_launches == 1
+    assert mix_cuda.interp_launches == {**dict.fromkeys(mix_cuda.interp_launches, 0), mode: 1}
+    assert (got.stats.prerender_seconds > 0) == (kw == {"interpolation": "sinc"})
+    cpu = bounce(s, 48000.0, device="cpu", **kw).audio
+    assert np.abs(got.audio - cpu).max() < chip_smoke.INTERP_ATOL
+
+
+def test_poly_kernel_refuses_a_table_it_cannot_hold(card):
+    s = SESSIONS["mixed_speeds_fades"]()
+    r, _, _, _ = chip_smoke.make_renderer(s, "poly")
+    p = r.plan
+    before = dict(mix_cuda.interp_launches)
+    wide = ("poly", tuple((0.1,) * 9 for _ in range(4)))
+    with pytest.raises(ValueError, match="interp"):
+        mix_cuda.mix_cuda(r.pool_device, r.tables, p.n_tiles, p.tile, p.channels, interp=wide)
+    assert mix_cuda.interp_launches == before
+    # two coefficient tables are two different launches of one configuration
+    a = mix_cuda.mix_cuda(r.pool_device, r.tables, p.n_tiles, p.tile, p.channels, interp=r.interp)
+    half = ("poly", tuple(tuple(v * 0.5 for v in row) for row in r.interp[1]))
+    b = mix_cuda.mix_cuda(r.pool_device, r.tables, p.n_tiles, p.tile, p.channels, interp=half)
+    assert torch.equal(a, mix_cuda.mix_cuda(r.pool_device, r.tables, p.n_tiles, p.tile, p.channels,
+                                            interp=r.interp))
+    assert float((a - b).abs().max()) > 1e-3
 
 
 def test_automated_bounce_counts_one_automation_launch(card):

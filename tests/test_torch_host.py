@@ -280,17 +280,32 @@ _BOUNCE_EQ = (
     "    assert bounce(s, 48000.0, device='cpu', effects_mode=mode).audio.any()\n")
 
 
+_BOUNCE_SINC = (
+    "import sys\n"
+    "from whitebox_tpu_torch.render.bounce import bounce\n"
+    "from whitebox_tpu_torch.render.demo import make_demo_session\n"
+    "s = make_demo_session(n_tracks=2, duration_seconds=2.0, sample_seconds=1.0, seed=1,\n"
+    "                      clip_speeds=(1.0, 44100 / 48000, 2 ** (1 / 12)))\n"
+    "for kw in ({'interpolation': 'sinc'}, {'interpolation': 'sinc', 'prerender': False},\n"
+    "           {'interpolation': 'catmull'}):\n"
+    "    res = bounce(s, 48000.0, device='cpu', **kw)\n"
+    "    assert res.audio.any()\n"
+    "    assert (res.stats.prerender_seconds > 0) == (kw == {'interpolation': 'sinc'})\n")
+
+
 _BANNED = {"jax": ("jax", "jaxlib"), "whitebox_tpu": ("whitebox_tpu",)}
 
 
 @pytest.mark.parametrize("case", ["sources_jax", "sources_whitebox_tpu", "modules_import",
-                                  "modules_after_automated_bounce", "modules_after_eq_bounce"])
+                                  "modules_after_automated_bounce", "modules_after_eq_bounce",
+                                  "modules_after_sinc_bounce"])
 def test_port_import_guard(case):
     """The port stands alone: no source of ``whitebox_tpu_torch/`` or
     ``chip_smoke.py`` imports JAX or the JAX package (by AST), and neither
     is loaded after importing every module or after a CPU bounce of an
-    automated session or of an EQ session in both effects modes (a fresh
-    process)."""
+    automated session, of an EQ session in both effects modes, or of a
+    resampled session in the sinc (prerendered and oversampled) and
+    Catmull-Rom modes (a fresh process each)."""
     if case.startswith("sources_"):
         roots = _BANNED[case.removeprefix("sources_")]
         bad = [f"{p.relative_to(REPO)}: {m}" for p in _PORT_FILES for m in _imports_of(p)
@@ -298,7 +313,7 @@ def test_port_import_guard(case):
         assert not bad, bad
         return
     code = {"modules_import": _IMPORT_ALL, "modules_after_automated_bounce": _BOUNCE_AUTOMATED,
-            "modules_after_eq_bounce": _BOUNCE_EQ}[case]
+            "modules_after_eq_bounce": _BOUNCE_EQ, "modules_after_sinc_bounce": _BOUNCE_SINC}[case]
     code += ("bad = sorted(m for m in sys.modules if m.split('.')[0] in "
              "('jax', 'jaxlib', 'whitebox_tpu'))\nprint('loaded:', bad)\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,

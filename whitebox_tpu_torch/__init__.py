@@ -19,7 +19,8 @@ built with the JAX package across.
 - ``effects``  : the linear effects (``Gain``, ``Biquad``,
                  ``ParametricEQ``) and ``EffectChain``.
 - ``ops``      : automation lanes, biquad design and scan, double-single
-                 phase arithmetic, the GPU mix plan, the CUDA mix kernel's
+                 phase arithmetic, sinc resampling design and
+                 ``resample_audio``, the GPU mix plan, the CUDA mix kernel's
                  build, binding and plain PyTorch twins.
 - ``render``   : the offline bounce, the effect finishers (biquad scan and
                  FFT-FIR) with their f64 reference, render metrics, the

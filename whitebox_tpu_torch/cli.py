@@ -5,7 +5,8 @@ on the surface the port's ``bounce`` covers:
 
     python -m whitebox_tpu_torch.cli render project.wb out.wav \\
         [--rate 48000] [--buffer-size 512] [--format f32] [--device cuda]
-        [--effects-mode scan|fir] [--json]
+        [--effects-mode scan|fir] [--interpolation linear|catmull|sinc]
+        [--no-prerender] [--json]
 """
 
 from __future__ import annotations
@@ -25,6 +26,8 @@ def _cmd_render(args) -> int:
            "i32": AudioFormat.I32}[args.format]
     result = bounce(session, sample_rate=args.rate, device=args.device,
                     buffer_size=args.buffer_size, effects_mode=args.effects_mode,
+                    interpolation=args.interpolation,
+                    prerender=False if args.no_prerender else None,
                     out_path=args.out, out_format=fmt)
     print(result.stats.summary())
     if args.json:
@@ -49,6 +52,11 @@ def main(argv=None) -> int:
                    help="torch device (default: cuda; 'cpu' renders with the plain PyTorch mix)")
     p.add_argument("--effects-mode", choices=["scan", "fir"], default="scan",
                    help="effect-chain finisher: biquad scan (default) or FFT-FIR")
+    p.add_argument("--interpolation", choices=["linear", "catmull", "sinc"], default="linear",
+                   help="resampled clips: linear (reference parity), catmull (4-point cubic) "
+                        "or sinc (polyphase prerender; see --no-prerender)")
+    p.add_argument("--no-prerender", action="store_true",
+                   help="sinc through the 4x oversampled pool and six polynomial taps only")
     p.add_argument("--json", action="store_true")
     p.set_defaults(fn=_cmd_render)
 

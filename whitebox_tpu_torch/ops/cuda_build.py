@@ -74,15 +74,18 @@ def load() -> ctypes.CDLL:
         return _LIB
     lib = ctypes.CDLL(str(build()))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    # wb_mix_linear: 17 pointers, 5 ints (n_tiles, T, K, C, tile), the stream
-    lib.wb_mix_linear.restype = ci
-    lib.wb_mix_linear.argtypes = [vp] * 17 + [ci] * 5 + [vp]
+    # every entry ends with the interpolation (code, host coefficient table
+    # [taps][ncoef] f32 or null, taps, ncoef) and the stream
+    interp = [ci, vp, ci, ci, vp]
+    # wb_mix: 17 pointers, 5 ints (n_tiles, T, K, C, tile)
+    lib.wb_mix.restype = ci
+    lib.wb_mix.argtypes = [vp] * 17 + [ci] * 5 + interp
     # wb_mix_auto: the same, then 10 lane-table pointers (volume xs/ys/cv/tn,
     # pan xs/ys/cv/tn, mute, use) and the points per lane P
     lib.wb_mix_auto.restype = ci
-    lib.wb_mix_auto.argtypes = [vp] * 17 + [ci] * 5 + [vp] * 10 + [ci, vp]
-    # wb_mix_per_track (K4): wb_mix_linear's arguments; out is [T, C, n_tiles*tile]
+    lib.wb_mix_auto.argtypes = [vp] * 17 + [ci] * 5 + [vp] * 10 + [ci] + interp
+    # wb_mix_per_track (K4): wb_mix's arguments; out is [T, C, n_tiles*tile]
     lib.wb_mix_per_track.restype = ci
-    lib.wb_mix_per_track.argtypes = [vp] * 17 + [ci] * 5 + [vp]
+    lib.wb_mix_per_track.argtypes = [vp] * 17 + [ci] * 5 + interp
     _LIB = lib
     return _LIB

@@ -13,8 +13,12 @@ equal to ``row_al*128 + delta`` of the TPU plan:
 
 - fast slot: ``channel_base + src_int + (tile_start - dst_start)``; the
   kernel reads ``pool[src_start + pos]`` at tile-relative frame ``pos``;
-- slow slot: ``channel_base + src_i``; the kernel reads the linear taps at
-  ``src_start + ix`` and ``+ 1`` with ``ix`` from the slot's phase.
+- slow slot: ``channel_base + src_i``; the kernel reads its taps around
+  ``src_start + ix`` with ``ix`` from the slot's phase: ``ix, ix+1``
+  (linear), ``ix-1 .. ix+2`` (Catmull-Rom) or ``ix-2 .. ix+3`` (six
+  polynomial taps). The TPU plan rebased slow windows four samples early
+  for those early taps (``mix_pallas.py:365-371``); ``row_al*128 + delta``
+  is the same absolute index either way, so no rebase is needed here.
 
 Slot splitting, slot order and every other field are the TPU plan's, so a
 render from this plan is bit-identical to the JAX kernel's.
@@ -122,6 +126,10 @@ def _merge_slow_runs_soa(table: SegmentTable):
         "x0": x0[starts], "speed": sp[starts], "gain": gn[starts],
         "fis": fis[starts].astype(np.int64), "fii": fii[starts],
         "foe": foe[starts].astype(np.int64), "foi": foi[starts],
+        # original-table row bounds of each run: the slow rows in
+        # [row_lo, row_hi] are exactly the run's rows (idx is sorted), so a
+        # partial prerender maps uncovered runs back to the rows it leaves
+        "row_lo": idx[starts], "row_hi": idx[ends],
     }
 
 
@@ -340,14 +348,44 @@ def plan_from_pallas(p) -> MixPlan:
     )
 
 
-def check_pool_bounds(plan: MixPlan, pool_len: int) -> None:
+#: the most taps and coefficients per tap a ``("poly", coeffs)`` table may
+#: hold (the kernel takes the table by value in a fixed 8 x 8 argument)
+MAX_POLY_TAPS = 8
+MAX_POLY_COEFFS = 8
+
+
+def interp_taps(interp) -> tuple[int, int]:
+    """The tap offsets ``(lo, hi)`` around ``ix`` that a slow slot reads in
+    interpolation mode ``interp``: ``"linear"`` (0, 1), ``"catmull"``
+    (-1, 2), ``("poly", coeffs)`` with n taps ``(-(n//2 - 1), n//2)``.
+    Raises ValueError for anything else (``mix_pallas.py:685-688``)."""
+    if isinstance(interp, str):
+        if interp == "linear":
+            return 0, 1
+        if interp == "catmull":
+            return -1, 2
+    elif isinstance(interp, tuple) and len(interp) == 2 and interp[0] == "poly":
+        coeffs = interp[1]
+        n = len(coeffs)
+        widths = {len(r) for r in coeffs}
+        if not 2 <= n <= MAX_POLY_TAPS or len(widths) != 1 or not 1 <= min(widths) <= MAX_POLY_COEFFS:
+            raise ValueError(f"poly interp takes 2..{MAX_POLY_TAPS} taps of one width of "
+                             f"1..{MAX_POLY_COEFFS} coefficients, got {n} taps of widths {sorted(widths)}")
+        return -(n // 2 - 1), n // 2
+    raise ValueError(f"mix interp must be linear, catmull, or ('poly', coeffs); got {interp!r}")
+
+
+def check_pool_bounds(plan: MixPlan, pool_len: int, interp="linear") -> None:
     """Raise if an active slot could read outside ``[0, pool_len)``.
 
     The kernel reads the pool without clamping (the carve's guard bands
     keep every read in range); this host check turns a malformed plan into
     a ValueError instead of an illegal device address. Slow-slot bounds
-    come from the f64 phase at the slot's ends, widened by one sample.
+    come from the f64 phase at the slot's ends, widened to the taps of
+    ``interp`` (:func:`interp_taps`) and by one more sample either way for
+    the double-single phase's rounding at an integer boundary.
     """
+    tap_lo, tap_hi = interp_taps(interp)
     act = plan.me > plan.ms
     if not act.any():
         return
@@ -358,8 +396,8 @@ def check_pool_bounds(plan: MixPlan, pool_len: int) -> None:
     frac = plan.sfrac_hi[act].astype(np.float64) + plan.sfrac_lo[act]
     speed = plan.sspeed_hi[act].astype(np.float64) + plan.sspeed_lo[act]
     x_end = frac + (me - ms - 1) * speed
-    lo_off = np.where(slow, np.floor(np.minimum(frac, x_end)) - 1, ms).astype(np.int64)
-    hi_off = np.where(slow, np.floor(np.maximum(frac, x_end)) + 2, me - 1).astype(np.int64)
+    lo_off = np.where(slow, np.floor(np.minimum(frac, x_end)) + tap_lo - 1, ms).astype(np.int64)
+    hi_off = np.where(slow, np.floor(np.maximum(frac, x_end)) + tap_hi + 1, me - 1).astype(np.int64)
     lo = (ss + lo_off[:, None]).min()
     hi = (ss + hi_off[:, None]).max()
     if lo < 0 or hi >= pool_len:

@@ -1,0 +1,419 @@
+"""Windowed-sinc resampling on torch tensors.
+
+Counterpart of ``whitebox_tpu/ops/resample.py``. The design half is NumPy
+in f64 and a copy: the polyphase Kaiser-windowed sinc rows
+(:func:`_design_rows`) with their first and second derivatives
+(:func:`_design_rows_d012`, the Taylor correction of
+``timeline/prerender.py``), the phase bank (:func:`design_sinc_bank`), the
+rational-resampling operator (:func:`design_sinc_matrix`), the LS-optimal
+polynomial interpolator (:func:`design_poly_interp`, the six taps of
+``interpolation="sinc"`` with ``prerender=False``) and the two f64 host
+references. Downsampling applies the standard anti-alias cutoff/stretch
+(cutoff = min(1, 1/ratio), taps scaled by the stretch).
+
+The device half (``_resample_kernel``, ``_resample_matmul_kernel``,
+``_resample_matmul`` and :func:`resample_audio` of the JAX module, XLA
+programs there) is torch ops on an explicit device: index gathers of the
+padded signal, the phase from ``ops/dsarith.phase_eval``, and the banded
+product as one ``torch.einsum`` in full f32 (TF32 is switched off around
+it). These products lie outside the mix kernel, as they lay outside the
+Pallas kernel.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+
+import numpy as np
+import torch
+
+from whitebox_tpu_torch.device import resolve_device
+from whitebox_tpu_torch.ops.dsarith import phase_eval, split_f64
+
+DEFAULT_TAPS = 32
+DEFAULT_PHASES = 512
+
+
+def _kaiser_beta(atten_db: float) -> float:
+    if atten_db > 50.0:
+        return 0.1102 * (atten_db - 8.7)
+    if atten_db >= 21.0:
+        return 0.5842 * (atten_db - 21.0) ** 0.4 + 0.07886 * (atten_db - 21.0)
+    return 0.0
+
+
+def _design_rows(fracs: np.ndarray, ratio: float, taps: int, atten_db: float,
+                 cutoff: float | None = None) -> np.ndarray:
+    """Kaiser-sinc tap rows [len(fracs), taps] in f64, one per fractional
+    phase; tap k of a row weights source sample ``ix + k - taps//2 + 1``.
+
+    ``cutoff`` (relative to source Nyquist) overrides the default
+    anti-alias rule — used to fold a later decimation's AA filter into an
+    upsampling stage."""
+    if cutoff is None:
+        cutoff = min(1.0, 1.0 / ratio) * 0.91  # transition margin below Nyquist
+    beta = _kaiser_beta(atten_db)
+    half = taps // 2
+    rows = np.zeros((len(fracs), taps), dtype=np.float64)
+    for p, frac in enumerate(fracs):
+        # source positions relative to interpolation point
+        n = np.arange(taps, dtype=np.float64) - (half - 1) - frac
+        h = cutoff * np.sinc(cutoff * n)
+        w = np.i0(beta * np.sqrt(np.maximum(0.0, 1.0 - (n / half) ** 2))) / np.i0(beta)
+        w[np.abs(n) > half] = 0.0
+        rows[p] = h * w
+    # normalize each phase row for exact DC gain
+    rows /= rows.sum(axis=1, keepdims=True)
+    return rows
+
+
+def _sinc_d012(x: np.ndarray):
+    """(sinc, sinc', sinc'') of numpy's normalized sinc(x) = sin(pi x)/(pi x),
+    derivatives w.r.t. x, with series fallbacks near 0 (f64)."""
+    u = np.pi * np.asarray(x, np.float64)
+    small = np.abs(u) < 1e-4
+    us = np.where(small, 1.0, u)  # avoid 0-division in the masked lanes
+    s, c = np.sin(us), np.cos(us)
+    s0 = np.where(small, 1.0 - u * u / 6.0, s / us)
+    d1 = np.where(small, -u / 3.0 + u**3 / 30.0, (us * c - s) / us**2)
+    d2 = np.where(small, -1.0 / 3.0 + u * u / 10.0,
+                  ((2.0 - us * us) * s / us**3) - 2.0 * c / us**2)
+    return s0, np.pi * d1, np.pi * np.pi * d2
+
+
+def _i1_over_z(z: np.ndarray):
+    """I1(z)/z, smooth through z=0 (-> 1/2)."""
+    from scipy.special import i1
+
+    zs = np.where(z < 1e-6, 1.0, z)
+    return np.where(z < 1e-6, 0.5 + z * z / 16.0, i1(zs) / zs)
+
+
+def _i0_minus_2t1_over_z2(z: np.ndarray):
+    """(I0(z) - 2 I1(z)/z) / z^2, smooth through z=0 (-> 1/8).
+
+    Series: z^2/8 + z^4/96 + ... over z^2."""
+    from scipy.special import i0
+
+    zs = np.where(z < 1e-3, 1.0, z)
+    exact = (i0(zs) - 2.0 * _i1_over_z(zs)) / zs**2
+    return np.where(z < 1e-3, 0.125 + z * z / 96.0, exact)
+
+
+def _design_rows_d012(fracs: np.ndarray, ratio: float, taps: int, atten_db: float,
+                      cutoff: float | None = None):
+    """(rows, drows/dx, d2rows/dx2) of the NORMALIZED `_design_rows`
+    interpolator w.r.t. the interpolation position x (f64, analytic).
+
+    y(x0 + e) ~= rows@w + e*(rows1@w) + e^2/2*(rows2@w) — the Taylor
+    correction used by the prerender path for irrational/off-grid phase
+    ramps (timeline/prerender.py). Tap k weights source ``ix + k - taps//2
+    + 1`` exactly like `_design_rows`; increasing x = increasing frac."""
+    if cutoff is None:
+        cutoff = min(1.0, 1.0 / ratio) * 0.91
+    beta = _kaiser_beta(atten_db)
+    half = taps // 2
+    H = float(half)
+    i0b = float(np.i0(beta))
+    fr = np.asarray(fracs, np.float64)[:, None]
+    n = np.arange(taps, dtype=np.float64)[None, :] - (half - 1) - fr  # [F, taps]
+
+    s0, s1, s2 = _sinc_d012(cutoff * n)
+    h0 = cutoff * s0
+    h1 = cutoff**2 * s1   # dh/dn
+    h2 = cutoff**3 * s2   # d2h/dn2
+
+    g2 = np.maximum(0.0, 1.0 - (n / H) ** 2)
+    g = np.sqrt(g2)
+    z = beta * g
+    t1 = _i1_over_z(z)
+    t2 = _i0_minus_2t1_over_z2(z)
+    w0 = np.i0(z) / i0b
+    w1 = -(beta**2 * n / (H * H)) * t1 / i0b            # dw/dn (smooth at g=0)
+    w2 = -(beta**2 / (H * H)) * (t1 - (beta**2 * n * n / (H * H)) * t2) / i0b
+    sup = np.abs(n) <= H  # outside the window support everything is 0
+    w0, w1, w2 = (np.where(sup, a, 0.0) for a in (w0, w1, w2))
+
+    # r(frac); dn/dfrac = -1 so d/dfrac flips odd-order n-derivatives
+    r0 = h0 * w0
+    r1 = -(h1 * w0 + h0 * w1)
+    r2 = h2 * w0 + 2.0 * h1 * w1 + h0 * w2
+
+    # quotient rule through the DC normalization y = r / sum(r)
+    S0 = r0.sum(axis=1, keepdims=True)
+    S1 = r1.sum(axis=1, keepdims=True)
+    S2 = r2.sum(axis=1, keepdims=True)
+    y0 = r0 / S0
+    y1 = r1 / S0 - r0 * S1 / S0**2
+    y2 = (r2 / S0 - (2.0 * r1 * S1 + r0 * S2) / S0**2
+          + 2.0 * r0 * S1 * S1 / S0**3)
+    return y0, y1, y2
+
+
+def design_sinc_bank(
+    ratio: float = 1.0,
+    taps: int = DEFAULT_TAPS,
+    phases: int = DEFAULT_PHASES,
+    atten_db: float = 90.0,
+) -> np.ndarray:
+    """Polyphase bank [phases + 1, taps] f32 (f64 design).
+
+    ``ratio`` = source advance per output frame; ratios > 1 (downsampling)
+    lower the cutoff for anti-aliasing. Row p holds the taps for fractional
+    phase p/phases; the extra row lets the kernel lerp between rows.
+    """
+    fracs = np.arange(phases + 1, dtype=np.float64) / phases
+    return _design_rows(fracs, ratio, taps, atten_db).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def design_poly_interp(U: int, taps: int = 6, degree: int = 5,
+                       nt: int = 64, nw: int = 256, dc_weight: float = 1e4):
+    """LS-optimal ``taps``-point degree-``degree`` polynomial interpolator
+    for input bandlimited to pi/U (a U-times-oversampled signal).
+
+    Minimizes the passband reproduction error of
+    y(n+t) = sum_k w_k(t) x[n+k] over omega in [0, pi/U] and t in [0,1),
+    with a soft DC-exactness constraint (sum_k w_k(t) == 1). Tap k offsets
+    are k = -(taps//2 - 1) .. taps//2. Returns a nested tuple
+    C[taps][degree+1] of f32-rounded floats (hashable, so the design is
+    cached and compares by value): w_k(t) = sum_m C[k][m] t^m.
+
+    Measured (6 taps, degree 5, U=4): 97-104 dB SNR across the whole
+    sub-band — sinc-class reconstruction at 6 gathers/frame, vs ~45-87 dB
+    for Catmull-Rom on the same grid.
+    """
+    t = (np.arange(nt) + 0.5) / nt
+    w = np.linspace(0.0, np.pi / U, nw)
+    ks = np.arange(taps) - (taps // 2 - 1)
+    rows, rhs = [], []
+    for wi in w:
+        for ti in t:
+            basis = ti ** np.arange(degree + 1)
+            rows.append(np.outer(np.cos(wi * ks), basis).ravel())
+            rhs.append(np.cos(wi * ti))
+            rows.append(np.outer(np.sin(wi * ks), basis).ravel())
+            rhs.append(np.sin(wi * ti))
+    for ti in t:
+        basis = ti ** np.arange(degree + 1)
+        rows.append(np.concatenate([basis] * taps) * dc_weight)
+        rhs.append(dc_weight)
+    c, *_ = np.linalg.lstsq(np.asarray(rows), np.asarray(rhs), rcond=None)
+    C = c.reshape(taps, degree + 1).astype(np.float32)
+    return tuple(tuple(float(v) for v in row) for row in C)
+
+
+def poly_interp_offsets(coeffs) -> np.ndarray:
+    """Tap offsets k for a design_poly_interp coefficient table."""
+    taps = len(coeffs)
+    return np.arange(taps) - (taps // 2 - 1)
+
+
+def _rationalize(ratio: float, max_den: int = 1024):
+    """(P, Q) with P/Q == ratio exactly (or None if no small-denominator
+    rational reproduces the f64 ratio bit-for-bit)."""
+    from fractions import Fraction
+
+    fr = Fraction(ratio).limit_denominator(max_den)
+    if float(fr) != ratio or fr.numerator <= 0:
+        return None
+    return fr.numerator, fr.denominator
+
+
+def design_sinc_matrix(P: int, Q: int, taps: int = DEFAULT_TAPS, atten_db: float = 90.0,
+                       cutoff: float | None = None):
+    """The rational-resampling matmul operator.
+
+    For ratio P/Q, output n = q*Q + j has source position q*P + j*P/Q: each
+    of the Q phase classes carries an EXACT constant fractional phase
+    (j*P mod Q)/Q — no phase-grid quantization at all. Output row q reads
+    the window ``xp[q*P : q*P + W]`` (W = (m+1)*P, m = ceil(taps/P)), and
+    all Q phases of that row are one dense [W] -> [Q] map:
+
+        out2d[q, :] = M @ xp[q*P : q*P + W]
+
+    i.e. resampling = sliding-window rows @ M.T, a single matmul
+    instead of taps per-frame gathers.
+    Returns (M [Q, W] f32, M64 [Q, W] f64, m).
+    """
+    j = np.arange(Q, dtype=np.int64)
+    d = (j * P) // Q                     # integer source offset per phase
+    fracs = ((j * P) % Q).astype(np.float64) / Q
+    rows = _design_rows(fracs, P / Q, taps, atten_db, cutoff)  # [Q, taps] f64
+    m = -(-taps // P)                    # extra P-rows the window spans
+    W = (m + 1) * P
+    M = np.zeros((Q, W), dtype=np.float64)
+    c = d + 1                            # +1: window starts at ix+1 in xp
+    for jj in range(Q):
+        M[jj, c[jj] : c[jj] + taps] = rows[jj]
+    return M.astype(np.float32), M, m
+
+
+
+class full_f32_matmul:
+    """``with full_f32_matmul(): ...``: f32 matrix products in full f32 on
+    the card (no TF32), restored on exit. PyTorch's default already is
+    full f32; this pins it against a caller who changed it."""
+
+    def __enter__(self):
+        self._prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        return self
+
+    def __exit__(self, *exc) -> None:
+        torch.backends.cuda.matmul.allow_tf32 = self._prev
+
+
+def _resample_gather(x_padded: torch.Tensor, ratio_hi: float, ratio_lo: float, bank: torch.Tensor,
+                     out_frames: int, taps: int, phases: int) -> torch.Tensor:
+    """x_padded [C, Np] -> [C, out_frames]; phase via double-single, the
+    bank rows lerped by the phase remainder, one gather per tap
+    (``_resample_kernel`` of the JAX module, op for op)."""
+    dev = x_padded.device
+    n = torch.arange(out_frames, dtype=torch.int32, device=dev)
+    z = torch.zeros((), dtype=torch.float32, device=dev)
+    ix, fx = phase_eval(n, z, z, torch.tensor(ratio_hi, dtype=torch.float32, device=dev),
+                        torch.tensor(ratio_lo, dtype=torch.float32, device=dev))
+    pf = fx * phases
+    p0 = torch.clamp(pf.to(torch.int32), 0, phases - 1)
+    pl = pf - p0.to(torch.float32)
+    p0 = p0.to(torch.int64)
+    ix = ix.to(torch.int64)
+    half = taps // 2
+    acc = torch.zeros((x_padded.shape[0], out_frames), dtype=torch.float32, device=dev)
+    for k in range(taps):
+        w = bank[p0, k] + pl * (bank[p0 + 1, k] - bank[p0, k])
+        at = torch.clamp(ix + (k - half + 1) + half, 0, x_padded.shape[1] - 1)
+        acc = acc + w * x_padded[:, at]
+    return acc
+
+
+def _resample_matmul_rows(xp: torch.Tensor, M: torch.Tensor, qmax: int, P: int, W: int) -> torch.Tensor:
+    """xp [C, >= qmax*P + W - P] zero-padded -> [C, qmax*Q] via one einsum."""
+    m1 = W // P  # m + 1
+    A = xp[:, : (qmax + m1 - 1) * P].reshape(xp.shape[0], qmax + m1 - 1, P)
+    Xr = torch.cat([A[:, i : i + qmax] for i in range(m1)], dim=-1)  # [C, qmax, W]
+    with full_f32_matmul():
+        out2d = torch.einsum("cqw,jw->cqj", Xr, M)  # [C, qmax, Q]
+    return out2d.reshape(xp.shape[0], -1)
+
+
+# matmul overhead W/taps beyond this, the gather form wins on work
+_MATMUL_MAX_OVERHEAD = 24.0
+
+
+def _resample_matmul(x: np.ndarray, P: int, Q: int, taps: int, atten_db: float,
+                     out_frames: int, q_slab: int | None = None,
+                     cutoff: float | None = None, device=None) -> torch.Tensor:
+    """Run the rational matmul path on [C, N] f32; returns [C, out_frames]
+    on ``device``.
+
+    ``q_slab`` bounds the materialized window matrix (default ~128 MB)."""
+    dev = resolve_device(device)
+    C, N = x.shape
+    half = taps // 2
+    M, _, _ = design_sinc_matrix(P, Q, taps, atten_db, cutoff)
+    W = M.shape[1]
+    m1 = W // P
+    qmax = -(-out_frames // Q)
+    if q_slab is None:
+        q_slab = max(1, (1 << 25) // (W * max(1, C)))
+    need = (qmax + m1 - 1) * P
+    xp = np.pad(x, ((0, 0), (half, max(0, need - N - half))))
+    Md = torch.from_numpy(M).to(dev)
+    xpd = torch.from_numpy(xp).to(dev)
+    outs = []
+    for q0 in range(0, qmax, q_slab):
+        qn = min(q_slab, qmax - q0)
+        sl = xpd[:, q0 * P : q0 * P + (qn + m1 - 1) * P]
+        outs.append(_resample_matmul_rows(sl, Md, qmax=qn, P=P, W=W))
+    out = torch.cat(outs, dim=-1) if len(outs) > 1 else outs[0]
+    return out[:, :out_frames]
+
+
+def resample_audio(
+    x: np.ndarray,
+    src_rate: float,
+    dst_rate: float,
+    taps: int = DEFAULT_TAPS,
+    phases: int = DEFAULT_PHASES,
+    atten_db: float = 90.0,
+    method: str = "auto",
+    device=None,
+) -> np.ndarray:
+    """High-quality SRC: planar [C, N] (f32) src_rate -> dst_rate, computed
+    on ``device`` (default: the CUDA card), returned as NumPy.
+
+    method: "matmul" = rational polyphase as one matrix product with exact
+    per-phase filters (requires a small-denominator rational ratio);
+    "gather" = per-frame tap gathers with a phase-lerped bank (any ratio);
+    "auto" picks matmul whenever the ratio is rational and the banded
+    operator stays dense enough to beat the gathers.
+    """
+    dev = resolve_device(device)
+    x = np.atleast_2d(np.asarray(x, dtype=np.float32))
+    C, N = x.shape
+    ratio = float(src_rate) / float(dst_rate)
+    out_frames = int(math.floor((N - 1) / ratio)) + 1
+    half = taps // 2
+
+    pq = _rationalize(ratio) if method in ("auto", "matmul") else None
+    if pq is not None:
+        P, Q = pq
+        m = -(-taps // P)
+        if method == "matmul" or (m + 1) * P <= _MATMUL_MAX_OVERHEAD * taps:
+            return _resample_matmul(x, P, Q, taps, atten_db, out_frames, device=dev).cpu().numpy()
+    if method == "matmul":
+        raise ValueError(f"ratio {ratio} has no small rational form for matmul resampling")
+
+    bank = design_sinc_bank(ratio, taps, phases, atten_db)
+    xp = np.pad(x, ((0, 0), (half, half + 1)))
+    rh, rl = split_f64(np.float64(ratio))
+    out = _resample_gather(torch.from_numpy(xp).to(dev), float(rh), float(rl),
+                           torch.from_numpy(bank).to(dev), out_frames, taps, phases)
+    return out.cpu().numpy()
+
+
+def resample_matmul_reference(x: np.ndarray, src_rate: float, dst_rate: float,
+                              taps=DEFAULT_TAPS, atten_db=90.0) -> np.ndarray:
+    """Host f64 mirror of the rational matmul path (test reference)."""
+    x = np.atleast_2d(np.asarray(x, dtype=np.float64))
+    C, N = x.shape
+    ratio = float(src_rate) / float(dst_rate)
+    out_frames = int(math.floor((N - 1) / ratio)) + 1
+    P, Q = _rationalize(ratio)
+    _, M64, m = design_sinc_matrix(P, Q, taps, atten_db)
+    W = M64.shape[1]
+    half = taps // 2
+    qmax = -(-out_frames // Q)
+    need = (qmax + W // P - 1) * P
+    xp = np.pad(x, ((0, 0), (half, max(0, need - N - half))))
+    out = np.zeros((C, qmax * Q), dtype=np.float64)
+    for q in range(qmax):
+        out[:, q * Q : (q + 1) * Q] = xp[:, q * P : q * P + W] @ M64.T
+    return out[:, :out_frames].astype(np.float32)
+
+
+def resample_reference(x: np.ndarray, src_rate: float, dst_rate: float, taps=DEFAULT_TAPS,
+                       phases=DEFAULT_PHASES, atten_db=90.0) -> np.ndarray:
+    """Host f64 mirror (test reference)."""
+    x = np.atleast_2d(np.asarray(x, dtype=np.float64))
+    C, N = x.shape
+    ratio = float(src_rate) / float(dst_rate)
+    out_frames = int(math.floor((N - 1) / ratio)) + 1
+    bank = design_sinc_bank(ratio, taps, phases, atten_db).astype(np.float64)
+    half = taps // 2
+    xp = np.pad(x, ((0, 0), (half, half + 1)))
+    out = np.zeros((C, out_frames), dtype=np.float64)
+    for n in range(out_frames):
+        pos = n * ratio
+        ix = int(math.floor(pos))
+        frac = pos - ix
+        pf = frac * phases
+        p0 = min(int(pf), phases - 1)
+        pl = pf - p0
+        w = bank[p0] + pl * (bank[p0 + 1] - bank[p0])
+        seg = xp[:, ix + 1 : ix + 1 + taps]
+        out[:, n] = seg @ w
+    return out.astype(np.float32)

@@ -5,9 +5,16 @@ ported so far: audio clips (any loop mode, fades, clip gain, speed), track
 volume/pan/mute, volume/pan automation lanes (any of the nine curves,
 under a tempo map too), linear effect chains on tracks and the master bus
 (``Gain``, ``Biquad``, ``ParametricEQ``), level meters, the ordered track
-sum and the hard clip, with ``interpolation="linear"``. The path is the
-JAX package's Pallas branch: carve with ``slow_emit="runs"``, plan the
-slots, then
+sum and the hard clip, in the three interpolation modes of resampled
+clips: ``"linear"`` (the reference's), ``"catmull"`` (4-point Catmull-Rom
+in the kernel) and ``"sinc"``. A sinc bounce pre-renders every resampled
+run with exact polyphase products into a pool extension on the device and
+mixes speed-1 rows over it (``timeline/prerender.py``); runs that cannot
+ride it, or all of them with ``prerender=False``, play a 4x oversampled
+copy of their samples through six polynomial taps in the kernel
+(``timeline/oversample.py``). The path is the JAX package's Pallas branch
+(``bounce.py:236-276`` for the interpolation dispatch): carve with
+``slow_emit="runs"``, resolve the interpolation, plan the slots, then
 
 - a session with effect chains or ``meters=True``: one launch of the
   per-track kernel (K4) into ``[T, C, F]`` pre-gain buffers, then the
@@ -21,10 +28,11 @@ then trim and write the WAV through ``io/wav.py``.
 
 Every other feature raises ``NotImplementedError`` naming the ROADMAP.md
 item (queue 1) that ports it: non-linear or unported effects,
-effect-parameter and master lanes, routing (6), MIDI (5) and other
-interpolations (4, 7). So do a slot overflow that survives the tile
-backoff and per-track buffers above 6 GiB (item 1, the JAX package's
-chunked XLA gather path): a silent switch would hide the kernel.
+effect-parameter and master lanes, routing (6) and MIDI (5). So do a slot
+overflow that survives the tile backoff (at 8 slots, 16 for the
+oversampled form) and per-track buffers above 6 GiB (item 1, the JAX
+package's chunked XLA gather path, which also holds its ``engine="xla"``
+direct 32-tap sinc): a silent switch would hide the kernel.
 """
 
 from __future__ import annotations
@@ -40,6 +48,8 @@ from whitebox_tpu_torch.ops import cuda_build
 from whitebox_tpu_torch.ops.automation import session_has_effect_automation
 from whitebox_tpu_torch.ops.mix_cuda import CudaMixRenderer
 from whitebox_tpu_torch.ops.mix_plan import SlotOverflow, build_plan
+from whitebox_tpu_torch.timeline.oversample import device_pool_cached, resolve_interpolation
+from whitebox_tpu_torch.timeline.prerender import resolve_sinc_device
 from whitebox_tpu_torch.render.effects_fir import prepare_fir_finish
 from whitebox_tpu_torch.render.effects_generic import _chains_of, chain_is_packable
 from whitebox_tpu_torch.render.effects_pipeline import (
@@ -80,8 +90,6 @@ def _check_supported(session: Session, interpolation: str, effects_mode: str) ->
         (effects_mode in ("routed", "generic"), f"effects_mode={effects_mode!r}", generic),
         (session_has_midi(session), "MIDI clips", "item 5 (MIDI synth)"),
         (session_has_routing(session), "bus routing", generic),
-        (interpolation != "linear", f"interpolation={interpolation!r}",
-         "item 4 (catmull/poly) and item 7 (sinc/prerender)"),
     ]
     for present, what, item in todo:
         if present:
@@ -90,6 +98,8 @@ def _check_supported(session: Session, interpolation: str, effects_mode: str) ->
                 f"ROADMAP.md queue 1, {item}")
     if effects_mode not in ("scan", "fir"):
         raise ValueError(f"effects_mode must be 'scan' or 'fir', got {effects_mode!r}")
+    if interpolation not in ("linear", "catmull", "sinc"):
+        raise ValueError(f"interpolation must be 'linear', 'catmull', or 'sinc', got {interpolation!r}")
 
 
 @dataclass
@@ -128,6 +138,7 @@ def bounce(
     tail_seconds: float = 0.0,
     interpolation: str = "linear",
     effects_mode: str = "scan",
+    prerender: bool | None = None,
     meters: bool = False,
     out_path=None,
     out_format: AudioFormat = AudioFormat.F32,
@@ -138,13 +149,22 @@ def bounce(
     ``buffer_size`` is the emulated engine block size: it defines event
     carving semantics, not the device schedule. ``tail_seconds`` renders
     past the last clip edge (ignored when ``num_blocks`` is given), so
-    effect tails ring out. ``effects_mode``: ``"scan"`` (the eigenbasis
+    effect tails ring out. ``interpolation`` applies to resampled clips
+    (a 44.1 kHz sample in a 48 kHz session, a pitched clip): ``"linear"``
+    (reference parity, sampler.cpp:34), ``"catmull"`` (4-point Catmull-Rom,
+    the mode the reference leaves unfinished at sampler.cpp:61-86) or
+    ``"sinc"`` (anti-aliased Kaiser-sinc quality); speed-1 clips stay
+    bit-exact in every mode. ``prerender``: None lets a sinc bounce
+    pre-render the resampled runs by the exact/Taylor polyphase path;
+    False forces the oversampled pool and six polynomial taps for all of
+    them. ``effects_mode``: ``"scan"`` (the eigenbasis
     biquad scan, ~1e-7 accuracy) or ``"fir"`` (chains collapsed to impulse
     responses, overlap-save FFT, ~-120 dB truncation). ``meters``: also
     fill ``stats.track_peak``/``track_rms``/``output_peak``/``output_rms``;
     forces the scan. On the CPU (``device="cpu"``) the plain PyTorch
     versions render the same audio. ``stats.carve_seconds`` includes the
-    lane and chain preparation and the table upload.
+    lane and chain preparation, the table upload and, for a sinc bounce,
+    the prerender (its device share is ``stats.prerender_seconds``).
     """
     dev = resolve_device(device)
     _check_supported(session, interpolation, effects_mode)
@@ -164,8 +184,28 @@ def bounce(
     # evaluates anyway; the JAX Pallas branch carves the same way)
     table, pool = carve_session(session, sample_rate, buffer_size=buffer_size,
                                 num_blocks=num_blocks, out_channels=channels, slow_emit="runs")
+
+    interp, pre_pool_dev = "linear", None
+    slow_rows = bool(len(table)) and not table.fast.all()
+    if interpolation == "sinc" and slow_rows and prerender is not False:
+        # every coverable run rendered by polyphase products into a pool
+        # extension on the device; the residue through the oversampled pool
+        table, pool, interp, pre_pool_dev, pplan = resolve_sinc_device(table, pool, device=dev)
+        if pplan is not None:
+            stats.prerender_seconds = pplan.ext_seconds
+    else:
+        # "catmull" runs in the kernel; "sinc" becomes a 4x oversampled copy
+        # of the resampled samples + six LS-optimal polynomial taps
+        pool0 = pool
+        table, pool, interp = resolve_interpolation(table, pool, interpolation)
+        if pool is not pool0:
+            # byte-identical render to render: kept on the device
+            pre_pool_dev = device_pool_cached(pool, dev)
     try:
-        plan = build_plan(table, pool, session, channels=channels)
+        # oversampled rows advance U times faster -> shorter sub-slots ->
+        # more slots per (tile, track); allow more
+        plan = build_plan(table, pool, session, channels=channels,
+                          max_slots=16 if isinstance(interp, tuple) else 8)
     except SlotOverflow as e:
         raise SlotOverflow(
             f"{e} even at the smallest tile; the XLA gather fallback "
@@ -180,13 +220,15 @@ def bounce(
                 f"per-track buffers of {per_track_bytes / 2**30:.2f} GiB exceed the 6 GiB guard; "
                 "the chunked XLA path (whitebox_tpu/ops/mix.py) is ROADMAP.md queue 1, item 1")
         # per-track mode (K4): lanes evaluate in the finisher's gains
-        renderer = CudaMixRenderer(table, pool, session, device=dev, channels=channels, plan=plan)
+        renderer = CudaMixRenderer(table, pool, session, device=dev, channels=channels, plan=plan,
+                                   interp=interp, pool_device=pre_pool_dev)
         finish = _effects_finisher(session, renderer, plan, sample_rate, channels, effects_mode,
                                    meters, dev)
     else:
         # automation-only sessions evaluate the volume/pan lanes in the kernel
         # (the JAX package's fused single pass, bounce.py:316-333)
         renderer = CudaMixRenderer(table, pool, session, device=dev, channels=channels, plan=plan,
+                                   interp=interp, pool_device=pre_pool_dev,
                                    auto_tables=prepare_automation_tables_host(session, sample_rate))
     stats.carve_seconds = watch.lap()
     if dev.type == "cuda":

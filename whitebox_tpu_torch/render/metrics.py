@@ -31,7 +31,8 @@ class RenderStats:
     #: carve_seconds + device_seconds (readback and the one-time kernel
     #: build are reported apart)
     wall_seconds: float = 0.0
-    #: host carve + slot plan + upload of the plan tables and the pool
+    #: host carve + interpolation resolve (a sinc bounce's prerender) +
+    #: slot plan + upload of the plan tables and the pool
     carve_seconds: float = 0.0
     #: kernel build/load at first use in the process (0 once built)
     compile_seconds: float = 0.0
@@ -39,6 +40,9 @@ class RenderStats:
     device_seconds: float = 0.0
     #: the effects finisher's share of ``device_seconds`` (0 without one)
     finish_seconds: float = 0.0
+    #: device time of the sinc prerender's pool extension (0 without one);
+    #: it runs before the mix, inside the window of ``carve_seconds``
+    prerender_seconds: float = 0.0
     readback_seconds: float = 0.0
     #: level meters (``bounce(meters=True)``): per-track peak and RMS
     #: ``[T, C]`` post chain + volume/pan, pre sum (track.cpp:728-733), and
