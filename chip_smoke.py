@@ -39,7 +39,15 @@ no ``.wb`` project. Phases, one or more lines each:
    Taylor, reverse runs): the extension built on the card within 1e-6 of
    ``apply_prerender_host``, the bounce within 3e-6 of ``resolve_sinc_host``
    + ``render_segments_numpy``, and a 1 kHz sine at speed 44100/48000 and
-   at 2^(1/12) above 90 dB SNR;
+   at 2^(1/12) above 90 dB SNR; the summing kernel's staged walk in its
+   other shapes against the plain version (0 ulp): one and three channels
+   in all three interpolations and variants, a tile that ends inside a
+   block of frames, and all three variants on a 64-track session in the
+   oversampled form whose kept slot list two staging passes fill and with
+   a 4 x 4 polynomial table (the kernels' general polynomial path; 6 x 6
+   tables take an unrolled one);
+   each line prints the mean and the most slots a block keeps beside the
+   ``T*K`` of its tile (the host model ``mix_plan.block_slot_mask``);
 4. headline and headline_resampled: ``bounce(device="cuda")`` of the
    128-track session with the launch counts reset just before, bit-equal
    to the NumPy segment reference; then 5 warm carve+plan+upload+kernel
@@ -135,7 +143,7 @@ def rel_rms(got, ref) -> float:
     return float(np.sqrt(np.mean(d ** 2))) / scale
 
 
-def host_reference(session, mode="linear", seconds=None):
+def host_reference(session, mode="linear", seconds=None, channels=2):
     """The f64 host reference of an automated bounce: the per-track NumPy
     segment render (resampled rows in ``mode``, see :func:`resolve_mode`) +
     the finish stage's gains, sum and clip; of the first ``seconds`` of the
@@ -144,10 +152,10 @@ def host_reference(session, mode="linear", seconds=None):
     from whitebox_tpu_torch.timeline.carve import carve_session, render_segments_per_track_numpy
 
     blocks = None if seconds is None else int(seconds * RATE) // 512
-    table, pool = carve_session(session, RATE, buffer_size=512, num_blocks=blocks)
+    table, pool = carve_session(session, RATE, buffer_size=512, num_blocks=blocks, out_channels=channels)
     table, pool, interp = resolve_mode(table, pool, mode)
-    return reference_finish_mix(render_segments_per_track_numpy(table, pool, interp=interp),
-                                session, RATE)
+    return reference_finish_mix(render_segments_per_track_numpy(table, pool, channels, interp=interp),
+                                session, RATE, channels)
 
 
 def resolve_mode(table, pool, mode):
@@ -163,23 +171,42 @@ def resolve_mode(table, pool, mode):
     return table, pool, mode
 
 
-def make_renderer(session, mode="linear", tile=None, auto=False, seconds=None):
-    """-> (renderer, table, pool, interp): the carve of ``session`` resolved
-    to ``mode`` and a ``CudaMixRenderer`` on the card (16 slots for the
-    oversampled rows, as ``bounce`` allows them)."""
+def make_renderer(session, mode="linear", tile=None, auto=False, seconds=None, channels=2):
+    """-> (renderer, table, pool, interp): the carve of ``session`` for
+    ``channels`` output channels resolved to ``mode`` and a
+    ``CudaMixRenderer`` on the card (16 slots for the oversampled rows, as
+    ``bounce`` allows them)."""
     from whitebox_tpu_torch.ops import mix_cuda
     from whitebox_tpu_torch.ops.mix_plan import build_plan
     from whitebox_tpu_torch.render.effects_pipeline import prepare_automation_tables_host
     from whitebox_tpu_torch.timeline.carve import carve_session
 
     blocks = None if seconds is None else int(seconds * RATE) // 512
-    table, pool = carve_session(session, RATE, buffer_size=512, slow_emit="runs", num_blocks=blocks)
+    table, pool = carve_session(session, RATE, buffer_size=512, slow_emit="runs", num_blocks=blocks,
+                                out_channels=channels)
     table, pool, interp = resolve_mode(table, pool, mode)
-    plan = build_plan(table, pool, session, tile=tile, max_slots=16 if mode == "poly" else 8)
+    plan = build_plan(table, pool, session, channels=channels, tile=tile,
+                      max_slots=16 if mode == "poly" else 8)
     r = mix_cuda.CudaMixRenderer(
-        table, pool, session, device="cuda", plan=plan, interp=interp,
+        table, pool, session, device="cuda", channels=channels, plan=plan, interp=interp,
         auto_tables=prepare_automation_tables_host(session, RATE) if auto else None)
     return r, table, pool, interp
+
+
+def kept_slots(plan) -> dict:
+    """What the summing kernel's staged walk shrank to: the mean and the
+    most slots a block of frames keeps, of the ``T*K`` raw slots of its tile
+    (the host model ``mix_plan.block_slot_mask``)."""
+    from whitebox_tpu_torch.ops.mix_plan import FRAMES_PER_BLOCK, block_slot_mask
+
+    per_block = block_slot_mask(plan).sum(axis=2)
+    return {"raw_slots": plan.num_tracks * plan.max_slots, "block_frames": FRAMES_PER_BLOCK,
+            "kept_slots_mean": float(per_block.mean()), "kept_slots_max": int(per_block.max())}
+
+
+def kept_slots_note(plan) -> str:
+    k = kept_slots(plan)
+    return f"kept/block mean {k['kept_slots_mean']:.1f} max {k['kept_slots_max']} of {k['raw_slots']}"
 
 
 def slow_frames(table, n):
@@ -263,6 +290,33 @@ def reverse_session(seed=12):
                          asset=asset, gain=0.8, speed=speed)
         tr.clips[0].audio.mode = mode
     return s
+
+
+def many_tracks_session():
+    """64 tracks of resampled, faded clips, every other one with a volume
+    lane: in the oversampled form a tile holds more raw slots than one
+    staging pass of the summing kernel looks at."""
+    from whitebox_tpu_torch.ops.automation import AutomationLane, TrackAutomation
+    from whitebox_tpu_torch.render.demo import make_demo_session
+
+    s = make_demo_session(n_tracks=64, duration_seconds=6.0, seed=13, sample_seconds=1.0, fades=True,
+                          clip_speeds=(1.0, 44100 / 48000, 0.5, 1.37))
+    for tr in s.tracks[::2]:
+        tr.automation = TrackAutomation(volume=AutomationLane().add(0.0, 0.9).add(4.0, 0.3).add(9.0, 1.0))
+    return s
+
+
+def staging_passes(plan) -> int:
+    """The most staging passes (of ``FRAMES_PER_BLOCK`` raw slots each)
+    that hold a kept slot of one block."""
+    import numpy as np
+
+    from whitebox_tpu_torch.ops.mix_plan import FRAMES_PER_BLOCK, block_slot_mask
+
+    mask = block_slot_mask(plan)
+    mask = np.pad(mask, ((0, 0), (0, 0), (0, (-mask.shape[2]) % FRAMES_PER_BLOCK)))
+    per_pass = mask.reshape(*mask.shape[:2], -1, FRAMES_PER_BLOCK).any(axis=3)
+    return int(per_pass.sum(axis=2).max())
 
 
 #: (curve, tension) per segment of the all-curves lane: every CurveType,
@@ -397,19 +451,19 @@ def phase_build() -> None:
     print(f"[env] carve walk: {carve}")
 
 
-def kernel_vs_plain(name, session, tile=None, mode="linear"):
+def kernel_vs_plain(name, session, tile=None, mode="linear", channels=2):
     """Kernel vs plain version on the card, and vs the NumPy reference. In
     the Catmull-Rom and polynomial modes: the resampling contract against
     the plain version (0 ulp expected), atol 3e-6 against
     ``render_segments_numpy(interp=...)``, and bit-equal to it on every
-    frame that only speed-1 rows cover."""
+    frame that only speed-1 rows cover. -> max abs of kernel - plain"""
     import numpy as np
     import torch
 
     from whitebox_tpu_torch.ops import mix_cuda
     from whitebox_tpu_torch.timeline.carve import render_segments_numpy
 
-    r, table, pool, interp = make_renderer(session, mode, tile)
+    r, table, pool, interp = make_renderer(session, mode, tile, channels=channels)
     p = r.plan
     before = mix_cuda.interp_launches[mode]
     got = r.render_device()
@@ -426,7 +480,7 @@ def kernel_vs_plain(name, session, tile=None, mode="linear"):
         check(ok, f"{name}: {mode} kernel {ku} ulp / {ka:.3g} abs off its plain version")
         kp = f"max {ku} ulp"
     out = got[:, : p.total_frames].cpu().numpy()
-    ref = render_segments_numpy(table, pool, session, interp=interp)
+    ref = render_segments_numpy(table, pool, session, channels, interp=interp)
     fast = bool(table.fast.all())
     if fast:
         check(np.array_equal(out, ref), f"{name}: kernel != render_segments_numpy at speed 1")
@@ -443,13 +497,13 @@ def kernel_vs_plain(name, session, tile=None, mode="linear"):
               f"{name}: {mode} moved frames that only speed-1 rows cover")
         vs = f"max {ma:.3g} abs (atol {INTERP_ATOL}), speed-1 frames bit-equal"
     check(float(np.abs(out).max()) > 0.01, f"{name}: silent render")
-    print(f"[kernel-vs-plain] {name} {mode}: tracks={p.num_tracks} tile={p.tile} n_tiles={p.n_tiles} "
-          f"K={p.max_slots} slow_slots={int((p.is_slow * (p.me > p.ms)).sum())} "
+    print(f"[kernel-vs-plain] {name} {mode}: tracks={p.num_tracks} C={channels} tile={p.tile} "
+          f"n_tiles={p.n_tiles} K={p.max_slots} {kept_slots_note(p)} slow_slots={int((p.is_slow * (p.me > p.ms)).sum())} "
           f"kernel vs plain {kp}; vs render_segments_numpy {vs}")
     return kp_abs
 
 
-def per_track_vs_plain(name, session, tile=None, mode="linear"):
+def per_track_vs_plain(name, session, tile=None, mode="linear", channels=2):
     """The per-track kernel (K4) vs its plain version on the card, and vs
     the NumPy per-track segment reference: bit-equal at speed 1, within
     the resampling contract otherwise (atol 3e-6 in the Catmull-Rom and
@@ -460,7 +514,7 @@ def per_track_vs_plain(name, session, tile=None, mode="linear"):
     from whitebox_tpu_torch.ops import mix_cuda
     from whitebox_tpu_torch.timeline.carve import render_segments_per_track_numpy
 
-    r, table, pool, interp = make_renderer(session, mode, tile)
+    r, table, pool, interp = make_renderer(session, mode, tile, channels=channels)
     p = r.plan
     before = mix_cuda.mix_per_track_launches
     got = r.render_device_per_track()
@@ -476,7 +530,7 @@ def per_track_vs_plain(name, session, tile=None, mode="linear"):
         ok, mu, ma = ulp_contract(g, q)
         check(ok, f"{name}: per-track kernel {mu} ulp / {ma:.3g} abs off its plain version")
     out = g[:, :, : p.total_frames]
-    ref = render_segments_per_track_numpy(table, pool, interp=interp)
+    ref = render_segments_per_track_numpy(table, pool, channels, interp=interp)
     if fast:
         check(np.array_equal(out, ref), f"{name}: per-track kernel != render_segments_per_track_numpy")
         mu, ma = 0, 0.0
@@ -498,7 +552,7 @@ def per_track_vs_plain(name, session, tile=None, mode="linear"):
           f"{'bit-equal' if fast else f'max {mu} ulp / {ma:.3g} abs' if mode == 'linear' else f'max {ma:.3g} abs'}")
 
 
-def auto_vs_plain(name, session, tile=None, mode="linear"):
+def auto_vs_plain(name, session, tile=None, mode="linear", channels=2):
     """The automation variant vs its plain version on the card (atol/rtol),
     and vs the f64 host reference (relative RMS), resampled rows in
     ``mode``."""
@@ -507,7 +561,7 @@ def auto_vs_plain(name, session, tile=None, mode="linear"):
 
     from whitebox_tpu_torch.ops import mix_cuda
 
-    r, table, pool, interp = make_renderer(session, mode, tile, auto=True)
+    r, table, pool, interp = make_renderer(session, mode, tile, auto=True, channels=channels)
     p = r.plan
     before = mix_cuda.mix_auto_launches, mix_cuda.interp_launches[mode]
     got = r.render_device()
@@ -522,12 +576,50 @@ def auto_vs_plain(name, session, tile=None, mode="linear"):
     check(np.allclose(g, q, atol=AUTO_ATOL, rtol=AUTO_RTOL),
           f"{name}: automation kernel vs plain max abs {max_abs:.3g} ({ulps} ulp)")
     out = g[:, : p.total_frames]
-    rr = rel_rms(out, host_reference(session, mode))
+    rr = rel_rms(out, host_reference(session, mode, channels=channels))
     check(rr < AUTO_REL_RMS, f"{name}: relative RMS {rr:.3g} off the f64 host reference")
     check(float(np.abs(out).max()) > 0.01, f"{name}: silent render")
-    print(f"[kernel-vs-plain] {name} {mode}: tracks={p.num_tracks} tile={p.tile} P={r.auto['vxs'].shape[1]} "
+    print(f"[kernel-vs-plain] {name} {mode}: tracks={p.num_tracks} C={channels} tile={p.tile} P={r.auto['vxs'].shape[1]} "
           f"automated={int(r.auto['use'].sum())} kernel vs plain max {ulps} ulp / {max_abs:.3g} abs "
           f"(atol {AUTO_ATOL}, rtol {AUTO_RTOL}); vs f64 host reference relative RMS {rr:.3g}")
+
+
+def variants_vs_plain(name, session, coeffs=None):
+    """All three kernel variants against their plain versions on the card,
+    from one renderer of ``session`` in the oversampled form, under the
+    resampling contract (0 ulp expected; the automation variant within its
+    atol/rtol). ``coeffs``: a polynomial table in place of the designer's
+    6 x 6 one; another shape takes the kernels' general polynomial path.
+    -> the plan."""
+    import torch
+
+    from whitebox_tpu_torch.ops import mix_cuda
+
+    r, _, _, interp = make_renderer(session, "poly", auto=True)
+    if coeffs is not None:
+        interp = ("poly", coeffs)
+    p = r.plan
+    args = (p.n_tiles, p.tile, p.channels)
+    pairs = {
+        "sum": (mix_cuda.mix_cuda(r.pool_device, r.tables, *args, interp=interp),
+                mix_cuda.mix_reference(r.pool_device, r.tables, *args, interp=interp)),
+        "per_track": (mix_cuda.mix_per_track_cuda(r.pool_device, r.tables, *args, interp=interp),
+                      mix_cuda.mix_per_track_reference(r.pool_device, r.tables, *args, interp=interp)),
+        "auto": (mix_cuda.mix_auto_cuda(r.pool_device, r.tables, r.auto, *args, interp=interp),
+                 mix_cuda.mix_auto_reference(r.pool_device, r.tables, r.auto, *args, interp=interp)),
+    }
+    torch.cuda.synchronize()
+    ulps = {}
+    for variant, (got, plain) in pairs.items():
+        g, q = got.cpu().numpy(), plain.cpu().numpy()
+        ok, ulps[variant], _ = ulp_contract(g, q)
+        if variant == "auto":
+            ok = bool(torch.allclose(got, plain, atol=AUTO_ATOL, rtol=AUTO_RTOL))
+        check(ok and float(abs(g).max()) > 0.01, f"{name}: {variant} kernel off its plain version")
+    taps = f"{len(interp[1])} x {len(interp[1][0])} taps"
+    print(f"[kernel-vs-plain] {name} poly ({taps}): tracks={p.num_tracks} tile={p.tile} K={p.max_slots} "
+          f"{kept_slots_note(p)} automated={int(r.auto['use'].sum())} kernel vs plain max ulp {ulps}")
+    return p
 
 
 def sinc_small(name, session):
@@ -602,6 +694,7 @@ def phase_kernel_vs_plain() -> None:
 
     from whitebox_tpu_torch.ops.automation import AutomationLane, TrackAutomation
     from whitebox_tpu_torch.ops import mix_cuda
+    from whitebox_tpu_torch.ops.resample import design_poly_interp
     from whitebox_tpu_torch.render.bounce import bounce
     from whitebox_tpu_torch.render.demo import make_demo_session
     from whitebox_tpu_torch.timeline.oracle import OracleRenderer
@@ -625,6 +718,23 @@ def phase_kernel_vs_plain() -> None:
             per_track_vs_plain(name, small[name][0], mode=mode)
         kernel_vs_plain("mixed_speeds_fades_tile1024", small["mixed_speeds_fades"][0], tile=1024, mode=mode)
         auto_vs_plain("auto_fades", auto_session(seed=5, fades=True), mode=mode)
+    # the staged walk's other shapes: one and three channels (a channel pair
+    # and a single channel per launch), a tile that ends inside a block, and
+    # a kept list that more than one staging pass fills (many tracks x the
+    # oversampled form's slots)
+    short = make_demo_session(n_tracks=4, duration_seconds=4.0, seed=3, fades=True,
+                              clip_speeds=(1.0, 0.5, 44100 / 48000, 1.37))
+    for channels in (1, 3):
+        for mode in ("linear", "catmull", "poly"):
+            kernel_vs_plain("mixed_speeds_fades_4trk", short, mode=mode, channels=channels)
+        auto_vs_plain("auto_nine_curves", auto_session(seed=4, curves=True), channels=channels)
+        per_track_vs_plain("reverse_bidirectional", reverse_session(), channels=channels)
+    kernel_vs_plain("mixed_speeds_fades_4trk_tile1152", short, tile=1152)
+    auto_vs_plain("auto_fades_tile1152", auto_session(seed=5, fades=True), tile=1152, mode="catmull")
+    check(staging_passes(variants_vs_plain("many_tracks_two_passes", many_tracks_session())) > 1,
+          "many_tracks: no block's kept list spans two staging passes")
+    variants_vs_plain("auto_fades_4x4", auto_session(seed=5, fades=True),
+                      coeffs=design_poly_interp(4, taps=4, degree=3))
     sinc_small("sinc_rational_taylor", make_demo_session(
         n_tracks=4, duration_seconds=6.0, seed=9, sample_seconds=1.0, fades=True,
         clip_speeds=(1.0, 44100 / 48000, 2 ** (1 / 12), 0.5)))
@@ -850,7 +960,7 @@ def measure_cell(torch, name: str, session, duration: float, automated: bool = F
         "cell": name, "mode": mode, "tracks": p.num_tracks, "audio_seconds": duration,
         "frames": int(p.total_frames), "tile": p.tile, "n_tiles": p.n_tiles, "K": p.max_slots,
         "active_slots": int((p.me > p.ms).sum()),
-        "slow_slots": int(((p.me > p.ms) & (p.is_slow == 1)).sum()),
+        "slow_slots": int(((p.me > p.ms) & (p.is_slow == 1)).sum()), **kept_slots(p),
         "pool_mb": pool_bytes / 1e6,
         "e2e_ms_median": e2e_med * 1e3, "e2e_ms_best": e2e_best * 1e3,
         "rtf_median": duration / e2e_med, "rtf_best": duration / e2e_best,

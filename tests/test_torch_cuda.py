@@ -16,7 +16,10 @@ reference (relative RMS 5e-5 scan, 2e-4 fir) and the CPU bounce; the
 Catmull-Rom and polynomial-tap modes of all three variants against their
 plain versions (the resampling contract; 0 ulp expected) and the NumPy
 references (atol 3e-6); the sinc prerender's extension against the host's
-(1e-6) and the sinc bounce against the CPU bounce (3e-6), one mix launch.
+(1e-6) and the sinc bounce against the CPU bounce (3e-6), one mix launch;
+the summing kernel's staged walk in its other shapes (one and three
+channels, a tile that ends inside a block, a kept list that two staging
+passes fill) 0 ulp from the plain version.
 """
 
 import numpy as np
@@ -25,6 +28,7 @@ import torch
 
 import chip_smoke
 from whitebox_tpu_torch.ops import mix_cuda
+from whitebox_tpu_torch.ops.resample import design_poly_interp
 from whitebox_tpu_torch.render.bounce import bounce
 from whitebox_tpu_torch.render.demo import make_demo_session
 from whitebox_tpu_torch.render.effects_pipeline import prepare_automation_tables_host
@@ -85,6 +89,39 @@ def test_interp_automation_kernel_matches_plain_and_reference(card, mode):
     chip_smoke.auto_vs_plain("fades", AUTO_SESSIONS["fades"](), mode=mode)
 
 
+@pytest.mark.parametrize("channels", [1, 3])
+@pytest.mark.parametrize("mode", ["linear", "catmull", "poly"])
+def test_kernel_for_one_and_three_channels(card, mode, channels):
+    # 0 ulp from the plain version: a pair of channels and a single one per launch
+    assert chip_smoke.kernel_vs_plain("mixed_speeds_fades", SESSIONS["mixed_speeds_fades"](),
+                                      mode=mode, channels=channels) == 0.0
+
+
+@pytest.mark.parametrize("channels", [1, 3])
+def test_automation_and_per_track_kernels_for_one_and_three_channels(card, channels):
+    chip_smoke.auto_vs_plain("nine_curves", AUTO_SESSIONS["nine_curves"](), channels=channels)
+    chip_smoke.per_track_vs_plain("reverse_bidirectional", SESSIONS["reverse_bidirectional"](),
+                                  channels=channels)
+
+
+@pytest.mark.parametrize("mode", ["linear", "catmull", "poly"])
+def test_kernel_with_a_tile_that_ends_inside_a_block(card, mode):
+    assert chip_smoke.kernel_vs_plain("mixed_speeds_fades", SESSIONS["mixed_speeds_fades"](),
+                                      tile=1152, mode=mode) == 0.0
+    chip_smoke.auto_vs_plain("fades", AUTO_SESSIONS["fades"](), tile=1152, mode=mode)
+
+
+def test_general_polynomial_path_matches_plain(card):
+    # a 4 x 4 table: not the 6 x 6 shape the kernels unroll
+    chip_smoke.variants_vs_plain("fades", AUTO_SESSIONS["fades"](),
+                                 coeffs=design_poly_interp(4, taps=4, degree=3))
+
+
+def test_kept_list_that_spans_two_staging_passes(card):
+    plan = chip_smoke.variants_vs_plain("many_tracks", chip_smoke.many_tracks_session())
+    assert chip_smoke.staging_passes(plan) > 1
+
+
 @pytest.mark.parametrize("name", ["mixed_speeds_fades", "reverse_bidirectional"])
 def test_sinc_prerender_on_the_card(card, name):
     chip_smoke.sinc_small(name, SESSIONS[name]())
@@ -124,6 +161,17 @@ def test_poly_kernel_refuses_a_table_it_cannot_hold(card):
     assert torch.equal(a, mix_cuda.mix_cuda(r.pool_device, r.tables, p.n_tiles, p.tile, p.channels,
                                             interp=r.interp))
     assert float((a - b).abs().max()) > 1e-3
+
+
+def test_automation_kernel_with_more_tracks_than_default_shared_memory_holds(card):
+    # 600 tracks x 32 B of per-track rows: more dynamic shared memory than
+    # fits beside the kernel's static buffers without asking for it
+    from whitebox_tpu_torch.ops.automation import AutomationLane, TrackAutomation
+
+    s = make_demo_session(n_tracks=600, duration_seconds=1.0, seed=21, sample_seconds=0.5)
+    s.tracks[0].automation = TrackAutomation(volume=AutomationLane().add(0.0, 1.0).add(2.0, 0.2))
+    s.tracks[599].automation = TrackAutomation(pan=AutomationLane().add(0.0, -1.0).add(2.0, 1.0))
+    chip_smoke.auto_vs_plain("600_tracks", s)
 
 
 def test_automated_bounce_counts_one_automation_launch(card):

@@ -143,9 +143,10 @@ def mix_cuda(pool: torch.Tensor, tables: dict, n_tiles: int, tile: int, channels
              interp="linear") -> torch.Tensor:
     """Launch the CUDA mix kernel -> ``[C, n_tiles*tile]`` f32 on the pool's card.
 
-    Launches on the current stream and does not synchronise. Raises on a
-    non-CUDA tensor, a malformed table, an unknown ``interp`` or a refused
-    launch.
+    Launches on the current stream and does not synchronise: one kernel
+    launch per pair of channels (and one for a last odd channel), counted
+    as one. Raises on a non-CUDA tensor, a malformed table, an unknown
+    ``interp`` or a refused launch.
     """
     global mix_kernel_launches
     if pool.device.type != "cuda":

@@ -22,6 +22,14 @@ equal to ``row_al*128 + delta`` of the TPU plan:
 
 Slot splitting, slot order and every other field are the TPU plan's, so a
 render from this plan is bit-identical to the JAX kernel's.
+
+The module also models, in NumPy, how the CUDA summing kernel walks the
+plan (``csrc/mix_kernel.cu``): :func:`block_slot_mask` and
+:func:`block_slot_lists` give the compacted slot list each block of
+``FRAMES_PER_BLOCK`` frames stages, :func:`lane_segment_range` and
+:func:`lane_held` what it finds out once per block about a track's
+automation lanes. The tests hold the model to the plain mix, and
+``chip_smoke.py`` prints from it what the walk shrank to.
 """
 
 from __future__ import annotations
@@ -39,6 +47,11 @@ from whitebox_tpu_torch.timeline.pool import MAX_TILE_FRAMES, SamplePool
 DEFAULT_TILE = 32768  # largest tile; halved on slot overflow (build_plan tile=None)
 MIN_TILE = 1024       # slot-overflow backoff floor
 DEFAULT_K = 8
+#: the lane tables' padding breakpoint (``ops/automation.py`` ``_SENTINEL``)
+LANE_SENTINEL = 2**31 - 1
+#: frames (and threads) of one block of the CUDA summing kernel
+#: (``csrc/mix_kernel.cu`` ``kFramesPerBlock``): the unit of its staged walk
+FRAMES_PER_BLOCK = 256
 
 #: per-slot tables, each [n_tiles, T, K] (``src_start`` adds a channel axis)
 SLOT_FIELDS = ("ms", "me", "gain", "clampf", "fin_start", "fin_inv", "fout_end",
@@ -402,3 +415,70 @@ def check_pool_bounds(plan: MixPlan, pool_len: int, interp="linear") -> None:
     hi = (ss + hi_off[:, None]).max()
     if lo < 0 or hi >= pool_len:
         raise ValueError(f"plan reads pool[{lo}..{hi}] outside [0, {pool_len})")
+
+
+def block_slot_mask(plan: MixPlan, block: int = FRAMES_PER_BLOCK) -> np.ndarray:
+    """Host model of the CUDA summing kernel's staged walk -> bool
+    ``[n_tiles, n_blocks, T*K]``: which raw slots ``r = t*K + k`` of its
+    tile a block of ``block`` frames keeps. A block covers the tile-relative
+    frames ``[b0, b1)``, ``b0 = b*block``, ``b1 = min(b0 + block, tile)``; it
+    keeps a slot iff the slot is active (``me > ms``) and ``[ms, me)`` meets
+    ``[b0, b1)``. The kernel walks the kept slots in ascending ``r``, the
+    ``(t, k)`` order of the sum, and never looks at the others."""
+    if block <= 0:
+        raise ValueError(f"block must be positive, got {block}")
+    nt, T, K = plan.ms.shape
+    ms = plan.ms.reshape(nt, 1, T * K)
+    me = plan.me.reshape(nt, 1, T * K)
+    b0 = np.arange(0, plan.tile, block, dtype=np.int64).reshape(1, -1, 1)
+    b1 = np.minimum(b0 + block, plan.tile)
+    return (me > ms) & (ms < b1) & (me > b0)
+
+
+def block_slot_lists(plan: MixPlan, block: int = FRAMES_PER_BLOCK) -> list[list[np.ndarray]]:
+    """The kept lists of :func:`block_slot_mask`: ``lists[ti][b]`` holds the
+    raw slot indices ``r = t*K + k`` that block ``b`` of tile ``ti`` stages,
+    in the order the kernel stages and adds them (ascending ``r``)."""
+    mask = block_slot_mask(plan, block)
+    return [[np.nonzero(row)[0] for row in tile_mask] for tile_mask in mask]
+
+
+def lane_segment_range(xs: np.ndarray, g0, g1) -> tuple[np.ndarray, np.ndarray]:
+    """Host model of the kernel's ``lane_range``: for lane rows ``xs``
+    ``[..., P]`` (i32 breakpoints, sentinel-padded) and global frames ``g0 <=
+    g1`` (broadcastable against ``xs[..., 0]``) -> ``(lo, hi)``, the last
+    segment ``i`` in ``0..P-2`` with ``g0 >= xs[i]`` and with ``g1 >= xs[i]``
+    (-1: none). The segment a frame ``g`` in ``[g0, g1]`` evaluates, the last
+    ``i`` with ``g >= xs[i]``, lies in ``[lo, hi]`` whatever the order of the
+    breakpoints: ``lo`` itself passes the test at ``g``, and nothing above
+    ``hi`` passes it at ``g1``."""
+    seg = xs[..., :-1].astype(np.int64)
+    idx = np.arange(seg.shape[-1])
+
+    def last(g):
+        hit = np.asarray(g, dtype=np.int64)[..., None] >= seg
+        return np.where(hit, idx, -1).max(axis=-1, initial=-1)
+
+    return last(g0), last(g1)
+
+
+def lane_held(xs: np.ndarray, lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
+    """Host model of the kernel's ``lane_held``: True where a lane row holds
+    one value over the whole block, i.e. its frames pick one segment (``lo ==
+    hi``, from :func:`lane_segment_range`) that lies before the first point
+    (-1) or after the last (the next breakpoint is the sentinel, which forces
+    the ramp to 0). The automation kernel evaluates such a lane once per
+    (block, track) instead of once per frame."""
+    nxt = np.take_along_axis(np.broadcast_to(xs, lo.shape + xs.shape[-1:]),
+                             np.clip(lo + 1, 0, xs.shape[-1] - 1)[..., None], axis=-1)[..., 0]
+    return (lo == hi) & ((lo < 0) | (nxt == LANE_SENTINEL))
+
+
+def block_frame_range(plan: MixPlan, block: int = FRAMES_PER_BLOCK) -> tuple[np.ndarray, np.ndarray]:
+    """First and last global frame of every (tile, block) -> two int64
+    arrays ``[n_tiles, n_blocks]`` (the arguments of :func:`lane_segment_range`
+    for one block)."""
+    b0 = np.arange(0, plan.tile, block, dtype=np.int64)
+    b1 = np.minimum(b0 + block, plan.tile)
+    base = np.arange(plan.n_tiles, dtype=np.int64)[:, None] * plan.tile
+    return base + b0, base + b1 - 1

@@ -1,16 +1,21 @@
-"""Time the CUDA mix kernel of two checkouts on one card, in turns.
+"""Time the CUDA mix kernels of two checkouts on one card, in turns.
 
     python -m whitebox_tpu_torch.tools.ab_mix OTHER_CHECKOUT [--rounds 1]
 
 Runs ``OTHER, THIS, THIS, OTHER`` (per round), each in a fresh process from
 the root of its checkout, which builds that checkout's kernels with its own
 ``nvcc`` flags and times, by CUDA events (median of 20 launches after one
-warm launch), the summing kernel on the 128-track x 60 s headline session
-and its automation variant on the JAX package's configs 2 and 7 (the
-sessions of ``chip_smoke.py``). Prints one JSON line per run and a summary
-of the medians per checkout. Both checkouts must hold ``chip_smoke.py``
-and ``whitebox_tpu_torch`` with ``mix_cuda.mix_cuda``/``mix_auto_cuda``.
-Needs one CUDA card.
+warm launch), one launch of each kernel row on the 128-track x 60 s
+sessions of ``chip_smoke.py``: the summing kernel on the headline session
+(K1) and with resampled clips (``headline_resampled``, K2-linear), its
+automation variant on the JAX package's configs 2 and 7
+(``automation_32trk``, ``automation_tempo_128trk``, K3), its Catmull-Rom and
+polynomial-tap modes on config 3's session (``catmull_128trk``, K2-catmull;
+``sinc_oversample_128trk``, K2-poly over the 4x oversampled pool), and the
+per-track kernel on config 5's (``effects_eq_128trk``, K4). Prints one JSON
+line per run and a summary of the medians per checkout with the change in
+percent. Both checkouts must hold ``chip_smoke.py`` (with
+``make_renderer``) and ``whitebox_tpu_torch``. Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -31,26 +36,34 @@ import torch
 import chip_smoke as cs
 from whitebox_tpu_torch.ops import cuda_build, mix_cuda
 from whitebox_tpu_torch.render.demo import make_demo_session
-from whitebox_tpu_torch.render.effects_pipeline import prepare_automation_tables_host
-from whitebox_tpu_torch.timeline.carve import carve_session
 
 cuda_build.load()
-cells = {"headline": (make_demo_session(n_tracks=128, duration_seconds=60.0, sample_rate=48000, seed=7), False),
-         "automation_32trk": (cs.automation_32trk(), True),
-         "automation_tempo_128trk": (cs.automation_tempo_128trk(), True)}
+demo = dict(n_tracks=128, duration_seconds=60.0, seed=7)
+config3 = make_demo_session(sample_rate=44100, clip_speeds=cs.CONFIG3_SPEEDS, **demo)
+# cell -> (session, interpolation mode, kernel variant)
+cells = {"headline": (make_demo_session(sample_rate=48000, **demo), "linear", "sum"),
+         "headline_resampled": (make_demo_session(sample_rate=48000, clip_speeds=(1.0, 44100 / 48000), **demo),
+                                "linear", "sum"),
+         "automation_32trk": (cs.automation_32trk(), "linear", "auto"),
+         "automation_tempo_128trk": (cs.automation_tempo_128trk(), "linear", "auto"),
+         "catmull_128trk": (config3, "catmull", "sum"),
+         "sinc_oversample_128trk": (config3, "poly", "sum"),
+         "effects_eq_128trk": (cs.effects_eq_128trk(), "linear", "per_track")}
 out = {"checkout": sys.argv[1]}
-for name, (s, auto) in cells.items():
-    table, pool = carve_session(s, 48000.0, buffer_size=512, slow_emit="runs")
-    r = mix_cuda.CudaMixRenderer(table, pool, s, device="cuda",
-                                 auto_tables=prepare_automation_tables_host(s, 48000.0) if auto else None)
+for name, (s, mode, variant) in cells.items():
+    r, _, _, interp = cs.make_renderer(s, mode, auto=variant == "auto")
     p = r.plan
-    if auto:
-        fn = lambda: mix_cuda.mix_auto_cuda(r.pool_device, r.tables, r.auto, p.n_tiles, p.tile, p.channels)
+    args = (p.n_tiles, p.tile, p.channels)
+    if variant == "auto":
+        fn = lambda: mix_cuda.mix_auto_cuda(r.pool_device, r.tables, r.auto, *args, interp=interp)
+    elif variant == "per_track":
+        fn = lambda: mix_cuda.mix_per_track_cuda(r.pool_device, r.tables, *args, interp=interp)
     else:
-        fn = lambda: mix_cuda.mix_cuda(r.pool_device, r.tables, p.n_tiles, p.tile, p.channels)
+        fn = lambda: mix_cuda.mix_cuda(r.pool_device, r.tables, *args, interp=interp)
     fn()
     torch.cuda.synchronize()
     out[name] = cs._event_ms(torch, fn, 20)[0]
+    del r, fn
 print(json.dumps(out))
 """
 
@@ -77,6 +90,8 @@ def main(argv=None) -> int:
     summary = {label: {c: statistics.median(r[c] for r in rows if r["checkout"] == label) for c in cells}
                for label in ("other", "this")}
     print("[ab_mix] medians ms " + json.dumps(summary))
+    print("[ab_mix] this vs other, percent " + json.dumps(
+        {c: round(100.0 * (summary["this"][c] / summary["other"][c] - 1.0), 2) for c in cells}))
     return 0
 
 
