@@ -8,7 +8,8 @@ Runs from the root of a checkout. It drives the port's main paths through
 session through the hand-written CUDA mix kernel, automated sessions
 through its automation variant (K3), and the same 128-track session with
 an EQ on every track and a highpass on the master through its per-track
-mode (K4) and the linear finishers, and 128-track sessions of resampled
+mode (K4) and the linear finishers (the scan finisher through the second
+hand kernel, the biquad cascade), and 128-track sessions of resampled
 clips in the export-quality interpolation modes: Catmull-Rom and six
 polynomial taps in the kernel (K2-catmull, K2-poly) and the sinc
 prerender, which extends the sample pool on the card and mixes speed-1
@@ -47,7 +48,11 @@ no ``.wb`` project. Phases, one or more lines each:
    a 4 x 4 polynomial table (the kernels' general polynomial path; 6 x 6
    tables take an unrolled one);
    each line prints the mean and the most slots a block keeps beside the
-   ``T*K`` of its tile (the host model ``mix_plan.block_slot_mask``);
+   ``T*K`` of its tile (the host model ``mix_plan.block_slot_mask``); then
+   the biquad cascade kernel on small rows (EQ bands, the 25 Hz highpass,
+   FIR, gain and identity rows, a state handed over between two calls, a
+   six-section chain, a row shorter than a block) within relative RMS 5e-6
+   per row of its plain version, identity rows exact;
 4. headline and headline_resampled: ``bounce(device="cuda")`` of the
    128-track session with the launch counts reset just before, bit-equal
    to the NumPy segment reference; then 5 warm carve+plan+upload+kernel
@@ -59,12 +64,16 @@ no ``.wb`` project. Phases, one or more lines each:
    the host; the timing stays at 60 s), lane packing counted in the host
    legs;
 6. effects_eq_128trk (config 5): ``bounce(device="cuda")`` with
-   ``effects_mode="fir"`` and ``"scan"``, per-track launches counted; the
-   per-track buffers bit-equal to ``render_segments_per_track_numpy``
-   track by track; both modes against an f64 reference (scipy ``sosfilt``)
-   within relative RMS 2e-4 (fir) and 5e-5 (scan), and within 5e-4 of each
-   other; 5 warm iterations with the IR preparation, the per-track kernel,
-   both finishers and the plain per-track version timed;
+   ``effects_mode="fir"``, ``"scan"`` and ``meters=True``, per-track and
+   cascade launches counted (the scan and the meters through the cascade
+   kernel, no Hillis scan); the per-track buffers bit-equal to
+   ``render_segments_per_track_numpy`` track by track; both modes against
+   an f64 reference (scipy ``sosfilt``) within relative RMS 2e-4 (fir) and
+   5e-5 (scan), and within 5e-4 of each other; the meters within 1e-5 of
+   the plain finisher's; 5 warm iterations in each mode with the IR or
+   chain-table preparation; the per-track kernel, both finishers, the
+   cascade kernel on the main path's chunk (against its plain version,
+   relative RMS 5e-6 per row) and the plain versions timed;
 7. catmull_128trk, sinc_prerender_128trk, sinc_irrational_128trk and
    sinc_oversample_128trk (the JAX package's benchmark config 3 and its
    two sinc extras): ``bounce(device="cuda", interpolation=...)`` with the
@@ -220,8 +229,9 @@ def slow_frames(table, n):
 
 
 def reset_launches() -> None:
-    from whitebox_tpu_torch.ops import mix_cuda
+    from whitebox_tpu_torch.ops import biquad_cuda, mix_cuda
 
+    biquad_cuda.biquad_cascade_launches = 0
     mix_cuda.mix_kernel_launches = 0
     mix_cuda.mix_auto_launches = 0
     mix_cuda.mix_per_track_launches = 0
@@ -1130,40 +1140,163 @@ def effects_reference(session, per_track_dev, table, pool):
     return np.clip(total, -1.0, 1.0).astype(np.float32)
 
 
-def phase_effects(torch) -> dict:
-    """``effects_eq_128trk`` (config 5): ``bounce(device="cuda")`` in "fir"
-    and in "scan" mode with the launch counts reset just before each, both
-    held to the f64 reference; then 5 warm carve+plan+upload+IR+K4+FIR
-    iterations, the per-track kernel, the finishers and the plain per-track
-    version timed by CUDA events."""
+#: the cascade kernel against its plain version (the per-section Hillis
+#: scan), relative RMS per row: both round in f32, in different orders
+CASCADE_REL_RMS = 5e-6
+
+
+def cascade_rows(chains):
+    """``[9, S, B, 1]`` f32 coefficients of one chain of sections per row."""
     import numpy as np
 
-    from whitebox_tpu_torch.ops import mix_cuda
-    from whitebox_tpu_torch.ops.mix_plan import build_plan
+    from whitebox_tpu_torch.ops.biquad import eig_section_params
+
+    c = np.zeros((9, len(chains[0]), len(chains), 1), np.float32)
+    for r, secs in enumerate(chains):
+        for k, sec in enumerate(secs):
+            c[:, k, r, 0] = eig_section_params(sec)
+    return c
+
+
+def row_rel_rms(got, ref):
+    """Relative RMS of each row of ``got`` against ``ref`` ([B, F] tensors)."""
+    d = (got.double() - ref.double()).pow(2).mean(dim=1).sqrt()
+    return (d / ref.double().pow(2).mean(dim=1).sqrt().clamp_min(1e-30)).cpu().numpy()
+
+
+def cascade_vs_plain(name, torch, x, coeffs, states, pieces=(None,), host_model=False):
+    """The cascade kernel on ``x`` [B, F] (in calls over the frame ranges
+    ``pieces`` splits it at, each handing its states to the next) against
+    the plain version in one call: relative RMS per row, states out; with
+    ``host_model``, also against the torch model of the blocked recurrence
+    (the same f32 operations in the same order). -> (max row rel RMS, max abs)"""
+    from whitebox_tpu_torch.ops import biquad_cuda
+
+    before = biquad_cuda.biquad_cascade_launches
+    edges = [0, *[p for p in pieces if p is not None], x.shape[1]]
+    ys, st = [], states
+    for a, b in zip(edges, edges[1:]):
+        y, st = biquad_cuda.biquad_cascade(x[:, a:b], coeffs, st)
+        ys.append(y)
+    got = torch.cat(ys, dim=1)
+    check(biquad_cuda.biquad_cascade_launches == before + len(edges) - 1,
+          f"{name}: the cascade kernel did not launch")
+    ref, ref_st = biquad_cuda.biquad_cascade_reference(x, coeffs, states)
+    torch.cuda.synchronize()
+    rr = row_rel_rms(got, ref)
+    max_abs = float((got - ref).abs().max())
+    check(bool((rr < CASCADE_REL_RMS).all()), f"{name}: cascade kernel rows {rr.max():.3g} relative RMS "
+          f"off the plain scan (bar {CASCADE_REL_RMS})")
+    st_err = max(float((a - b).abs().max()) for a, b in zip(st, ref_st))
+    scale = max(float(b.abs().max()) for b in ref_st)
+    check(st_err <= 1e-4 * scale + 1e-6, f"{name}: states out {st_err:.3g} off the plain scan's")
+    note = ""
+    if host_model:
+        model, _ = biquad_cuda.biquad_cascade_blocked(x.cpu(), coeffs.cpu(), [q.cpu() for q in states],
+                                                      biquad_cuda.BLOCK_FRAMES)
+        note = f"; vs the host model of the blocked recurrence max abs {float((got.cpu() - model).abs().max()):.3g}"
+    print(f"[cascade-vs-plain] {name}: rows={x.shape[0]} frames={x.shape[1]} sections={coeffs.shape[1]} "
+          f"calls={len(edges) - 1} max row relative RMS {rr.max():.3g} (< {CASCADE_REL_RMS}), max abs "
+          f"{max_abs:.3g}, states out {st_err:.3g}{note}")
+    return float(rr.max()), max_abs
+
+
+def phase_cascade_small(torch) -> None:
+    """The cascade kernel on small rows: EQ bands, the 25 Hz highpass
+    (poles at radius 0.9977), FIR and gain sections, identity rows (exact),
+    ragged last blocks, a state handed in and out over two calls, a
+    six-section chain (two groups of sections) and one shorter than a
+    block."""
+    import numpy as np
+
+    from whitebox_tpu_torch.ops.biquad import IDENTITY_COEFFS, BiquadCoeffs, design_biquad
+    from whitebox_tpu_torch.ops import biquad_cuda
+
+    def d(ftype, freq, *rest):
+        return design_biquad(ftype, freq, RATE, *rest)
+
+    chains = [[d("lowshelf", 100.0, 0.707, 2.0), d("peak", 1000.0, 1.0, -1.5), d("highshelf", 8000.0, 0.707, 1.0)],
+              [d("highpass", 25.0), d("lowpass", 200.0, 4.0), IDENTITY_COEFFS],
+              [IDENTITY_COEFFS] * 3,
+              [BiquadCoeffs(0.5, 0.0, 0.0, 0.0, 0.0), BiquadCoeffs(0.3, 0.2, 0.1, 0.0, 0.0), d("notch", 3000.0, 4.0)],
+              [d("highpass", 30.0, 0.6), d("bandpass", 5000.0, 2.0), d("allpass", 40.0, 0.6)]]
+    rng = np.random.default_rng(31)
+    coeffs = torch.from_numpy(cascade_rows(chains)).cuda()
+    x = torch.from_numpy((rng.standard_normal((5, 50000)) * 0.3).astype(np.float32)).cuda()
+    zero = [torch.zeros((5, 2), device="cuda") for _ in range(3)]
+    cascade_vs_plain("eq_highpass_fir_identity_rows", torch, x, coeffs, zero, host_model=True)
+    y, _ = biquad_cuda.biquad_cascade(x, coeffs, zero)
+    check(torch.equal(y[2], x[2]), "identity row: the cascade kernel changed its input")
+    carried = [torch.from_numpy(rng.standard_normal((5, 2)).astype(np.float32) * 0.1).cuda() for _ in range(3)]
+    cascade_vs_plain("state_over_two_calls", torch, x, coeffs, carried, pieces=(20000,), host_model=True)
+    six = torch.from_numpy(cascade_rows([c + c[::-1] for c in chains])).cuda()
+    cascade_vs_plain("six_sections_two_groups", torch, x, six, zero * 2)
+    cascade_vs_plain("shorter_than_a_block", torch, x[:, :700].contiguous(), coeffs, carried)
+
+
+def phase_effects(torch) -> dict:
+    """``effects_eq_128trk`` (config 5): ``bounce(device="cuda")`` in "fir"
+    and "scan" mode and with ``meters=True``, the launch counts reset just
+    before each (the scan and the meters through the cascade kernel, no
+    Hillis scan), all held to the f64 reference; then 5 warm
+    carve+plan+upload+(IR or chain tables)+K4+finisher iterations in each
+    of "fir" and "scan", the per-track kernel (K4), both
+    finishers, the cascade kernel on the main path's chunk, and their plain
+    versions timed by CUDA events."""
+    import numpy as np
+
+    from whitebox_tpu_torch.ops import biquad as biquad_mod
+    from whitebox_tpu_torch.ops import biquad_cuda, mix_cuda
+    from whitebox_tpu_torch.ops.mix_plan import build_plan, per_track_block_slots
+    from whitebox_tpu_torch.render import effects_pipeline
     from whitebox_tpu_torch.render.bounce import _effects_finisher, bounce
     from whitebox_tpu_torch.render.effects_fir import prepare_fir_finish
     from whitebox_tpu_torch.timeline.carve import carve_session
 
     name, duration = "effects_eq_128trk", 60.0
     session = effects_eq_128trk(duration)
+    hillis = [0]
+    scan_fn = biquad_mod.hillis_scan
+
+    def counted_scan(*a, **kw):
+        hillis[0] += 1
+        return scan_fn(*a, **kw)
+
     runs = {}
-    for mode in ("fir", "scan"):
-        reset_launches()
-        res = bounce(session, RATE, device="cuda", effects_mode=mode)
-        n = mix_cuda.mix_per_track_launches
-        check(n > 0, f"{name} ({mode}): bounce never launched the per-track kernel")
-        check(mix_cuda.mix_kernel_launches == 0 and mix_cuda.mix_auto_launches == 0,
-              f"{name} ({mode}): an effects session took a summing kernel")
-        check(np.isfinite(res.audio).all(), f"{name} ({mode}): non-finite output")
-        runs[mode] = (res, n)
-        print(f"[{name}] bounce(device='cuda', effects_mode={mode!r}): {res.stats.summary()}; "
-              f"finisher {res.stats.finish_seconds * 1e3:.3f} ms; per-track kernel launches={n}")
-    launches = runs["fir"][1]
+    biquad_mod.hillis_scan = counted_scan
+    try:
+        for mode, kw in (("fir", {"effects_mode": "fir"}), ("scan", {"effects_mode": "scan"}),
+                         ("meters", {"meters": True})):
+            reset_launches()
+            hillis[0] = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            res = bounce(session, RATE, device="cuda", **kw)
+            n, nc = mix_cuda.mix_per_track_launches, biquad_cuda.biquad_cascade_launches
+            check(n > 0, f"{name} ({mode}): bounce never launched the per-track kernel")
+            check(mix_cuda.mix_kernel_launches == 0 and mix_cuda.mix_auto_launches == 0,
+                  f"{name} ({mode}): an effects session took a summing kernel")
+            if mode == "fir":
+                check(nc == 0, f"{name} (fir): the FIR finisher ran the cascade kernel")
+            else:
+                check(nc > 0 and hillis[0] == 0, f"{name} ({mode}): cascade kernel launches={nc}, "
+                      f"Hillis scans={hillis[0]}")
+            check(np.isfinite(res.audio).all(), f"{name} ({mode}): non-finite output")
+            runs[mode] = (res, n, nc, torch.cuda.max_memory_allocated() / 1e9)
+            print(f"[{name}] bounce(device='cuda', {', '.join(f'{k}={v!r}' for k, v in kw.items())}): "
+                  f"{res.stats.summary()}; finisher {res.stats.finish_seconds * 1e3:.3f} ms; per-track "
+                  f"kernel launches={n}; cascade kernel launches={nc}; peak memory {runs[mode][3]:.2f} GB")
+    finally:
+        biquad_mod.hillis_scan = scan_fn
+    launches, cascade_launches = runs["scan"][1], runs["scan"][2]
+    check(np.array_equal(runs["meters"][0].audio, runs["scan"][0].audio),
+          f"{name}: the metered bounce's audio != the scan bounce's")
 
     table, pool = carve_session(session, RATE, buffer_size=512, slow_emit="runs")
     warm = mix_cuda.CudaMixRenderer(table, pool, session, device="cuda")
     p = warm.plan
     pt = warm.render_device_per_track()
+    empty = int((~per_track_block_slots(p).any(axis=3)).sum())
     t0 = time.perf_counter()
     ref = effects_reference(session, pt, table, pool)
     ref_s = time.perf_counter() - t0
@@ -1176,57 +1309,122 @@ def phase_effects(torch) -> dict:
     check(scan_fir <= SCAN_FIR_ATOL, f"{name}: scan vs fir max abs {scan_fir:.3g}")
     check(float(np.abs(fir).max()) > 0.01, f"{name}: silent render")
     print(f"[{name}] per-track kernel bit-equal to render_segments_per_track_numpy on all "
-          f"{p.num_tracks} tracks; vs f64 reference (sosfilt) relative RMS scan {rr_scan:.3g} "
-          f"(< {SCAN_REL_RMS}), fir {rr_fir:.3g} (< {FIR_REL_RMS}); scan vs fir max abs "
-          f"{scan_fir:.3g} (<= {SCAN_FIR_ATOL}); reference {ref_s:.1f} s on the host")
+          f"{p.num_tracks} tracks ({empty} (block, track) cells zero-filled); vs f64 reference "
+          f"(sosfilt) relative RMS scan {rr_scan:.3g} (< {SCAN_REL_RMS}), fir {rr_fir:.3g} "
+          f"(< {FIR_REL_RMS}); scan vs fir max abs {scan_fir:.3g} (<= {SCAN_FIR_ATOL}); reference "
+          f"{ref_s:.1f} s on the host")
 
-    rows = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        t_, p_ = carve_session(session, RATE, buffer_size=512, pool=pool, slow_emit="runs")
-        t1 = time.perf_counter()
-        plan = build_plan(t_, p_, session)
-        t2 = time.perf_counter()
-        r = mix_cuda.CudaMixRenderer(t_, p_, session, device="cuda", plan=plan,
-                                     pool_device=warm.pool_device)
-        t3 = time.perf_counter()
-        finish = prepare_fir_finish(session, RATE, r.tables["track_gain"], None, p.channels,
-                                    device="cuda")
-        t4 = time.perf_counter()
-        finish(r.render_device_per_track())
-        torch.cuda.synchronize()
-        t5 = time.perf_counter()
-        rows.append((t1 - t0, t2 - t1, t3 - t2, t4 - t3, t5 - t4, t5 - t0))
-    carve_s, plan_s, upload_s, ir_s, launch_s, e2e_med = (statistics.median(c) for c in zip(*rows))
-    e2e_best = min(row[-1] for row in rows)
+    dev = torch.device("cuda")
+    legs = {}
+    for mode in ("fir", "scan"):  # the FIR rows are the cell's; the scan rows the default mode's
+        rows = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t_, p_ = carve_session(session, RATE, buffer_size=512, pool=pool, slow_emit="runs")
+            t1 = time.perf_counter()
+            plan = build_plan(t_, p_, session)
+            t2 = time.perf_counter()
+            r = mix_cuda.CudaMixRenderer(t_, p_, session, device="cuda", plan=plan,
+                                         pool_device=warm.pool_device)
+            t3 = time.perf_counter()
+            finish = _effects_finisher(session, r, plan, RATE, p.channels, mode, False, dev)
+            t4 = time.perf_counter()
+            finish(r.render_device_per_track())
+            torch.cuda.synchronize()
+            t5 = time.perf_counter()
+            rows.append((t1 - t0, t2 - t1, t3 - t2, t4 - t3, t5 - t4, t5 - t0))
+            del r, finish
+        legs[mode] = [statistics.median(c) for c in zip(*rows)] + [min(row[-1] for row in rows)]
+    carve_s, plan_s, upload_s, ir_s, launch_s, e2e_med, e2e_best = legs["fir"]
 
     args = (warm.pool_device, warm.tables, p.n_tiles, p.tile, p.channels)
     fir_finish = prepare_fir_finish(session, RATE, warm.tables["track_gain"], None, p.channels,
                                     device="cuda")
-    scan_finish = _effects_finisher(session, warm, p, RATE, p.channels, "scan", False,
-                                    torch.device("cuda"))
+    scan_finish = _effects_finisher(session, warm, p, RATE, p.channels, "scan", False, dev)
+    metered_finish = _effects_finisher(session, warm, p, RATE, p.channels, "scan", True, dev)
     kernel_ms, kernel_all = _event_ms(torch, lambda: mix_cuda.mix_per_track_cuda(*args), 20)
     fir_ms, _ = _event_ms(torch, lambda: fir_finish(pt), 5)
-    scan_ms, _ = _event_ms(torch, lambda: scan_finish(pt), 1)
+    scan_ms, scan_all = _event_ms(torch, lambda: scan_finish(pt), 5)
+    metered_ms, _ = _event_ms(torch, lambda: metered_finish(pt), 3)
     plain_ms, _ = _event_ms(torch, lambda: mix_cuda.mix_per_track_reference(*args), 1)
     got, plain = mix_cuda.mix_per_track_cuda(*args), mix_cuda.mix_per_track_reference(*args)
     max_abs = float((got - plain).abs().max())
     check(torch.equal(got, plain), f"{name}: per-track kernel != plain version (max abs {max_abs:.3g})")
     del got, plain
+
+    # the finisher with the plain cascade (the per-section Hillis scan, in
+    # chunks of CPU_CHUNK frames as before the kernel): its time, and the
+    # kernel path's meters against its meters
+    metered = metered_finish(pt)
+    effects_pipeline.biquad_cascade = biquad_cuda.biquad_cascade_reference
+    try:
+        (S, coeffs), (Sm, mcoeffs) = effects_pipeline.prepare_effect_tables(session, RATE, p.channels, device=dev)
+        held = {}
+
+        def plain_metered():
+            held["out"] = effects_pipeline.finish_mix(
+                pt, coeffs, mcoeffs, warm.tables["track_gain"], T=p.num_tracks, C=p.channels, S=S,
+                Sm=Sm, chunk=effects_pipeline.CPU_CHUNK, with_meters=True, valid_frames=p.total_frames)
+
+        plain_scan_ms, _ = _event_ms(torch, plain_metered, 1)
+        plain_out = held.pop("out")
+    finally:
+        effects_pipeline.biquad_cascade = biquad_cuda.biquad_cascade
+    meter_err = max(float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
+                    for a, b in zip(metered[1], plain_out[1]))
+    check(meter_err <= 1e-5, f"{name}: meters {meter_err:.3g} (relative) off the plain finisher's")
+    mix_rr = rel_rms(metered[0].cpu().numpy(), plain_out[0].cpu().numpy())
+    print(f"[{name}] metered scan finisher vs the plain one (Hillis scan): meters max relative "
+          f"{meter_err:.3g} (<= 1e-05), mix relative RMS {mix_rr:.3g}")
+    del metered, plain_out
+
+    # the cascade kernel on the main path's chunk: the tracks' [T*C, CUDA_CHUNK]
+    # rows (a strided view of the per-track buffer) and the master's [C, CUDA_CHUNK]
+    Fc = min(effects_pipeline.CUDA_CHUNK, pt.shape[-1])
+    xc = pt.reshape(p.num_tracks * p.channels, -1)[:, :Fc]
+    zeros = [torch.zeros((xc.shape[0], 2), device=dev) for _ in range(S)]
+    casc_rr, casc_abs = cascade_vs_plain("tracks_full_width", torch, xc, coeffs, zeros)
+    casc_ms, casc_all = _event_ms(torch, lambda: biquad_cuda.biquad_cascade(xc, coeffs, zeros), 20)
+    casc_plain_ms, _ = _event_ms(torch, lambda: biquad_cuda.biquad_cascade_reference(xc, coeffs, zeros), 1)
+    master_x = pt[0, :, :Fc].contiguous()
+    mzeros = [torch.zeros((p.channels, 2), device=dev) for _ in range(Sm)]
+    cascade_vs_plain("master_full_width", torch, master_x, mcoeffs, mzeros)
+    master_ms, _ = _event_ms(torch, lambda: biquad_cuda.biquad_cascade(master_x, mcoeffs, mzeros), 20)
+    casc_bytes = 2 * xc.numel() * 4 + coeffs.numel() * 4 + 4 * S * xc.shape[0] * 2 * 2
+    casc_ops = 15 * S * xc.numel()  # 15 f32 operations per section and frame
+    t_bytes, t_ops = casc_bytes / HBM_BYTES_PER_S, casc_ops / F32_OPS_PER_S
+    cascade = {"launches": cascade_launches, "max_abs_err": casc_abs, "ms": casc_ms,
+               "plain_ms": casc_plain_ms, "bound_ms": max(t_bytes, t_ops) * 1e3,
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               # no installed PyTorch call runs an IIR cascade
+               "library_ms": None}
+
     table_bytes = sum(t.numel() * t.element_size() for t in warm.tables.values())
+    pt_bytes = p.num_tracks * p.channels * p.n_tiles * p.tile * 4
     stats = {
         "cell": name, "tracks": p.num_tracks, "audio_seconds": duration,
         "frames": int(p.total_frames), "tile": p.tile, "n_tiles": p.n_tiles, "K": p.max_slots,
         "active_slots": int((p.me > p.ms).sum()), "pool_mb": pool.data.nbytes / 1e6,
-        "per_track_gb": p.num_tracks * p.channels * p.n_tiles * p.tile * 4 / 1e9,
+        "per_track_gb": pt_bytes / 1e9, "zero_filled_cells": empty,
         "e2e_ms_median": e2e_med * 1e3, "e2e_ms_best": e2e_best * 1e3,
         "rtf_median": duration / e2e_med, "rtf_best": duration / e2e_best,
         "carve_ms": carve_s * 1e3, "plan_ms": plan_s * 1e3, "upload_ms": upload_s * 1e3,
         "ir_ms": ir_s * 1e3, "launch_to_sync_ms": launch_s * 1e3,
+        "scan_e2e_ms_median": legs["scan"][5] * 1e3, "scan_e2e_ms_best": legs["scan"][6] * 1e3,
+        "scan_rtf_median": duration / legs["scan"][5], "scan_tables_ms": legs["scan"][3] * 1e3,
+        "scan_launch_to_sync_ms": legs["scan"][4] * 1e3,
         "kernel_ms_median": kernel_ms, "kernel_ms_min": min(kernel_all), "plain_ms_median": plain_ms,
-        "fir_finish_ms": fir_ms, "scan_finish_ms": scan_ms,
-        "output_gb_per_s": p.num_tracks * p.channels * p.n_tiles * p.tile * 4 / (kernel_ms * 1e-3) / 1e9,
+        "fir_finish_ms": fir_ms, "scan_finish_ms": scan_ms, "scan_finish_ms_all": scan_all,
+        "metered_finish_ms": metered_ms, "plain_scan_finish_ms": plain_scan_ms,
+        # the finisher's least time: the per-track buffer read once, the mix written once
+        "scan_finish_bound_ms": (pt_bytes + p.channels * p.n_tiles * p.tile * 4) / HBM_BYTES_PER_S * 1e3,
+        "cascade_chunk": list(xc.shape), "cascade_ms": casc_ms, "cascade_ms_min": min(casc_all),
+        "cascade_plain_ms": casc_plain_ms, "cascade_bound_ms": cascade["bound_ms"],
+        "cascade_rel_rms_max": casc_rr, "master_cascade_ms": master_ms,
+        "cascade_launches_per_bounce": cascade_launches,
+        "scan_bounce_peak_mem_gb": runs["scan"][3], "meters_bounce_peak_mem_gb": runs["meters"][3],
+        "output_gb_per_s": pt_bytes / (kernel_ms * 1e-3) / 1e9,
         "kernel_vs_plain_max_abs": max_abs, "scan_rel_rms": rr_scan, "fir_rel_rms": rr_fir,
         "scan_vs_fir_max_abs": scan_fir, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         **bound(p, pool.data.nbytes, table_bytes, per_track=True),
@@ -1234,7 +1432,7 @@ def phase_effects(torch) -> dict:
     print(f"[{name}] " + json.dumps(stats))
     print(f"[{name}] " + sh(["nvidia-smi", "--query-gpu=name,power.limit,power.draw,clocks.sm,"
                              "temperature.gpu", "--format=csv,noheader"]))
-    return _kernel_entry(stats, launches)
+    return {"mix_per_track": _kernel_entry(stats, launches), "biquad_cascade": cascade}
 
 
 #: the sessions of the four interpolation cells: the JAX package's benchmark
@@ -1427,9 +1625,10 @@ def main() -> int:
     env = phase_environment(torch)
     phase_build()
     phase_kernel_vs_plain()
+    phase_cascade_small(torch)
     linear = phase_headline(torch)
     auto = phase_automation(torch)
-    per_track = phase_effects(torch)
+    effects = phase_effects(torch)
     interp = phase_interpolation(torch)
     check("jax" not in sys.modules and "whitebox_tpu" not in sys.modules,
           "the port loaded jax or the JAX package")
@@ -1440,13 +1639,17 @@ def main() -> int:
         {"name": "mix_automation", "route": "cuda", "source": src,
          "replaces": "whitebox_tpu/ops/mix_pallas.py:384-460", **auto},
         {"name": "mix_per_track", "route": "cuda", "source": src,
-         "replaces": "whitebox_tpu/ops/mix_pallas.py:431-436,581-593,608-610", **per_track},
+         "replaces": "whitebox_tpu/ops/mix_pallas.py:431-436,581-593,608-610", **effects["mix_per_track"]},
         {"name": "mix_catmull", "route": "cuda", "source": src,
          "replaces": "whitebox_tpu/ops/mix_pallas.py:518-519,557-563", **interp["mix_catmull"]},
         {"name": "mix_poly", "route": "cuda", "source": src,
          "replaces": "whitebox_tpu/ops/mix_pallas.py:515-517,549-556", **interp["mix_poly"]},
         {"name": "mix_prerendered", "route": "cuda", "source": src,
          "replaces": "whitebox_tpu/timeline/prerender.py:737-752,818-828", **interp["mix_prerendered"]},
+        {"name": "biquad_cascade", "route": "cuda", "source": "whitebox_tpu_torch/csrc/biquad_cascade.cu",
+         "replaces": "whitebox_tpu/render/effects_pipeline.py:104-120 (finish_mix's scan cascade; "
+                     "an XLA scan there and torch ops in the port, not a TPU kernel)",
+         **effects["biquad_cascade"]},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["device"],
                                              "count": env["device_count"]}}))

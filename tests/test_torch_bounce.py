@@ -32,6 +32,7 @@ from whitebox_tpu_torch import cli
 from whitebox_tpu_torch.device import resolve_device
 from whitebox_tpu_torch.ops import mix_cuda
 from whitebox_tpu_torch.ops.mix_plan import SlotOverflow
+from whitebox_tpu_torch.render import bounce as bounce_mod
 from whitebox_tpu_torch.render.bounce import bounce as port_bounce
 from whitebox_tpu_torch.render.demo import make_demo_session
 from whitebox_tpu_torch.session.convert import from_reference
@@ -358,3 +359,66 @@ def test_cli_renders_with_interpolation(tmp_path, flags, kw):
     want = port_bounce(read_project(wb), rate, device="cpu", **kw).audio
     np.testing.assert_array_equal(audio, want)
     assert np.abs(want - port_bounce(read_project(wb), rate, device="cpu").audio).max() > 1e-5
+
+
+# ------------------------------------------------------ the reference's other keywords
+
+
+@pytest.mark.parametrize("kw,item", [
+    ({"chunk_frames": 4096}, "item 1"), ({"strict_order": False}, "item 1"),
+    ({"engine": "xla"}, "item 1"), ({"routed_chunk": 1024}, "item 6"), ({"pdc": True}, "item 6"),
+    ({"loudness": True}, "item 9"), ({"normalize": ("lufs", -14.0)}, "item 9"),
+    ({"out_encode": {"bitrate_kbps": 192}}, "item 14")], ids=lambda v: next(iter(v)) if isinstance(v, dict) else None)
+def test_reference_keywords_raise_naming_their_item(kw, item):
+    s = from_reference(random_session(6, rate=48000, bpm=120.0, n_tracks=1, n_clips=1))
+    (name, value), = kw.items()
+    with pytest.raises(NotImplementedError, match=f"{name}.*ROADMAP.md queue 1, {item}"):
+        port_bounce(s, 48000.0, device="cpu", **kw)
+    if name != "engine":  # at its default the keyword changes nothing
+        default = port_bounce(s, 48000.0, device="cpu", engine="pallas", **{name: bounce_mod.DEFAULT_ONLY[name][0]})
+        np.testing.assert_array_equal(default.audio, port_bounce(s, 48000.0, device="cpu").audio)
+
+
+# ------------------------------------------------------ cli render against the JAX CLI
+
+
+def _jax_and_port_cli(tmp_path, capsys, js, flags):
+    """Render ``js`` (written as a .wb) with the JAX package's CLI and the
+    port's (``--device cpu``) under the same flags -> (jax audio, port
+    audio, jax stdout, port stdout)."""
+    from whitebox_tpu import cli as jax_cli
+
+    wb, want, got = tmp_path / "p.wb", tmp_path / "jax.wav", tmp_path / "port.wav"
+    write_project(js, wb)
+    assert jax_cli.main(["render", str(wb), str(want), *flags]) == 0
+    jout = capsys.readouterr().out
+    assert cli.main(["render", str(wb), str(got), "--device", "cpu", *flags]) == 0
+    pout = capsys.readouterr().out
+    return wav.read_wav(want)[0], wav.read_wav(got)[0], jout, pout
+
+
+CLI_RANGES = {
+    "tail": ["--tail", "0.5"],
+    "beat_range_with_tail": ["--from-beat", "1.0", "--to-beat", "5.0", "--tail", "0.25"],
+    "bar_range": ["--from-bar", "0.5", "--to-bar", "1.5"],
+    "dither_i16": ["--format", "i16", "--dither", "tpdf-hp"],
+}
+
+
+@pytest.mark.parametrize("name", list(CLI_RANGES))
+def test_cli_range_tail_and_dither_match_jax_cli(tmp_path, capsys, name):
+    js = random_session(21, rate=48000, bpm=120.0, n_tracks=2, n_clips=2)
+    want, got, _, _ = _jax_and_port_cli(tmp_path, capsys, js, CLI_RANGES[name])
+    assert got.shape == want.shape and float(np.abs(want).max()) > 0.01
+    np.testing.assert_array_equal(got, want)  # speed 1, no chains: bit-equal
+
+
+def test_cli_meters_match_jax_cli(tmp_path, capsys):
+    js = _eq_session(seed=22, n_tracks=2)
+    want, got, jout, pout = _jax_and_port_cli(tmp_path, capsys, js, ["--meters"])
+    assert got.shape == want.shape and rel_rms(got, want) < 1e-5
+
+    def meter_lines(out):
+        return [line for line in out.splitlines() if line.startswith(("  track", "  output"))]
+
+    assert len(meter_lines(pout)) == 3 and meter_lines(pout) == meter_lines(jout)

@@ -19,7 +19,13 @@ references (atol 3e-6); the sinc prerender's extension against the host's
 (1e-6) and the sinc bounce against the CPU bounce (3e-6), one mix launch;
 the summing kernel's staged walk in its other shapes (one and three
 channels, a tile that ends inside a block, a kept list that two staging
-passes fill) 0 ulp from the plain version.
+passes fill) 0 ulp from the plain version; the per-track kernel (K4) in
+every interpolation mode for one, two and three channels, with a ragged
+tile and with (block, track) cells it fills with zeros; the biquad cascade
+kernel within relative RMS 5e-6 per row of its plain version (EQ bands,
+the 25 Hz highpass, FIR and identity rows, states over two calls, two
+section groups), a finisher stream that alternates kernel and plain
+states, and the scan and metered bounces through it (no Hillis scan).
 """
 
 import numpy as np
@@ -27,7 +33,7 @@ import pytest
 import torch
 
 import chip_smoke
-from whitebox_tpu_torch.ops import mix_cuda
+from whitebox_tpu_torch.ops import biquad_cuda, mix_cuda, mix_plan
 from whitebox_tpu_torch.ops.resample import design_poly_interp
 from whitebox_tpu_torch.render.bounce import bounce
 from whitebox_tpu_torch.render.demo import make_demo_session
@@ -242,3 +248,85 @@ def test_kernel_rejects_malformed_tables(card):
     with pytest.raises(ValueError):
         mix_cuda.mix_cuda(r.pool_device.cpu(), r.tables, p.n_tiles, p.tile, p.channels)
     assert mix_cuda.mix_kernel_launches == before
+
+
+# ---------------------------------------------------------------- K4
+
+
+@pytest.mark.parametrize("channels", [1, 2, 3])
+@pytest.mark.parametrize("mode", ["linear", "catmull", "poly"])
+def test_per_track_kernel_in_every_mode_and_channel_count(card, mode, channels):
+    chip_smoke.per_track_vs_plain("mixed_speeds_fades", SESSIONS["mixed_speeds_fades"](), mode=mode,
+                                  channels=channels)
+
+
+@pytest.mark.parametrize("mode", ["linear", "catmull", "poly"])
+def test_per_track_kernel_with_a_ragged_tile(card, mode):
+    chip_smoke.per_track_vs_plain("mixed_speeds_fades_tile1152", SESSIONS["mixed_speeds_fades"](),
+                                  tile=1152, mode=mode)
+
+
+def test_per_track_kernel_zero_fills_cells_without_slots(card):
+    s = chip_smoke.int_formats_session(n_tracks=4)
+    r, _, _, _ = chip_smoke.make_renderer(s)
+    p = r.plan
+    empty = ~mix_plan.per_track_block_slots(p).any(axis=3)  # [n_tiles, n_blocks, T]
+    assert empty.any() and not empty.all()
+    got = r.render_device_per_track().cpu().reshape(p.num_tracks, p.channels, p.n_tiles, -1)
+    block = mix_plan.PER_TRACK_FRAMES_PER_BLOCK
+    for ti, b, t in zip(*np.nonzero(empty)):
+        assert not got[t, :, ti, b * block:(b + 1) * block].any()
+    chip_smoke.per_track_vs_plain("int_formats_empty_cells", s)
+
+
+# ---------------------------------------------------------------- the cascade
+
+
+def test_cascade_kernel_on_small_rows(card):
+    chip_smoke.phase_cascade_small(torch)
+
+
+def test_finisher_stream_alternates_kernel_and_plain_states(card):
+    from whitebox_tpu_torch.render import effects_pipeline as pipe
+
+    s = _eq_session()
+    T, C, F, chunk = len(s.tracks), 2, 40000, 8192
+    x = torch.from_numpy((np.random.default_rng(3).standard_normal((T, C, F)) * 0.2).astype(np.float32))
+    tg = torch.from_numpy(np.random.default_rng(4).uniform(0.2, 1.2, (T, C)).astype(np.float32))
+    (S, pc), (Sm, pm) = pipe.prepare_effect_tables(s, 48000.0, C)
+    whole = pipe.finish_mix(x, pc, pm, tg, T=T, C=C, S=S, Sm=Sm, chunk=chunk)
+    states, mstates = pipe.init_effect_states(T, C, S, Sm)
+    before = biquad_cuda.biquad_cascade_launches
+    parts = []
+    for i, start in enumerate(range(0, F, chunk)):
+        dev = card if i % 2 == 0 else torch.device("cpu")
+        states, mstates = [q.to(dev) for q in states], [q.to(dev) for q in mstates]
+        out, states, mstates = pipe.finish_mix_chunk(
+            x[..., start:start + chunk].to(dev), pc.to(dev), pm.to(dev), tg.to(dev), states, mstates,
+            start, T=T, C=C, S=S, Sm=Sm)
+        parts.append(out.cpu())
+    assert biquad_cuda.biquad_cascade_launches == before + 2 * 3  # tracks and master, chunks 0, 2, 4
+    assert chip_smoke.rel_rms(torch.cat(parts, dim=1).numpy(), whole.numpy()) < chip_smoke.CASCADE_REL_RMS
+
+
+@pytest.mark.parametrize("kw", [{"effects_mode": "scan"}, {"meters": True}], ids=["scan", "meters"])
+def test_scan_and_metered_bounces_run_the_cascade_kernel(card, kw):
+    from whitebox_tpu_torch.ops import biquad as biquad_mod
+
+    s = _eq_session()
+    chip_smoke.reset_launches()
+    scans = []
+    plain_scan = biquad_mod.hillis_scan
+    biquad_mod.hillis_scan = lambda *a, **k: scans.append(1) or plain_scan(*a, **k)
+    try:
+        got = bounce(s, 48000.0, device=card, **kw)
+    finally:
+        biquad_mod.hillis_scan = plain_scan
+    assert biquad_cuda.biquad_cascade_launches > 0 and not scans
+    assert mix_cuda.mix_per_track_launches == 1
+    cpu = bounce(s, 48000.0, device="cpu", **kw)
+    assert chip_smoke.rel_rms(got.audio, cpu.audio) < 1e-5
+    if "meters" in kw:
+        for f in ("track_peak", "track_rms", "output_peak", "output_rms"):
+            np.testing.assert_allclose(getattr(got.stats, f), getattr(cpu.stats, f), rtol=1e-5, atol=1e-7,
+                                       err_msg=f)

@@ -18,7 +18,11 @@ range the automation variant starts its search from. Here:
   last block, with ``-0.0``, NaN and infinite samples, and for 1, 2 and 3
   channels;
 - the lane segment range brackets the segment ``eval_lanes`` picks at every
-  frame of the block, including a lane whose first breakpoint is negative.
+  frame of the block, including a lane whose first breakpoint is negative;
+- the per-track kernel's (K4) staging, ``mix_plan.per_track_block_slots``
+  (one track, ``PER_TRACK_FRAMES_PER_BLOCK`` frames a block): the per-track
+  arithmetic over the staged slots only equals ``mix_per_track_reference``
+  bit for bit, and a (block, track) that stages nothing is silent there.
 """
 
 import re
@@ -105,6 +109,9 @@ def assert_same_bits(a: torch.Tensor, b: torch.Tensor):
 def test_block_size_is_the_kernels():
     src = (Path(mix_plan.__file__).parent.parent / "csrc" / "mix_kernel.cu").read_text()
     assert int(re.search(r"constexpr int kFramesPerBlock = (\d+);", src).group(1)) == BLOCK
+    group = int(re.search(r"constexpr int kFrameGroup = (\d+);", src).group(1))
+    assert "kPerTrackFrames = kFramesPerBlock * kFrameGroup" in src
+    assert BLOCK * group == mix_plan.PER_TRACK_FRAMES_PER_BLOCK
 
 
 @pytest.mark.parametrize("block", [128, BLOCK])
@@ -318,3 +325,57 @@ def test_a_held_lane_has_one_value_over_its_block():
     lo, hi = mix_plan.lane_segment_range(none, 0, 255)
     assert lo[0] == hi[0] == -1 and mix_plan.lane_held(none, lo, hi)[0]
     assert mix_plan.LANE_SENTINEL == int(automation._SENTINEL)
+
+
+# ---------------------------------------------------------------- per track (K4)
+
+
+def staged_per_track_mix(r):
+    """K4's staging in plain PyTorch -> ``[T, C, n_tiles*tile]``: per (tile,
+    block, track) an accumulator from +0.0 that takes only the slots
+    ``per_track_block_slots`` stages, in slot order; zeros where it stages
+    none."""
+    p, tables = r.plan, r.tables
+    nt, T, K = p.ms.shape
+    block = mix_plan.PER_TRACK_FRAMES_PER_BLOCK
+    staged = mix_plan.per_track_block_slots(p)  # [nt, n_blocks, T, K]
+    out = torch.zeros((T, p.channels, nt, p.tile), dtype=torch.float32)
+    for t in range(T):
+        scaled, mask = mix_cuda._slot_samples(r.pool_device, tables, t, p.tile, r.interp)
+        contrib = torch.where(mask[:, :, None, :], scaled, 0.0)  # [nt, K, C, tile]
+        for ti in range(nt):
+            for b in range(staged.shape[1]):
+                b0, b1 = b * block, min((b + 1) * block, p.tile)
+                acc = torch.zeros((p.channels, b1 - b0), dtype=torch.float32)
+                for k in np.nonzero(staged[ti, b, t])[0].tolist():
+                    acc += contrib[ti, k, :, b0:b1]
+                out[t, :, ti, b0:b1] = acc
+    return out.reshape(T, p.channels, nt * p.tile)
+
+
+def per_track_reference(r):
+    p = r.plan
+    return mix_cuda.mix_per_track_reference(r.pool_device, r.tables, p.n_tiles, p.tile, p.channels,
+                                            interp=r.interp)
+
+
+@pytest.mark.parametrize("case", ["fast", "fades", "mixed_speeds", "ragged_tile_1152",
+                                  "three_channels", "sixteen_poly_slots"])
+def test_per_track_staging_equals_plain_per_track_mix(case):
+    r = {"ragged_tile_1152": lambda: renderer("fades_resampled", tile=1152),
+         "three_channels": lambda: renderer("mixed_speeds", channels=3),
+         "sixteen_poly_slots": poly_renderer}.get(case, lambda: renderer(case))()
+    got, want = staged_per_track_mix(r), per_track_reference(r)
+    assert float(want.abs().max()) > 0.01
+    assert_same_bits(got, want)
+
+
+def test_per_track_blocks_that_stage_nothing_are_silent():
+    r = renderer("fast")
+    p = r.plan
+    block = mix_plan.PER_TRACK_FRAMES_PER_BLOCK
+    empty = ~mix_plan.per_track_block_slots(p).any(axis=3)  # [nt, n_blocks, T]
+    assert empty.any() and not empty.all()
+    want = per_track_reference(r).reshape(p.num_tracks, p.channels, p.n_tiles, -1)
+    for ti, b, t in zip(*np.nonzero(empty)):
+        assert not want[t, :, ti, b * block:(b + 1) * block].any()

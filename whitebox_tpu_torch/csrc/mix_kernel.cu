@@ -336,31 +336,9 @@ struct Slots {
   const float* sspeed_lo;
 };
 
-// A slot's metadata where the per-track kernel reads it: the plan's tables
-// in device memory, each field loaded when it is first needed. `at` is the
-// slot's index into src_start for the thread's channel.
-struct GlobalSlot {
-  const Slots& S;
-  int s;
-  int64_t at;
-  __device__ __forceinline__ int base(int) const { return __ldg(S.src_start + at); }
-  __device__ __forceinline__ bool is_slow() const { return __ldg(S.is_slow + s) != 0; }
-  __device__ __forceinline__ bool clampf() const { return __ldg(S.clampf + s) != 0; }
-  __device__ __forceinline__ float gain() const { return __ldg(S.gain + s); }
-  __device__ __forceinline__ int fin_start() const { return __ldg(S.fin_start + s); }
-  __device__ __forceinline__ float fin_inv() const { return __ldg(S.fin_inv + s); }
-  __device__ __forceinline__ int fout_end() const { return __ldg(S.fout_end + s); }
-  __device__ __forceinline__ float fout_inv() const { return __ldg(S.fout_inv + s); }
-  // the double-single phase at the slot's start: frac hi, lo, speed hi, lo
-  __device__ __forceinline__ float4 phase() const {
-    return make_float4(__ldg(S.sfrac_hi + s), __ldg(S.sfrac_lo + s), __ldg(S.sspeed_hi + s),
-                       __ldg(S.sspeed_lo + s));
-  }
-};
-
-// The same metadata where the summing kernels read it: a staged entry of
-// four 16-byte words in shared memory (layout: see stage_slots), the first
-// three already in registers, the phase read only by a resampled slot.
+// A slot's metadata where every kernel reads it: a staged entry of four
+// 16-byte words in shared memory (layout: see stage_slots), the first three
+// already in registers, the phase read only by a resampled slot.
 struct StagedSlot {
   int4 a, b, c;
   const int4* d;
@@ -432,10 +410,11 @@ __device__ __forceinline__ void interpolate(const float* (&p)[kCh], float fx,
 // whose span [m0, m1) covers pos: the sample (copied, optionally clamped, or
 // resampled in mode kInterp), the clip gain and the fade envelope, in the
 // reference's order. The phase and the envelope are computed once for all
-// kCh channels; `sl` says where the metadata lies.
-template <int kInterp, int kCh, class Slot>
+// kCh channels.
+template <int kInterp, int kCh>
 __device__ __forceinline__ void slot_sample(const float* pool, const PolyCoeffs& poly,
-                                            const Slot& sl, int pos, int m0, float (&out)[kCh]) {
+                                            const StagedSlot& sl, int pos, int m0,
+                                            float (&out)[kCh]) {
   float v[kCh];
   if (sl.is_slow()) {
     int ix;
@@ -695,46 +674,141 @@ mix_kernel(const Slots S, const int32_t* __restrict__ ms,  // [n_tiles, T, K]
 
 // K4: per-track pre-gain buffers, out[t, ch, ti*tile + pos] (mix_pallas.py
 // :431-436 zeroes each (tile, track) block, :581-593 leaves the gain and
-// :595-600 the clip to the finisher). The tracks' sums are independent,
-// so the grid spans them too: grid = (tile blocks, C, T), one thread per
-// (frame, channel, track) walking that track's K slots in slot order from
-// +0.0. The accumulator is never -0.0 (it starts at +0.0 and only grows by
-// adds), so skipping a slot that misses the frame equals adding the +0.0
-// the reference adds; the result is bit-equal to the JAX kernel's
-// `out_ref[0, ch] += contrib`. No atomics, nothing shared between blocks.
+// :595-600 the clip to the finisher): per (track, channel, frame) the sum
+// from +0.0, in slot order, of (v*gain)*env over the track's slots that
+// cover the frame. Skipping a slot that misses the frame equals adding the
+// +0.0 the reference adds there (the accumulator is never -0.0), so the
+// result is bit-equal to the JAX kernel's `out_ref[0, ch] += contrib`.
+//
 // What bounds it on an H100: the [T, C, F] f32 write, 2.95 GB for 128
-// tracks x 60 s stereo, i.e. 0.88 ms at 3.35 TB/s; each thread walks only
-// its own track's K slots, read from device memory (GlobalSlot), and
-// shares slot_sample with the summing kernels. The design does nothing
-// more for the write than one coalesced 4-byte store per thread. Measured
-// on an H100 80GB HBM3 (700 W limit) at that size: 4.5-4.7 ms, 630-650 GB/s
-// of output, 5.2x the bound (chip_smoke.py, effects_eq_128trk).
-template <int kInterp>
+// tracks x 60 s stereo, 0.88 ms at 3.35 TB/s; the pool (4.9 MB) sits in the
+// L2 and the per-frame arithmetic is a few operations per covering slot.
+// The earlier design (one thread per (frame, channel, track), 256 frames a
+// block, each thread walking its track's K slots in device memory and
+// storing one word) turned over 2.9 M blocks of 1 KB and ran 5.2x the bound.
+// What this design does about it:
+// - A block owns kPerTrackFrames = 1024 frames of one track in one tile, for
+//   all channels of a channel group (a launch per pair, then a last odd
+//   channel, as the summing kernel); the grid is 1-D, track-major, so
+//   consecutive blocks write consecutive stretches of one output row.
+// - Its first warp stages, once, the slots of the (tile, track) cell that
+//   are active and meet the block's frames, in slot order, as the summing
+//   kernel's 64-byte entries (StagedSlot), 32 raw slots a pass (one pass for
+//   K <= 32; a K above runs more passes, each after the one before).
+// - A thread owns kFrameGroup = 4 consecutive frames: per staged entry it
+//   reads the entry from shared memory once and, per covered frame, computes
+//   the cover test, envelope, phase and tap weights once for the channels
+//   (slot_sample with kCh channels, as mix_kernel does).
+// - Each channel's 4 frames leave as one 16-byte streaming store
+//   (st.global.cs): the 2.95 GB stream does not fit the 50 MB L2 and is read
+//   by the finisher's next pass, not from the L2. A tile that is not a
+//   multiple of 4 frames, and the group a ragged tile end cuts, store word by
+//   word.
+// - A block whose cell has no staged entry (the track is silent in its
+//   frames) stores zeros and walks nothing.
+// Measured on an H100 80GB HBM3 (700 W limit) at that size: see PERF.md
+// (chip_smoke.py, effects_eq_128trk; tools/ab_mix.py against the parent).
+constexpr int kFrameGroup = 4;                                  // frames per thread, a multiple of 4
+constexpr int kPerTrackFrames = kFramesPerBlock * kFrameGroup;  // frames per block
+constexpr int kCellPass = 32;                                   // raw slots a staging pass looks at
+
+// Warp 0 stages the slots [r0, r0 + kCellPass) of the cell whose first raw
+// slot is s0 that are active and meet frames [b0, b1), in slot order, into
+// buf (entry layout: stage_slots); returns the number staged to warp 0.
+template <int kCh>
+__device__ __forceinline__ int stage_cell(const Slots& S, const int32_t* __restrict__ ms,
+                                          const int32_t* __restrict__ me, int s0, int r0, int K,
+                                          int C, int c0, int b0, int b1, int4 (*buf)[4]) {
+  const int lane = threadIdx.x & 31;
+  const int s = s0 + r0 + lane;
+  int m0 = 0, m1 = 0;
+  bool keep = false;
+  if (r0 + lane < K) {
+    m0 = __ldg(ms + s);
+    m1 = __ldg(me + s);
+    keep = m1 > m0 && m0 < b1 && m1 > b0;
+  }
+  const unsigned kept = __ballot_sync(0xffffffffu, keep);
+  if (keep) {
+    const int32_t* src = S.src_start + (int64_t)s * C + c0;
+    const int flags = (__ldg(S.clampf + s) != 0) << 1 | (__ldg(S.is_slow + s) != 0);
+    int4* e = buf[__popc(kept & ((1u << lane) - 1u))];
+    e[0] = make_int4(m0, m1, flags, __ldg(src));
+    e[1] = make_int4(kCh > 1 ? __ldg(src + 1) : 0, __float_as_int(__ldg(S.gain + s)),
+                     __ldg(S.fin_start + s), __float_as_int(__ldg(S.fin_inv + s)));
+    e[2] = make_int4(__ldg(S.fout_end + s), __float_as_int(__ldg(S.fout_inv + s)), 0, 0);
+    e[3] = make_int4(__float_as_int(__ldg(S.sfrac_hi + s)), __float_as_int(__ldg(S.sfrac_lo + s)),
+                     __float_as_int(__ldg(S.sspeed_hi + s)), __float_as_int(__ldg(S.sspeed_lo + s)));
+  }
+  return __popc(kept);
+}
+
+template <int kInterp, int kCh>
 __global__ void __launch_bounds__(kFramesPerBlock)
 mix_per_track_kernel(const Slots S, const int32_t* __restrict__ ms,
                      const int32_t* __restrict__ me, float* __restrict__ out, int n_tiles,
-                     int T, int K, int C, int tile, const __grid_constant__ PolyCoeffs poly) {
-  const int blocks_per_tile = (tile + kFramesPerBlock - 1) / kFramesPerBlock;
-  const int ti = blockIdx.x / blocks_per_tile;
-  const int pos = (blockIdx.x % blocks_per_tile) * kFramesPerBlock + threadIdx.x;
-  const int ch = blockIdx.y;
-  const int t = blockIdx.z;
-  if (pos >= tile) return;
+                     int T, int K, int C, int c0, int tile,
+                     const __grid_constant__ PolyCoeffs poly) {
+  __shared__ int4 staged[kCellPass][4];
+  __shared__ int n_staged;
 
-  float acc = 0.0f;
+  // blockIdx.x = t * (n_tiles * blocks_per_tile) + ti * blocks_per_tile + fb
+  const int blocks_per_tile = (tile + kPerTrackFrames - 1) / kPerTrackFrames;
+  const int64_t per_track = (int64_t)n_tiles * blocks_per_tile;
+  const int t = (int)(blockIdx.x / per_track);
+  const int rest = (int)(blockIdx.x % per_track);
+  const int ti = rest / blocks_per_tile;
+  const int b0 = (rest % blocks_per_tile) * kPerTrackFrames;
+  const int b1 = min(b0 + kPerTrackFrames, tile);  // a ragged tile end
+  const int pos0 = b0 + (int)threadIdx.x * kFrameGroup;
   const int s0 = (ti * T + t) * K;
-  for (int k = 0; k < K; ++k) {
-    const int s = s0 + k;
-    const int m0 = __ldg(ms + s);
-    const int m1 = __ldg(me + s);
-    if (pos >= m0 && pos < m1) {
-      float sv[1];
-      slot_sample<kInterp, 1>(S.pool, poly, GlobalSlot{S, s, (int64_t)s * C + ch}, pos, m0, sv);
-      acc = __fadd_rn(acc, sv[0]);
+
+  float acc[kFrameGroup][kCh];
+#pragma unroll
+  for (int j = 0; j < kFrameGroup; ++j)
+#pragma unroll
+    for (int c = 0; c < kCh; ++c) acc[j][c] = 0.0f;
+
+  for (int r0 = 0; r0 < K; r0 += kCellPass) {
+    if (threadIdx.x < 32) {
+      const int n = stage_cell<kCh>(S, ms, me, s0, r0, K, C, c0, b0, b1, staged);
+      if (threadIdx.x == 0) n_staged = n;
+    }
+    __syncthreads();
+    const int n = n_staged;
+    for (int e = 0; e < n; ++e) {
+      const int4 a = staged[e][0];
+      if (pos0 + kFrameGroup <= a.x || pos0 >= a.y) continue;  // covers none of the group
+      const StagedSlot sl = {a, staged[e][1], staged[e][2], &staged[e][3]};
+#pragma unroll
+      for (int j = 0; j < kFrameGroup; ++j) {
+        const int pos = pos0 + j;
+        if (pos < a.x || pos >= a.y) continue;  // the slot adds +0.0 here
+        float sv[kCh];
+        slot_sample<kInterp, kCh>(S.pool, poly, sl, pos, a.x, sv);
+#pragma unroll
+        for (int c = 0; c < kCh; ++c) acc[j][c] = __fadd_rn(acc[j][c], sv[c]);
+      }
+    }
+    __syncthreads();  // the staged entries are free for the next pass
+  }
+  if (pos0 >= b1) return;
+  const int64_t F = (int64_t)n_tiles * tile;
+  const bool whole = pos0 + kFrameGroup <= b1 && tile % 4 == 0;
+#pragma unroll
+  for (int c = 0; c < kCh; ++c) {
+    float* row = out + ((int64_t)t * C + c0 + c) * F + (int64_t)ti * tile + pos0;
+    if (whole) {
+#pragma unroll
+      for (int j = 0; j < kFrameGroup; j += 4)
+        __stcs(reinterpret_cast<float4*>(row + j),
+               make_float4(acc[j][c], acc[j + 1][c], acc[j + 2][c], acc[j + 3][c]));
+    } else {
+#pragma unroll
+      for (int j = 0; j < kFrameGroup; ++j)
+        if (pos0 + j < b1) __stcs(row + j, acc[j][c]);
     }
   }
-  const int64_t F = (int64_t)n_tiles * tile;
-  out[((int64_t)t * C + ch) * F + (int64_t)ti * tile + pos] = acc;
 }
 
 // One mix's arguments on the host: the tables, the geometry, the stream.
@@ -776,14 +850,24 @@ int launch(const MixArgs& a, const Lanes& lanes, const PolyCoeffs& poly) {
   return c0 < a.C ? launch_group<kAuto, kInterp, 1>(a, lanes, poly, c0) : 0;
 }
 
+template <int kInterp, int kCh>
+int launch_per_track_group(const MixArgs& a, const PolyCoeffs& poly, int c0) {
+  const int64_t blocks = (int64_t)a.T * a.n_tiles * ((a.tile + kPerTrackFrames - 1) / kPerTrackFrames);
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
+  mix_per_track_kernel<kInterp, kCh><<<(unsigned)blocks, kFramesPerBlock, 0, (cudaStream_t)a.stream>>>(
+      a.S, a.ms, a.me, a.out, a.n_tiles, a.T, a.K, a.C, c0, a.tile, poly);
+  return (int)cudaGetLastError();
+}
+
+// One launch per channel group, as launch().
 template <int kInterp>
 int launch_per_track(const MixArgs& a, const PolyCoeffs& poly) {
-  const int blocks_per_tile = (a.tile + kFramesPerBlock - 1) / kFramesPerBlock;
-  if (a.T > 65535 || a.C > 65535) return (int)cudaErrorInvalidConfiguration;
-  dim3 grid(a.n_tiles * blocks_per_tile, a.C, a.T);
-  mix_per_track_kernel<kInterp><<<grid, kFramesPerBlock, 0, (cudaStream_t)a.stream>>>(
-      a.S, a.ms, a.me, a.out, a.n_tiles, a.T, a.K, a.C, a.tile, poly);
-  return (int)cudaGetLastError();
+  int c0 = 0;
+  for (; c0 + 2 <= a.C; c0 += 2) {
+    const int rc = launch_per_track_group<kInterp, 2>(a, poly, c0);
+    if (rc != 0) return rc;
+  }
+  return c0 < a.C ? launch_per_track_group<kInterp, 1>(a, poly, c0) : 0;
 }
 
 // The host's coefficient table [taps][ncoef] (row-major, read now) into

@@ -6,6 +6,9 @@
 - ``biquad``     : RBJ biquad design, eigenbasis section params and chain
                    packing (host), the f32 prefix-scan filter
                    (``whitebox_tpu/ops/biquad.py``, its LTI half).
+- ``biquad_cuda``: the effect finisher's biquad cascade: the hand CUDA
+                   kernel's wrapper, its plain twin (the per-section scan)
+                   and the host model of its blocked recurrence.
 - ``scan_util``  : Hillis-Steele inclusive prefix scan on torch tensors.
 - ``dsarith``    : double-single phase arithmetic on torch tensors
                    (``whitebox_tpu/ops/dsarith.py``).

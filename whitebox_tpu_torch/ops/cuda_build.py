@@ -1,4 +1,5 @@
-"""Build and bind the port's CUDA kernels (``csrc/*.cu``).
+"""Build and bind the port's CUDA kernels (``csrc/*.cu``: the mix kernel,
+the biquad cascade).
 
 Counterpart of ``whitebox_tpu/io/native.py:23-110``, the repo's make +
 ctypes idiom for native code: the sources are compiled at first use by
@@ -8,6 +9,7 @@ ctypes. Nothing includes PyTorch's headers, so a build takes seconds.
 - The library lands in ``build/kernels/<hash of the sources and flags>/``
   beside the package (``buildlib.build_shared``), so an edited source
   builds anew and an unchanged one is reused.
+- One ``nvcc`` per source, all started together, then one link.
 - A failed ``nvcc`` raises with its stderr. There is no retry and no
   fallback: on a CUDA device the mix goes through the kernel or raises.
 - Importing this module needs no ``nvcc``; :func:`load` is the first call
@@ -87,5 +89,9 @@ def load() -> ctypes.CDLL:
     # wb_mix_per_track (K4): wb_mix's arguments; out is [T, C, n_tiles*tile]
     lib.wb_mix_per_track.restype = ci
     lib.wb_mix_per_track.argtypes = [vp] * 17 + [ci] * 5 + interp
+    # wb_biquad_cascade: x, x_stride (int64), y, B, F, L, coeffs, S, phi,
+    # state_in, state_out, ends, starts, stream
+    lib.wb_biquad_cascade.restype = ci
+    lib.wb_biquad_cascade.argtypes = [vp, ctypes.c_longlong, vp, ci, ci, ci, vp, ci] + [vp] * 6
     _LIB = lib
     return _LIB

@@ -52,6 +52,9 @@ LANE_SENTINEL = 2**31 - 1
 #: frames (and threads) of one block of the CUDA summing kernel
 #: (``csrc/mix_kernel.cu`` ``kFramesPerBlock``): the unit of its staged walk
 FRAMES_PER_BLOCK = 256
+#: frames a block of the per-track kernel (K4) covers, one track and all
+#: channels: kFramesPerBlock threads x kFrameGroup frames each
+PER_TRACK_FRAMES_PER_BLOCK = 1024
 
 #: per-slot tables, each [n_tiles, T, K] (``src_start`` adds a channel axis)
 SLOT_FIELDS = ("ms", "me", "gain", "clampf", "fin_start", "fin_inv", "fout_end",
@@ -433,6 +436,17 @@ def block_slot_mask(plan: MixPlan, block: int = FRAMES_PER_BLOCK) -> np.ndarray:
     b0 = np.arange(0, plan.tile, block, dtype=np.int64).reshape(1, -1, 1)
     b1 = np.minimum(b0 + block, plan.tile)
     return (me > ms) & (ms < b1) & (me > b0)
+
+
+def per_track_block_slots(plan: MixPlan) -> np.ndarray:
+    """Host model of the per-track kernel's (K4) staging -> bool
+    ``[n_tiles, n_blocks, T, K]``: the slots of its (tile, track) cell that a
+    block of :data:`PER_TRACK_FRAMES_PER_BLOCK` frames stages (active and
+    meeting the block's frames, in slot order); a (block, track) that stages
+    none is written with zeros and walks nothing."""
+    nt, T, K = plan.ms.shape
+    mask = block_slot_mask(plan, PER_TRACK_FRAMES_PER_BLOCK)
+    return mask.reshape(nt, mask.shape[1], T, K)
 
 
 def block_slot_lists(plan: MixPlan, block: int = FRAMES_PER_BLOCK) -> list[list[np.ndarray]]:

@@ -81,6 +81,36 @@ def _unported_effects(session) -> list[str]:
                    if not chain_is_packable([e])})
 
 
+#: keywords of the reference's ``bounce`` that the port takes at their
+#: defaults only: name -> (default, the ROADMAP.md queue 1 item that ports
+#: the feature); any other value raises ``NotImplementedError`` naming it
+DEFAULT_ONLY = {
+    "chunk_frames": (1 << 17, "item 1 (the chunked XLA mix)"),
+    "strict_order": (True, "item 1 (the chunked XLA mix)"),
+    "routed_chunk": (None, "item 6 (generic effects and routing)"),
+    "pdc": (False, "item 6 (generic effects and routing)"),
+    "loudness": (False, "item 9 (loudness)"),
+    "normalize": (None, "item 9 (loudness)"),
+    "out_encode": (None, "item 14 (codecs)"),
+}
+
+
+def _check_keywords(engine: str, **given) -> None:
+    """The reference's other keywords: defaults pass, anything else raises
+    by name. ``engine`` takes ``"auto"`` or ``"pallas"`` (the port's only
+    engine is the hand kernel that replaces the Pallas one)."""
+    if engine == "xla":
+        raise NotImplementedError("whitebox_tpu_torch bounce does not render engine='xla' yet: "
+                                  "ROADMAP.md queue 1, item 1 (the chunked XLA mix)")
+    if engine not in ("auto", "pallas"):
+        raise ValueError(f"engine must be 'auto', 'pallas' or 'xla', got {engine!r}")
+    for name, value in given.items():
+        default, item = DEFAULT_ONLY[name]
+        if value != default:
+            raise NotImplementedError(f"whitebox_tpu_torch bounce does not take {name}={value!r} "
+                                      f"yet: ROADMAP.md queue 1, {item}")
+
+
 def _check_supported(session: Session, interpolation: str, effects_mode: str) -> None:
     generic = "item 6 (generic effects and routing)"
     unported = _unported_effects(session)
@@ -133,16 +163,24 @@ def bounce(
     device=None,
     buffer_size: int = 512,
     channels: int = 2,
+    chunk_frames: int = 1 << 17,
     num_blocks: int | None = None,
     trim_frames: int | None = None,
     tail_seconds: float = 0.0,
+    strict_order: bool = True,
+    engine: str = "auto",
     interpolation: str = "linear",
     effects_mode: str = "scan",
+    routed_chunk: int | None = None,
     prerender: bool | None = None,
     meters: bool = False,
+    pdc: bool = False,
+    loudness: bool = False,
+    normalize: tuple | None = None,
     out_path=None,
     out_format: AudioFormat = AudioFormat.F32,
     out_dither: str | None = None,
+    out_encode=None,
 ) -> BounceResult:
     """Render the whole session timeline at once on ``device`` (default: CUDA).
 
@@ -162,10 +200,18 @@ def bounce(
     responses, overlap-save FFT, ~-120 dB truncation). ``meters``: also
     fill ``stats.track_peak``/``track_rms``/``output_peak``/``output_rms``;
     forces the scan. On the CPU (``device="cpu"``) the plain PyTorch
-    versions render the same audio. ``stats.carve_seconds`` includes the
-    lane and chain preparation, the table upload and, for a sinc bounce,
-    the prerender (its device share is ``stats.prerender_seconds``).
+    versions render the same audio. The reference's other keywords
+    (``chunk_frames``, ``strict_order``, ``engine``, ``routed_chunk``,
+    ``pdc``, ``loudness``, ``normalize``, ``out_encode``) are taken at
+    their defaults; another value raises ``NotImplementedError`` naming the
+    ROADMAP.md item that ports it (:data:`DEFAULT_ONLY`).
+    ``stats.carve_seconds`` includes the lane and chain preparation, the
+    table upload and, for a sinc bounce, the prerender (its device share
+    is ``stats.prerender_seconds``).
     """
+    _check_keywords(engine, chunk_frames=chunk_frames, strict_order=strict_order,
+                    routed_chunk=routed_chunk, pdc=pdc, loudness=loudness, normalize=normalize,
+                    out_encode=out_encode)
     dev = resolve_device(device)
     _check_supported(session, interpolation, effects_mode)
     if meters:

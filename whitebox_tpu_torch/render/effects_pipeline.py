@@ -9,11 +9,16 @@ track sum and before the hard clip (engine.cpp:1627).
 All per-track chains are packed into one batched biquad cascade
 (``ops.biquad.pack_chain_sections``) and evaluated chunk by chunk with the
 section states carried exactly from chunk to chunk. The JAX package runs
-the chunks inside one jitted ``lax.scan``; here they are a Python loop of
-torch ops on the per-track buffers' device (the XLA program becomes torch
-ops, not a hand kernel). The ordered track sum is a loop over tracks in
-index order (the ``lax.scan`` add), never ``sum(dim=0)``, whose order is
-not fixed; each f32 multiply and add is its own op.
+the chunks inside one jitted ``lax.scan``; here they are a Python loop on
+the per-track buffers' device. The cascade is ``ops/biquad_cuda.py::
+biquad_cascade``: a hand CUDA kernel on the card, the plain per-section
+prefix scan on the CPU; the gains, sum, clip and meters are torch ops. On
+the card a chunk is :data:`CUDA_CHUNK` frames (the kernel is not bound to
+the chunk, and each chunk costs ``T`` launches of the ordered sum); on the
+CPU 65,536, which bounds the scan's temporaries. The ordered track sum is
+a loop over tracks in index order (the ``lax.scan`` add), never
+``sum(dim=0)``, whose order is not fixed; each f32 multiply and add is its
+own op.
 
 Also here: the host lane tables the CUDA mix kernel's automation variant
 reads (:func:`prepare_automation_tables_host`), their device form for the
@@ -31,7 +36,14 @@ from whitebox_tpu_torch.ops.automation import (
     HALF_PI, SQRT2, eval_lane_numpy, eval_lanes, pack_session_automation, pan_coef,
     session_has_automation,
 )
-from whitebox_tpu_torch.ops.biquad import biquad_scan_batched, biquad_sequential, pack_chain_sections
+from whitebox_tpu_torch.ops.biquad import biquad_sequential, pack_chain_sections
+from whitebox_tpu_torch.ops.biquad_cuda import biquad_cascade
+
+#: frames per finisher chunk on the card and on the CPU (finish_mix's
+#: default): on the card the cascade kernel takes any length and each
+#: chunk costs T launches of the ordered sum; on the CPU the plain scan's
+#: temporaries grow with the chunk
+CUDA_CHUNK, CPU_CHUNK = 1 << 20, 1 << 16
 
 
 def _chains_of(session):
@@ -96,16 +108,9 @@ def _finish_chunk(xc, coeffs, mcoeffs, track_gain, states, mstates, g, auto, T, 
     """One chunk ``xc`` ``[T*C, Fc]`` at global frames ``g``: chains, gains,
     ordered sum, master chain, clip; meters over frames ``< valid_frames``
     (all frames when None)."""
-    new_states = []
-    for s in range(S):
-        xc, ns = biquad_scan_batched(xc, [coeffs[j, s] for j in range(9)], states[s])
-        new_states.append(ns)
+    xc, new_states = biquad_cascade(xc, coeffs, states)
     y = xc.reshape(T, C, -1) * _frame_gains(auto, track_gain, g, T, C)
-    total = _ordered_sum(y)
-    new_mstates = []
-    for s in range(Sm):
-        total, ns = biquad_scan_batched(total, [mcoeffs[j, s] for j in range(9)], mstates[s])
-        new_mstates.append(ns)
+    total, new_mstates = biquad_cascade(_ordered_sum(y), mcoeffs, mstates)
     total = torch.where(total > 1.0, 1.0, total)
     total = torch.where(total < -1.0, -1.0, total)
     meters = None
@@ -126,11 +131,12 @@ def init_effect_states(T: int, C: int, S: int, Sm: int, device="cpu"):
             [torch.zeros((C, 2), dtype=torch.float32, device=device) for _ in range(Sm)])
 
 
-def finish_mix(per_track, coeffs, mcoeffs, track_gain, auto=None, *, T, C, S, Sm, chunk=1 << 16,
+def finish_mix(per_track, coeffs, mcoeffs, track_gain, auto=None, *, T, C, S, Sm, chunk=None,
                with_meters=False, valid_frames=None):
     """per_track ``[T, C, F]`` f32 -> mixed ``[C, F]`` f32 (chains, gains,
     ordered sum, master chain, clip), chunk by chunk with the states
-    carried.
+    carried; ``chunk`` frames each (default :data:`CUDA_CHUNK` on the card,
+    :data:`CPU_CHUNK` on the CPU). ``per_track`` is read, not written.
 
     With ``with_meters``, also returns level meters taken where the engine
     feeds its VU meters, post chain + volume/pan and pre track sum
@@ -139,20 +145,20 @@ def finish_mix(per_track, coeffs, mcoeffs, track_gain, auto=None, *, T, C, S, Sm
     post-clip, over the first ``valid_frames`` frames."""
     F = per_track.shape[-1]
     dev = per_track.device
+    if chunk is None:
+        chunk = CUDA_CHUNK if dev.type == "cuda" else CPU_CHUNK
     Fv = F if valid_frames is None else int(valid_frames)
     x = per_track.reshape(T * C, F)
     states, mstates = init_effect_states(T, C, S, Sm, dev)
     outs, parts = [], []
     for start in range(0, F, chunk):
-        xc = x[:, start:start + chunk]
-        if xc.shape[1] < chunk:
-            xc = torch.nn.functional.pad(xc, (0, chunk - xc.shape[1]))
-        g = start + torch.arange(chunk, dtype=torch.int32, device=dev)
+        xc = x[:, start:start + chunk]  # a strided view; the last chunk may be shorter
+        g = start + torch.arange(xc.shape[1], dtype=torch.int32, device=dev)
         total, states, mstates, m = _finish_chunk(xc, coeffs, mcoeffs, track_gain, states, mstates,
                                                   g, auto, T, C, S, Sm, with_meters, Fv)
         outs.append(total)
         parts.append(m)
-    mixed = torch.cat(outs, dim=1)[:, :F]
+    mixed = torch.cat(outs, dim=1)
     if not with_meters:
         return mixed
     pk, sq, opk, osq = (torch.stack(p) for p in zip(*parts))

@@ -4,8 +4,8 @@
 
 Compiles ``csrc/*.cu`` once more with the build's own flags plus
 ``--resource-usage`` (to a cubin that is thrown away) and prints what
-``ptxas`` reports per kernel, the mix kernels named by their template
-arguments, with the resident blocks per SM that registers and shared
+``ptxas`` reports per kernel, each named by its template arguments, with
+the resident blocks per SM that registers and shared
 memory allow on an H100 (65,536 registers, 227 KB of shared memory, 2,048
 threads per SM). Needs ``nvcc``; no card.
 """
@@ -27,17 +27,32 @@ def kernel_name(mangled: str) -> str:
     m = re.search(r"mix_kernelILb([01])ELi(\d)ELi(\d)E", mangled)
     if m:
         return f"mix_kernel<kAuto={m[1]}, {_INTERP[int(m[2])]}, kCh={m[3]}>"
-    m = re.search(r"mix_per_track_kernelILi(\d)E", mangled)
-    return f"mix_per_track_kernel<{_INTERP[int(m[1])]}>" if m else mangled
+    m = re.search(r"mix_per_track_kernelILi(\d)ELi(\d)E", mangled)
+    if m:
+        return f"mix_per_track_kernel<{_INTERP[int(m[1])]}, kCh={m[2]}>"
+    m = re.search(r"cascade_blocksILi(\d)ELb([01])E", mangled)
+    if m:
+        return f"cascade_blocks<S={m[1]}, kWrite={m[2]}>"
+    m = re.search(r"cascade_carryILi(\d)E", mangled)
+    return f"cascade_carry<S={m[1]}>" if m else mangled
+
+
+def block_threads(src) -> int:
+    """Threads per block of the kernels in ``src`` (each source launches
+    all its kernels with one block size)."""
+    text = src.read_text()
+    m = re.search(r"constexpr int kFramesPerBlock = (\d+);", text)
+    if m:
+        return int(m[1])
+    return 32 * int(re.search(r"constexpr int kWarpsPerBlock = (\d+);", text)[1])
 
 
 def main() -> int:
     srcs, _ = cuda_build._sources()
     flags = [f for f in cuda_build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
-    threads = int(re.search(r"constexpr int kFramesPerBlock = (\d+);",
-                            (cuda_build.CSRC_DIR / "mix_kernel.cu").read_text()).group(1))
     with tempfile.TemporaryDirectory() as tmp:
         for src in srcs:
+            threads = block_threads(src)
             r = subprocess.run([cuda_build.find_nvcc(), *flags, "--resource-usage", "-cubin", "-o",
                                 str(Path(tmp) / (src.stem + ".cubin")), str(src)],
                                capture_output=True, text=True)
