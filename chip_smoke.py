@@ -86,7 +86,27 @@ no ``.wb`` project. Phases, one or more lines each:
    iterations with the host legs, the extension's build and the kernel
    by CUDA events, the plain version, the bounds, peak memory, and a
    sweep of the extension's slab size;
-8. one JSON line of kernels, then the last line
+8. the gather mix (``ops/mix.py``, torch ops) on small sessions with the
+   launch counts reset just before each bounce: no mix-kernel launch,
+   bit-equal to the same bounce on the CPU, bit-equal to
+   ``render_segments_numpy`` at speed 1 and within the resampling
+   contract otherwise, the dense session whose slots overflow taken by
+   ``engine="auto"``; each generic effect stage kind on the card within
+   relative RMS 1e-5 of the same finisher on the CPU and 5e-5 (2e-4 with
+   lanes) of the f64 ``reference_generic_finish``;
+9. generic_fx_128trk (config 6's chains on the flat mix): one K4 launch,
+   the cascade kernel for the static EQ stages; the finisher's first 10 s
+   against the CPU's, one track per signature and the master over 2 s
+   against the f64 chains; 5 warm iterations, the device time per stage
+   kind from a ``torch.profiler`` trace of the shipped finisher (its
+   ``wb.*`` ranges), and the chunk sweep;
+10. effects_eq_240s_128trk (config 5's chains, 240 s): one K4 launch
+    within the card's per-track limit, and the same bounce under the JAX
+    package's 6 GiB rule through the gather path (no mix-kernel launch),
+    held to each other (relative RMS 1e-5); 3 warm iterations of each;
+    the headline through ``engine="xla"`` is checked and timed in phase 4;
+11. the script's wall time, one JSON line of kernels (each entry's
+    ``cell_launches`` the counts read in those cells), then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Exits non-zero, printing no result, when CUDA is unavailable, when the
@@ -115,9 +135,11 @@ AUTO_REL_RMS = 1e-5  # against the f64 host reference (tests/test_fades_automati
 # reference (tests/test_catmull.py:28, tests/test_prerender.py:142,258); the
 # prerendered extension on the device against the host's (test_prerender.py:129)
 INTERP_ATOL, EXT_ATOL, SINE_SNR_DB = 3e-6, 1e-6, 90.0
-# the card's published peaks (NVIDIA H100 SXM data sheet, 700 W): HBM bytes/s
-# and f32 operations/s outside the tensor cores
-HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
+# the generic finisher on the card against the same function on the CPU, and
+# against the f64 host oracles (tests/test_effects_family.py:295)
+GENERIC_REL_RMS, GENERIC_F64_REL_RMS, LANES_F64_REL_RMS = 1e-5, 5e-5, 2e-4
+#: chunk lengths swept for the generic finisher on the card (CUDA_CHUNK_CAP)
+GENERIC_CHUNK_SWEEP = (1 << 15, 1 << 16, 1 << 17, 1 << 18, 1 << 19, 1 << 20, 1 << 21)
 
 
 class SmokeFailure(RuntimeError):
@@ -802,6 +824,23 @@ def _event_ms(torch, fn, iters):
 SLOW_OPS = {"linear": 17 + 3, "catmull": 17 + 19, "poly": 17 + 72}
 
 
+def card_peaks() -> tuple[float, float]:
+    """The card's published peaks (NVIDIA H100 SXM data sheet, 700 W): HBM
+    bytes/s and f32 operations/s outside the tensor cores, as the port's
+    roofline model holds them."""
+    from whitebox_tpu_torch.render.roofline import F32_OPS_PER_S, HBM_BYTES_PER_S
+
+    return HBM_BYTES_PER_S, F32_OPS_PER_S
+
+
+def least_ms(bytes_, ops) -> dict:
+    """The larger of bytes over the memory peak and operations over the f32
+    peak, in ms, and which of the two bounds it."""
+    hbm, f32 = card_peaks()
+    t_bytes, t_ops = bytes_ / hbm, ops / f32
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
 def bound(plan, pool_bytes: int, table_bytes: int, auto=None, per_track: bool = False,
           mode: str = "linear") -> dict:
     """The least time the card could take for one mix of ``plan``: the
@@ -827,10 +866,7 @@ def bound(plan, pool_bytes: int, table_bytes: int, auto=None, per_track: bool = 
         ops += (3 * 2 + 2 + 4 * C) * int(span[:, use].sum())
     out_bytes = (plan.num_tracks if per_track else 1) * C * plan.n_tiles * plan.tile * 4
     bytes_ = out_bytes + pool_bytes + table_bytes
-    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
-    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bound_bytes": bytes_, "bound_ops": ops}
+    return {**least_ms(bytes_, ops), "bound_bytes": bytes_, "bound_ops": ops}
 
 
 def ext_bound(plan, pool_bytes: int, channels: int) -> dict:
@@ -856,9 +892,8 @@ def ext_bound(plan, pool_bytes: int, channels: int) -> dict:
             banded += channels * n_sub * pre._QF * Qp * 2 * plan.taps
             mat_bytes += Qp * (Pp + plan.taps) * 4
     bytes_ = pool_bytes + mat_bytes + plan.ext_len * 4
-    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, flops / F32_OPS_PER_S
-    return {"ext_bound_ms": max(t_bytes, t_ops) * 1e3,
-            "ext_bound_by": "bytes" if t_bytes >= t_ops else "operations",
+    b = least_ms(bytes_, flops)
+    return {"ext_bound_ms": b["bound_ms"], "ext_bound_by": b["bound_by"],
             "ext_bound_bytes": bytes_, "ext_matmul_flops": flops, "ext_banded_flops": banded}
 
 
@@ -1030,6 +1065,24 @@ def phase_headline(torch) -> dict:
     print(f"[headline] audio {res.audio.shape} bit-equal to render_segments_numpy "
           f"(peak {float(np.abs(res.audio).max()):.4f})")
 
+    # the same session through the gather path (engine="xla"): no mix
+    # kernel, bit-equal to the kernel's headline (torch ops, not a kernel)
+    reset_launches()
+    xr = bounce(session, RATE, device="cuda", engine="xla")
+    xla_launches = mix_launches()
+    check(xr.stats.mix_path == "gather" and not any(xla_launches.values()),
+          f"headline (xla): path {xr.stats.mix_path}, mix launches {xla_launches}")
+    check(np.array_equal(xr.audio, res.audio), "headline: the gather path != the kernel's bounce")
+    gather_ms = []
+    for _ in range(3):
+        gather_ms.append(bounce(session, RATE, device="cuda", engine="xla").stats.device_seconds * 1e3)
+    cost = xr.stats.cost
+    gather = {"gather_ms_median": statistics.median(gather_ms), "gather_ms_all": gather_ms,
+              "gather_bound_ms": least_ms(cost.hbm_bytes, cost.mxu_flops)["bound_ms"],
+              "gather_cost_bytes": cost.hbm_bytes, "gather_carve_pack_ms": xr.stats.carve_seconds * 1e3}
+    print(f"[headline] bounce(device='cuda', engine='xla'): gather path, 0 mix-kernel launches, "
+          f"bit-equal to the kernel's bounce; {xr.stats.summary()}; " + json.dumps(gather))
+
     k = measure_cell(torch, "headline", session, duration)
     print("[headline] " + sh(["nvidia-smi", "--query-gpu=name,power.limit,power.draw,clocks.sm,"
                               "temperature.gpu", "--format=csv,noheader"]))
@@ -1039,7 +1092,7 @@ def phase_headline(torch) -> dict:
     resampled = make_demo_session(n_tracks=n_tracks, duration_seconds=duration,
                                   sample_rate=int(RATE), seed=7, clip_speeds=(1.0, 44100 / 48000))
     measure_cell(torch, "headline_resampled", resampled, duration)
-    return _kernel_entry(k, launches)
+    return _kernel_entry(k, launches), xla_launches
 
 
 def automation_cell(torch, name: str, session, duration: float,
@@ -1393,10 +1446,8 @@ def phase_effects(torch) -> dict:
     master_ms, _ = _event_ms(torch, lambda: biquad_cuda.biquad_cascade(master_x, mcoeffs, mzeros), 20)
     casc_bytes = 2 * xc.numel() * 4 + coeffs.numel() * 4 + 4 * S * xc.shape[0] * 2 * 2
     casc_ops = 15 * S * xc.numel()  # 15 f32 operations per section and frame
-    t_bytes, t_ops = casc_bytes / HBM_BYTES_PER_S, casc_ops / F32_OPS_PER_S
     cascade = {"launches": cascade_launches, "max_abs_err": casc_abs, "ms": casc_ms,
-               "plain_ms": casc_plain_ms, "bound_ms": max(t_bytes, t_ops) * 1e3,
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "plain_ms": casc_plain_ms, **least_ms(casc_bytes, casc_ops),
                # no installed PyTorch call runs an IIR cascade
                "library_ms": None}
 
@@ -1418,7 +1469,7 @@ def phase_effects(torch) -> dict:
         "fir_finish_ms": fir_ms, "scan_finish_ms": scan_ms, "scan_finish_ms_all": scan_all,
         "metered_finish_ms": metered_ms, "plain_scan_finish_ms": plain_scan_ms,
         # the finisher's least time: the per-track buffer read once, the mix written once
-        "scan_finish_bound_ms": (pt_bytes + p.channels * p.n_tiles * p.tile * 4) / HBM_BYTES_PER_S * 1e3,
+        "scan_finish_bound_ms": least_ms(pt_bytes + p.channels * p.n_tiles * p.tile * 4, 0)["bound_ms"],
         "cascade_chunk": list(xc.shape), "cascade_ms": casc_ms, "cascade_ms_min": min(casc_all),
         "cascade_plain_ms": casc_plain_ms, "cascade_bound_ms": cascade["bound_ms"],
         "cascade_rel_rms_max": casc_rr, "master_cascade_ms": master_ms,
@@ -1606,6 +1657,486 @@ def phase_interpolation(torch) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- gather path and generic effects
+
+
+def dense_session():
+    """One track, twelve short clips at distinct speeds squeezed into one
+    1024-frame tile: twelve runs overflow the slot plan's 8 slots at the
+    smallest tile (the tests' dense session), so ``engine="auto"`` takes the
+    gather path."""
+    import numpy as np
+
+    from whitebox_tpu_torch.core.formats import AudioFormat
+    from whitebox_tpu_torch.session import Session
+    from whitebox_tpu_torch.session.sample import Sample
+
+    rng = np.random.default_rng(42)
+    s = Session(bpm=120.0)
+    data = (rng.standard_normal((1, 4000)) * 0.3).astype(np.float32)
+    asset = s.sample_table.add_sample(Sample.from_planar(data, 48000, AudioFormat.F32, name="d"), key="d")
+    tr = s.add_track("t0")
+    for c in range(12):
+        s.add_audio_clip(tr, f"c{c}", c * 0.003, c * 0.003 + 0.0025, start_offset=0.0, asset=asset,
+                         speed=0.9 + 0.017 * c)
+    return s
+
+
+def generic_fx_128trk(duration=60.0):
+    """The JAX package's benchmark config 6 chains (``benchmarks/run_all.py:
+    451-475``) on the flat mix, without buses or sends: track t carries bus
+    ``t // 16``'s chain (even groups a two-band ParametricEQ, group 1 a
+    -24 dB 4:1 compressor, not a sidechain one, the other odd groups -18 dB
+    3:1), the master a 25 Hz highpass and a -0.5 dB lookahead limiter."""
+    from whitebox_tpu_torch.effects import Biquad, Compressor, EffectChain, Limiter, ParametricEQ
+    from whitebox_tpu_torch.render.demo import make_demo_session
+
+    s = make_demo_session(n_tracks=128, duration_seconds=duration, sample_rate=48000, seed=9)
+    for t, tr in enumerate(s.tracks):
+        i = t // 16
+        if i == 1:
+            chain = [Compressor(-24.0, 4.0)]
+        elif i % 2 == 0:
+            chain = [ParametricEQ([("lowshelf", 90.0, 0.707, 1.5), ("peak", 900.0 + 200.0 * i, 1.0, -2.0)])]
+        else:
+            chain = [Compressor(-18.0, 3.0)]
+        tr.effects = EffectChain(chain)
+    s.master_effects = EffectChain([Biquad("highpass", 25.0), Limiter(-0.5)])
+    return s
+
+
+def mix_launches() -> dict:
+    from whitebox_tpu_torch.ops import mix_cuda
+
+    return {"mix": mix_cuda.mix_kernel_launches, "auto": mix_cuda.mix_auto_launches,
+            "per_track": mix_cuda.mix_per_track_launches}
+
+
+def gather_vs_reference(name, session, interpolation="linear", engine="xla", chunk_frames=8192):
+    """``bounce(device="cuda", engine=...)`` through the gather path with the
+    launch counts reset just before: no mix kernel launched, the audio
+    bit-equal to the same bounce on the CPU (the same torch ops), and to
+    ``render_segments_numpy`` of the blocks carve at speed 1 (the
+    resampling contract otherwise; atol 3e-6 in the other modes). -> the
+    mix launch counts read just after the bounce"""
+    import numpy as np
+
+    from whitebox_tpu_torch.render.bounce import bounce
+    from whitebox_tpu_torch.timeline.carve import carve_session, render_segments_numpy
+    from whitebox_tpu_torch.timeline.oversample import resolve_interpolation
+
+    reset_launches()
+    res = bounce(session, RATE, device="cuda", engine=engine, interpolation=interpolation,
+                 chunk_frames=chunk_frames)
+    launches = mix_launches()
+    check(res.stats.mix_path == "gather", f"{name}: took the {res.stats.mix_path} path")
+    check(not any(launches.values()), f"{name}: the gather path launched a mix kernel {launches}")
+    cpu = bounce(session, RATE, device="cpu", engine=engine, interpolation=interpolation,
+                 chunk_frames=chunk_frames).audio
+    ok, ku, ka = ulp_contract(res.audio, cpu)
+    check(ok, f"{name}: gather on the card {ku} ulp / {ka:.3g} abs off the CPU's")
+    table, pool = carve_session(session, RATE, buffer_size=512, slow_emit="blocks")
+    fast = bool(table.fast.all())
+    note = "speed 1"
+    if interpolation == "linear":
+        ref = render_segments_numpy(table, pool, session)
+        if fast:
+            check(np.array_equal(res.audio, ref), f"{name}: gather != render_segments_numpy")
+        else:
+            ok, ru, ra = ulp_contract(res.audio, ref)
+            check(ok, f"{name}: gather {ru} ulp / {ra:.3g} abs off render_segments_numpy")
+            note = f"resampled, {ru} ulp / {ra:.3g} abs"
+    elif interpolation == "catmull" or (interpolation == "sinc" and engine != "xla"):
+        t2, p2, interp = resolve_interpolation(table, pool, interpolation)
+        ref = render_segments_numpy(t2, p2, session, interp=interp)
+        d = float(np.abs(res.audio.astype(np.float64) - ref).max())
+        check(d <= INTERP_ATOL, f"{name}: {interpolation} gather {d:.3g} off render_segments_numpy")
+        note = f"{interpolation}, max abs {d:.3g}"
+    else:
+        note = "direct sinc bank, held to the CPU only"
+    print(f"[gather-small] {name}: bounce(device='cuda', engine={engine!r}, interpolation="
+          f"{interpolation!r}) gather path, 0 mix-kernel launches, bit-equal to the CPU's "
+          f"({ku} ulp); vs render_segments_numpy: {note}; {res.stats.summary()}")
+    return launches
+
+
+#: one chain per generic stage kind, and the automated forms
+def _kind_chains():
+    import numpy as np
+
+    from whitebox_tpu_torch import effects as fx
+    from whitebox_tpu_torch.ops.automation import AutomationLane
+
+    ir = (np.exp(-np.arange(700) / 150.0) * 0.25).astype(np.float32)
+
+    def lane(*pts):
+        out = AutomationLane()
+        for p in pts:
+            out.add(*p)
+        return out
+
+    return {
+        "compressor": ([fx.Compressor(-20.0, 4.0, attack_s=0.004, release_s=0.09)], None),
+        "compressor_rms_sidechain": ([fx.Compressor(-30.0, 3.0, detector="rms", sidechain=True)], None),
+        "limiter": ([fx.Limiter(-4.0, lookahead_s=0.002)], None),
+        "gate": ([fx.NoiseGate(-30.0, hysteresis_db=2.0)], None),
+        "delay": ([fx.Delay(0.03, 0.5, wet=0.5)], None),
+        "pingpong": ([fx.Delay(0.02, 0.4, mode="pingpong")], None),
+        "chorus": ([fx.Chorus(voices=3)], None),
+        "flanger": ([fx.Flanger()], None),
+        "convreverb": ([fx.ConvolutionReverb(ir, wet=0.35)], None),
+        "saturator_biquad": ([fx.Saturator(8.0), fx.Biquad("lowpass", 5000.0)], None),
+        "width_gain": ([fx.StereoWidth(1.3), fx.Gain(-2.0)], None),
+        "linphase": ([fx.LinearPhaseEQ([("peak", 1000.0, 1.0, 6.0)], taps=255)], None),
+        "eq": ([fx.ParametricEQ([("lowshelf", 90.0, 0.7, 1.5), ("peak", 900.0, 1.0, -2.0)])], None),
+        "tv_biquad": ([fx.Biquad("peak", 800.0, 2.0, 6.0)],
+                      {(0, "freq_hz"): lane((0.0, 200.0), (0.05, 6000.0)), (0, "q"): lane((0.0, 0.6), (0.1, 3.0))}),
+        "lanes": ([fx.Compressor(-18.0, 4.0), fx.Delay(0.01, 0.4), fx.Saturator(6.0)],
+                  {(0, "threshold_db"): lane((0.0, -6.0), (0.05, -30.0)), (1, "wet"): lane((0.0, 0.0), (0.05, 0.8)),
+                   (2, "drive_db"): lane((0.0, 0.0), (0.05, 14.0))}),
+    }
+
+
+def generic_kind_vs_cpu_and_f64(torch, name, chain, lanes, frames=16 * 512, chunk=4096):
+    """Two tracks of one chain (one group) and a plain track, seeded noise
+    as their per-track buffers: the generic finisher on the card against
+    the same finisher on the CPU (relative RMS 1e-5) and against the f64
+    ``reference_generic_finish`` (5e-5; 2e-4 with lanes). -> max |card - cpu|"""
+    import copy
+
+    import numpy as np
+
+    from whitebox_tpu_torch.effects import EffectChain
+    from whitebox_tpu_torch.ops import biquad_cuda
+    from whitebox_tpu_torch.ops.automation import TrackAutomation
+    from whitebox_tpu_torch.render import effects_generic as gen
+    from whitebox_tpu_torch.render.effects_pipeline import prepare_automation_tables
+    from whitebox_tpu_torch.session import Session
+
+    s = Session(bpm=120.0)
+    for t in range(3):
+        tr = s.add_track(f"t{t}", volume_db=-3.0 + t, pan=0.3 * (t - 1))
+        if t != 1:
+            tr.effects = EffectChain(copy.deepcopy(chain))
+            if lanes:
+                tr.automation = TrackAutomation(effects=dict(lanes))
+    rng = np.random.default_rng(61)
+    pt = (rng.standard_normal((3, 2, frames)) * 0.4).astype(np.float32)
+    tg = np.array([[np.float32(t.volume_linear * np.float32(t.pan_coeffs[c])) for c in range(2)]
+                   for t in s.tracks], np.float32)
+    outs = {}
+    before = biquad_cuda.biquad_cascade_launches
+    for dev in ("cuda", "cpu"):
+        fx = gen.prepare_generic_fx(s, RATE)
+        fin = gen.make_generic_finisher(fx, 3, 2, chunk=chunk, device=dev)
+        outs[dev] = fin(torch.from_numpy(pt).to(dev), torch.from_numpy(tg).to(dev),
+                        prepare_automation_tables(s, RATE, device=dev)).cpu().numpy()
+    cascades = biquad_cuda.biquad_cascade_launches - before
+    ref = gen.reference_generic_finish(pt, s, RATE)
+    rr_cpu, rr_f64 = rel_rms(outs["cuda"], outs["cpu"]), rel_rms(outs["cuda"], ref)
+    bar = LANES_F64_REL_RMS if lanes else GENERIC_F64_REL_RMS
+    check(np.isfinite(outs["cuda"]).all() and float(np.abs(outs["cuda"]).max()) > 1e-3, f"{name}: output")
+    check(rr_cpu < GENERIC_REL_RMS, f"{name}: card vs CPU relative RMS {rr_cpu:.3g}")
+    check(rr_f64 < bar, f"{name}: card vs f64 reference relative RMS {rr_f64:.3g} (bar {bar})")
+    static_iir = any(type(e).__name__ in ("Biquad", "ParametricEQ") for e in chain) and not lanes
+    check(cascades > 0 if static_iir else cascades == 0,
+          f"{name}: {cascades} cascade launches for its static biquad stages")
+    print(f"[generic-small] {name}: finisher on the card vs CPU relative RMS {rr_cpu:.3g} "
+          f"(< {GENERIC_REL_RMS}), vs f64 reference {rr_f64:.3g} (< {bar}); cascade kernel launches "
+          f"{cascades}")
+    return float(np.abs(outs["cuda"] - outs["cpu"]).max())
+
+
+def phase_gather_small(torch) -> dict:
+    """The gather mix and the generic finisher on small sessions -> the
+    dense overflow session's mix launch counts."""
+    from whitebox_tpu_torch.render.demo import make_demo_session
+
+    gather_vs_reference("speed1_int_formats", int_formats_session(n_tracks=4))
+    resampled = make_demo_session(n_tracks=4, duration_seconds=4.0, seed=3, fades=True,
+                                  clip_speeds=(1.0, 0.5, 44100 / 48000, 1.37))
+    gather_vs_reference("resampled_fades", resampled)
+    gather_vs_reference("resampled_catmull", resampled, interpolation="catmull")
+    gather_vs_reference("resampled_sinc_bank", resampled, interpolation="sinc")
+    gather_vs_reference("reverse_bidirectional", reverse_session(), chunk_frames=10007)
+    dense = gather_vs_reference("dense_overflow", dense_session(), engine="auto")
+    for name, (chain, lanes) in _kind_chains().items():
+        generic_kind_vs_cpu_and_f64(torch, name, chain, lanes)
+    return dense
+
+
+def card_busy_ms(torch, fn):
+    """One profiled call of ``fn`` after a warm one -> (busy_ms, stage_ms).
+    ``busy_ms``: the card's busy time, the sum of the device kernels
+    ``torch.profiler`` records (the operators' device time repeats them,
+    so only the kernels' own events count; None when it records none).
+    ``stage_ms``: for each of the generic finisher's ``wb.*`` ranges
+    (``effects_generic._apply_group`` per stage, ``_chunk_step``'s gains
+    and sum), the busy time of the kernels that ran inside the range's span
+    on the card's timeline, summed over the stream (kernels launched
+    outside a torch operator, as the cascade kernel is, count too), and
+    ``other`` for the rest of ``busy_ms`` (chunk slices, the groups'
+    gathers and scatters, the clip); ``span:*`` the spans themselves,
+    which hold the card's idle time under the profiler as well. Prints the
+    profiler's table of the busiest."""
+    import bisect
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    busy_us = sum(e.self_device_time_total for e in events
+                  if e.device_type == DeviceType.CUDA and not e.key.startswith("wb."))
+    spans, kernels = [], []
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU:
+            if e.name.startswith("wb."):
+                spans.append((e.time_range.start, e.time_range.end, e.name[3:]))
+            else:
+                kernels.append((e.time_range.start, e.time_range.end))
+    kernels.sort()
+    stages, span_ms = {}, {}
+    for a, b, label in spans:
+        inside = 0.0
+        for k0, k1 in kernels[bisect.bisect_left(kernels, (a,)):]:
+            if k0 >= b:
+                break
+            inside += min(k1, b) - k0
+        stages[label] = stages.get(label, 0.0) + inside / 1e3
+        span_ms[f"span:{label}"] = span_ms.get(f"span:{label}", 0.0) + (b - a) / 1e3
+    if busy_us > 0:
+        stages["other"] = busy_us / 1e3 - sum(stages.values())
+    stages.update(span_ms)
+    print("[profile] " + events.table(sort_by="device_time_total", row_limit=14,
+                                       max_name_column_width=60).replace("\n", "\n[profile] "))
+    return (busy_us / 1e3 if busy_us > 0 else None), stages
+
+
+def phase_generic(torch) -> dict:
+    """``generic_fx_128trk``: ``bounce(device="cuda")`` (one K4 launch, the
+    cascade kernel for the EQ group and the master highpass), the
+    finisher's first 10 s on the card against the same finisher on the
+    CPU, one track of each signature and the master over 2 s against the
+    f64 chains, 5 warm iterations, the time per stage kind and the chunk
+    sweep."""
+    import numpy as np
+
+    from whitebox_tpu_torch.ops import biquad_cuda, mix_cuda
+    from whitebox_tpu_torch.ops.mix_plan import build_plan
+    from whitebox_tpu_torch.render import effects_generic as gen
+    from whitebox_tpu_torch.render.bounce import _effects_finisher, bounce
+    from whitebox_tpu_torch.render.effects_pipeline import _chains_of
+    from whitebox_tpu_torch.render.roofline import fx_cost
+    from whitebox_tpu_torch.timeline.carve import carve_session
+
+    name, duration = "generic_fx_128trk", 60.0
+    session = generic_fx_128trk(duration)
+    dev = torch.device("cuda")
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res = bounce(session, RATE, device="cuda")
+    bounce_peak = torch.cuda.max_memory_allocated() / 1e9
+    k4, casc = mix_cuda.mix_per_track_launches, biquad_cuda.biquad_cascade_launches
+    check(k4 == 1 and mix_cuda.mix_kernel_launches == 0 and mix_cuda.mix_auto_launches == 0,
+          f"{name}: mix launches {mix_launches()} (want one K4)")
+    check(casc > 0, f"{name}: the static EQ and highpass stages never ran the cascade kernel")
+    check(res.stats.mix_path == "kernel" and np.isfinite(res.audio).all()
+          and float(np.abs(res.audio).max()) > 0.01, f"{name}: output")
+    print(f"[{name}] bounce(device='cuda'): {res.stats.summary()}; finisher "
+          f"{res.stats.finish_seconds * 1e3:.3f} ms; K4 launches={k4}; cascade kernel launches={casc}; "
+          f"peak memory {bounce_peak:.2f} GB")
+
+    table, pool = carve_session(session, RATE, buffer_size=512, slow_emit="runs")
+    warm = mix_cuda.CudaMixRenderer(table, pool, session, device="cuda")
+    p = warm.plan
+    pt = warm.render_device_per_track()
+    tg = warm.tables["track_gain"]
+    T, C = p.num_tracks, p.channels
+    fx = gen.prepare_generic_fx(session, RATE, C)
+    chunk = gen.auto_chunk_frames(fx, device=dev)
+    f10, f2 = int(10 * RATE), int(2 * RATE)
+    t0 = time.perf_counter()
+    on_card = gen.make_generic_finisher(fx, T, C, chunk=chunk, device=dev, valid_frames=f10)(
+        pt[:, :, :f10], tg).cpu().numpy()
+    on_cpu = gen.make_generic_finisher(fx, T, C, chunk=chunk, device="cpu", valid_frames=f10)(
+        pt[:, :, :f10].cpu(), tg.cpu()).numpy()
+    cpu_s = time.perf_counter() - t0
+    rr_cpu = rel_rms(on_card, on_cpu)
+    check(rr_cpu < GENERIC_REL_RMS, f"{name}: finisher on the card {rr_cpu:.3g} off the CPU's")
+    n = min(on_card.shape[1], res.frames)
+    check(rel_rms(on_card[:, :n], res.audio[:, :n]) < GENERIC_REL_RMS, f"{name}: the bounce's first 10 s "
+          "differ from the finisher's")
+
+    # one track of each signature (an EQ group track, a compressor group
+    # track) and the master against the f64 chains over the first 2 s
+    chains, master = _chains_of(session)
+    stems = gen.make_generic_stems_finisher(fx, T, C, chunk=chunk, device=dev)(pt[:, :, :f2], tg)
+    stems = stems.cpu().double().numpy()
+    x = pt[:, :, :f2].cpu().double().numpy()
+    tgh = tg.cpu().double().numpy()
+    sig = {}
+    for t in (0, 16, 48):
+        ref = gen.reference_run_chain(chains[t], x[t], None, RATE, C, session.time_base) * tgh[t][:, None]
+        sig[t] = rel_rms(stems[t], ref)
+        check(sig[t] < GENERIC_F64_REL_RMS, f"{name}: track {t} chain {sig[t]:.3g} off the f64 chain")
+    mref = np.clip(gen.reference_run_chain(master, stems.sum(axis=0), None, RATE, C, session.time_base), -1, 1)
+    rr_master = rel_rms(on_card[:, :f2], mref)
+    check(rr_master < GENERIC_F64_REL_RMS, f"{name}: master {rr_master:.3g} off the f64 master chain")
+    print(f"[{name}] finisher's first 10 s on the card vs the CPU relative RMS {rr_cpu:.3g} (< "
+          f"{GENERIC_REL_RMS}; CPU {cpu_s:.1f} s); first 2 s vs f64 chains: tracks "
+          f"{ {t: f'{v:.3g}' for t, v in sig.items()} }, master {rr_master:.3g} (< {GENERIC_F64_REL_RMS})")
+    del stems, x, on_cpu
+
+    rows = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t_, p_ = carve_session(session, RATE, buffer_size=512, pool=pool, slow_emit="runs")
+        t1 = time.perf_counter()
+        plan = build_plan(t_, p_, session)
+        t2 = time.perf_counter()
+        r = mix_cuda.CudaMixRenderer(t_, p_, session, device="cuda", plan=plan, pool_device=warm.pool_device)
+        t3 = time.perf_counter()
+        finish = _effects_finisher(session, r, plan, RATE, C, "scan", False, dev)
+        t4 = time.perf_counter()
+        finish(r.render_device_per_track())
+        torch.cuda.synchronize()
+        t5 = time.perf_counter()
+        rows.append((t1 - t0, t2 - t1, t3 - t2, t4 - t3, t5 - t4, t5 - t0))
+        del r, finish
+    carve_s, plan_s, upload_s, prep_s, launch_s, e2e_med = (statistics.median(c) for c in zip(*rows))
+    e2e_best = min(row[-1] for row in rows)
+    finish = _effects_finisher(session, warm, p, RATE, C, "scan", False, dev)
+    k4_ms, _ = _event_ms(torch, lambda: mix_cuda.mix_per_track_cuda(warm.pool_device, warm.tables, p.n_tiles,
+                                                                    p.tile, C), 10)
+    finish_ms, finish_all = _event_ms(torch, lambda: finish(pt), 3)
+    busy_ms, parts = card_busy_ms(torch, lambda: finish(pt))
+    sweep = {}
+    for c in GENERIC_CHUNK_SWEEP:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fin = gen.make_generic_finisher(fx, T, C, chunk=c, device=dev, valid_frames=p.total_frames)
+        ms, _ = _event_ms(torch, lambda: fin(pt, tg), 3)
+        sweep[c] = {"ms": ms, "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    fcost = fx_cost(session, p.total_frames, C)
+    stats = {
+        "cell": name, "tracks": T, "audio_seconds": duration, "frames": int(p.total_frames),
+        "groups": [[len(g.track_idx), [k for k, _, _ in g.stages]] for g in fx.groups],
+        "master": [k for k, _, _ in fx.master.stages], "chunk": chunk,
+        "e2e_ms_median": e2e_med * 1e3, "e2e_ms_best": e2e_best * 1e3,
+        "rtf_median": duration / e2e_med, "carve_ms": carve_s * 1e3, "plan_ms": plan_s * 1e3,
+        "upload_ms": upload_s * 1e3, "fx_prep_ms": prep_s * 1e3, "launch_to_sync_ms": launch_s * 1e3,
+        "k4_ms": k4_ms, "finish_ms": finish_ms, "finish_ms_all": finish_all,
+        "stage_ms": parts, "chunk_sweep": {str(c): v for c, v in sweep.items()},
+        # the card's busy time in one finisher call (torch.profiler, kernels'
+        # own device time), against the call's event time: its idle share
+        "finish_busy_ms": busy_ms,
+        "finish_idle_share": None if busy_ms is None else 1.0 - busy_ms / finish_ms,
+        # the finisher is torch ops (and the cascade kernel), not a kernel: its
+        # least time by the cost model's finish and stage terms
+        "finish_bound_ms": least_ms(fcost.hbm_bytes, fcost.mxu_flops)["bound_ms"],
+        "finish_bound_bytes": fcost.hbm_bytes,
+        "bounce_peak_mem_gb": bounce_peak, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "k4_launches": k4, "cascade_launches": casc,
+    }
+    print(f"[{name}] " + json.dumps(stats))
+    print(f"[{name}] " + sh(["nvidia-smi", "--query-gpu=name,power.limit,power.draw,clocks.sm,"
+                             "temperature.gpu", "--format=csv,noheader"]))
+    return stats
+
+
+def phase_long(torch) -> dict:
+    """``effects_eq_240s_128trk``: config 5's chains on a 240 s session
+    (11.8 GB of per-track buffers). ``bounce`` keeps it on K4 (one launch)
+    and the scan finisher, since the buffers fit the card's share of free
+    memory (``render/bounce.py::per_track_limit_bytes``); the same bounce
+    under the JAX package's 6 GiB rule takes the gather path and the
+    streaming scan finisher (no mix-kernel launch, the cascade kernel per
+    chunk), held to the K4 path (relative RMS 1e-5); 3 warm iterations of
+    each."""
+    import numpy as np
+
+    from whitebox_tpu_torch.ops import biquad_cuda
+    from whitebox_tpu_torch.render import bounce as bounce_mod
+
+    name, duration = "effects_eq_240s_128trk", 240.0
+    session = effects_eq_128trk(duration)
+    dev = torch.device("cuda")
+    limit_gb = bounce_mod.per_track_limit_bytes(dev) / 1e9
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k4 = bounce_mod.bounce(session, RATE, device="cuda")
+    k4_peak = torch.cuda.max_memory_allocated() / 1e9
+    k4_launches, casc = mix_launches(), biquad_cuda.biquad_cascade_launches
+    check(k4.stats.mix_path == "kernel" and k4_launches == {"mix": 0, "auto": 0, "per_track": 1},
+          f"{name}: path {k4.stats.mix_path}, mix launches {k4_launches} (want one K4 within the "
+          f"card's {limit_gb:.1f} GB per-track limit)")
+    check(casc > 0, f"{name}: the scan finisher never ran the cascade kernel")
+    check(np.isfinite(k4.audio).all() and float(np.abs(k4.audio).max()) > 0.01, f"{name}: output")
+    print(f"[{name}] bounce(device='cuda'): {k4.stats.summary()}; per-track limit on this card "
+          f"{limit_gb:.1f} GB; K4 launches={k4_launches['per_track']}; cascade kernel launches={casc}; "
+          f"peak memory {k4_peak:.2f} GB")
+
+    def jax_rule(dev):  # the JAX package's 6 GiB, as on the CPU
+        return bounce_mod.PER_TRACK_LIMIT_BYTES
+
+    card_rule = bounce_mod.per_track_limit_bytes
+    bounce_mod.per_track_limit_bytes = jax_rule
+    try:
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        res = bounce_mod.bounce(session, RATE, device="cuda")
+        gather_peak = torch.cuda.max_memory_allocated() / 1e9
+        gather_launches, gcasc = mix_launches(), biquad_cuda.biquad_cascade_launches
+        check(res.stats.mix_path == "gather", f"{name} (6 GiB rule): took the {res.stats.mix_path} path")
+        check(not any(gather_launches.values()), f"{name} (6 GiB rule): mix kernel launches {gather_launches}")
+        check(gcasc > 0, f"{name} (6 GiB rule): the streaming finisher never ran the cascade kernel")
+        rr = rel_rms(res.audio, k4.audio)
+        check(res.audio.shape == k4.audio.shape and rr < 1e-5, f"{name}: gather vs K4 relative RMS {rr:.3g}")
+        print(f"[{name}] the same bounce under the 6 GiB rule: {res.stats.summary()}; gather path, mix "
+              f"launches {gather_launches}, cascade kernel launches={gcasc}; peak memory {gather_peak:.2f} GB; "
+              f"vs the K4 path relative RMS {rr:.3g} (< 1e-05)")
+        gather_rows = _long_rows(torch, bounce_mod, session)
+    finally:
+        bounce_mod.per_track_limit_bytes = card_rule
+    k4_rows = _long_rows(torch, bounce_mod, session)
+    stats = {"cell": name, "tracks": 128, "audio_seconds": duration, "frames": k4.frames,
+             "per_track_gb": 128 * 2 * k4.frames * 4 / 1e9, "per_track_limit_gb": limit_gb}
+    for path, rows, r, peak in (("k4", k4_rows, k4, k4_peak), ("gather", gather_rows, res, gather_peak)):
+        wall, carve_s, dev_s, read_s = (statistics.median(c) for c in zip(*rows))
+        cost = r.stats.cost
+        stats[path] = {"e2e_ms_median": wall * 1e3, "e2e_ms_best": min(row[0] for row in rows) * 1e3,
+                       "rtf_median": duration / wall, "carve_pack_ms": carve_s * 1e3,
+                       "device_ms": dev_s * 1e3, "readback_ms": read_s * 1e3,
+                       "device_bound_ms": least_ms(cost.hbm_bytes, cost.mxu_flops)["bound_ms"],
+                       "cost_bytes": cost.hbm_bytes, "peak_mem_gb": peak}
+    stats.update({"gather_vs_k4_rel_rms": rr, "k4_launches": k4_launches, "cascade_launches": casc,
+                  "gather_launches": gather_launches, "gather_cascade_launches": gcasc})
+    print(f"[{name}] " + json.dumps(stats))
+    print(f"[{name}] " + sh(["nvidia-smi", "--query-gpu=name,power.limit,power.draw,clocks.sm,"
+                             "temperature.gpu", "--format=csv,noheader"]))
+    return stats
+
+
+def _long_rows(torch, bounce_mod, session, n=3):
+    """``n`` warm bounces -> [(wall, carve, device, readback) seconds]."""
+    rows = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = bounce_mod.bounce(session, RATE, device="cuda")
+        rows.append((time.perf_counter() - t0, r.stats.carve_seconds, r.stats.device_seconds,
+                     r.stats.readback_seconds))
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -1622,24 +2153,35 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     os.chdir(ROOT)
 
+    t_start = time.perf_counter()
     env = phase_environment(torch)
     phase_build()
     phase_kernel_vs_plain()
     phase_cascade_small(torch)
-    linear = phase_headline(torch)
+    linear, headline_xla = phase_headline(torch)
     auto = phase_automation(torch)
     effects = phase_effects(torch)
     interp = phase_interpolation(torch)
+    dense = phase_gather_small(torch)
+    generic = phase_generic(torch)
+    long = phase_long(torch)
     check("jax" not in sys.modules and "whitebox_tpu" not in sys.modules,
           "the port loaded jax or the JAX package")
+    print(f"[total] chip_smoke wall time {time.perf_counter() - t_start:.1f} s (limit 1200 s)")
     src = "whitebox_tpu_torch/csrc/mix_kernel.cu"
     print(json.dumps({"kernels": [
         {"name": "mix_linear", "route": "cuda", "source": src,
-         "replaces": "whitebox_tpu/ops/mix_pallas.py:407", **linear},
+         "replaces": "whitebox_tpu/ops/mix_pallas.py:407", **linear,
+         "cell_launches": {"headline_xla": headline_xla["mix"], "dense_overflow": dense["mix"],
+                           "effects_eq_240s_128trk_6gib_rule": long["gather_launches"]["mix"]}},
         {"name": "mix_automation", "route": "cuda", "source": src,
          "replaces": "whitebox_tpu/ops/mix_pallas.py:384-460", **auto},
         {"name": "mix_per_track", "route": "cuda", "source": src,
-         "replaces": "whitebox_tpu/ops/mix_pallas.py:431-436,581-593,608-610", **effects["mix_per_track"]},
+         "replaces": "whitebox_tpu/ops/mix_pallas.py:431-436,581-593,608-610", **effects["mix_per_track"],
+         "cell_launches": {"generic_fx_128trk": generic["k4_launches"],
+                           "effects_eq_240s_128trk": long["k4_launches"]["per_track"],
+                           "effects_eq_240s_128trk_6gib_rule": long["gather_launches"]["per_track"],
+                           "headline_xla": headline_xla["per_track"], "dense_overflow": dense["per_track"]}},
         {"name": "mix_catmull", "route": "cuda", "source": src,
          "replaces": "whitebox_tpu/ops/mix_pallas.py:518-519,557-563", **interp["mix_catmull"]},
         {"name": "mix_poly", "route": "cuda", "source": src,
@@ -1649,7 +2191,10 @@ def main() -> int:
         {"name": "biquad_cascade", "route": "cuda", "source": "whitebox_tpu_torch/csrc/biquad_cascade.cu",
          "replaces": "whitebox_tpu/render/effects_pipeline.py:104-120 (finish_mix's scan cascade; "
                      "an XLA scan there and torch ops in the port, not a TPU kernel)",
-         **effects["biquad_cascade"]},
+         **effects["biquad_cascade"],
+         "cell_launches": {"generic_fx_128trk": generic["cascade_launches"],
+                           "effects_eq_240s_128trk": long["cascade_launches"],
+                           "effects_eq_240s_128trk_6gib_rule": long["gather_cascade_launches"]}},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["device"],
                                              "count": env["device_count"]}}))

@@ -175,14 +175,27 @@ def test_reference_finish_mix_equals_jax():
 
 @pytest.mark.parametrize("what", ["effect_lane_only", "master_automation"])
 def test_effect_and_master_lanes_still_raise(what):
-    js = _auto_session()
+    """Effect-parameter lanes on a track and on the master render through
+    the generic finisher: within 2e-4 of the f64 reference_generic_finish
+    (the JAX package's bar, tests/test_effect_automation.py)."""
+    from whitebox_tpu.effects import Biquad, EffectChain, Gain
+    from whitebox_tpu.render.effects_generic import reference_generic_finish
+
+    from tests.test_carve import random_session
+
+    js = random_session(7, rate=48000, bpm=480.0, n_tracks=2, n_clips=1)
+    js.tracks[0].automation = TrackAutomation(volume=AutomationLane().add(0.0, 1.0).add(1.0, 0.3))
     if what == "effect_lane_only":
-        js.tracks[-1].automation = TrackAutomation(effects={(0, "gain_db"): AutomationLane().add(0.0, 0.5)})
+        js.tracks[-1].effects = EffectChain([Gain(0.0)])
+        js.tracks[-1].automation = TrackAutomation(effects={(0, "gain_db"): AutomationLane().add(0.0, 0.5)
+                                                                .add(1.0, -6.0)})
     else:
-        js.master_automation = {(0, "gain_db"): AutomationLane().add(0.0, 0.5)}
-    # the time-varying biquad half and the generic pipeline are item 6
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 6"):
-        bounce(from_reference(js), RATE, device="cpu")
+        js.master_effects = EffectChain([Biquad("lowpass", 9000.0, 0.8)])
+        js.master_automation = {(0, "freq_hz"): AutomationLane().add(0.0, 9000.0).add(1.0, 900.0)}
+    got = bounce(from_reference(js), RATE, device="cpu").audio
+    jt, jp = jax_carve_session(js, RATE, buffer_size=512)
+    ref = reference_generic_finish(render_segments_per_track_numpy(jt, jp), js, RATE)
+    assert got.shape == ref.shape and rel_rms(got, ref) < 2e-4
 
 
 def test_auto_dispatch_and_table_checks_on_cpu():

@@ -114,29 +114,31 @@ def test_demo_session_matches_jax_builder():
 
 
 def _unsupported_sessions():
-    from whitebox_tpu.effects import Compressor, Limiter
+    from whitebox_tpu.effects import Compressor, Gain, Limiter
     from whitebox_tpu.midi.notes import MidiNoteBuffer
     from whitebox_tpu.ops.automation import AutomationLane, TrackAutomation
 
     def base():
         return random_session(6, rate=48000, bpm=120.0, n_tracks=2, n_clips=1)
 
-    # linear chains render (K4 + finishers); dynamics are the generic pipeline
+    # dynamics on a track and on the master and an effect-parameter lane
+    # finish in the generic pipeline
     s_fx = base()
     s_fx.tracks[0].effects.append(Compressor(-18.0, 4.0))
     s_master = base()
     s_master.master_effects.append(Limiter(-0.3))
-    s_lane = base()  # an effect-parameter lane (volume/pan lanes render, K3)
-    s_lane.tracks[0].automation = TrackAutomation(effects={(0, "gain_db"): AutomationLane().add(0.0, 1.0)})
+    s_lane = base()  # an effect-parameter lane on a gain (volume/pan lanes render, K3)
+    s_lane.tracks[0].effects.append(Gain(0.0))
+    s_lane.tracks[0].automation = TrackAutomation(effects={(0, "gain_db"): AutomationLane().add(0.0, 1.0)
+                                                                           .add(2.0, -9.0)})
     s_midi = base()
     tr = s_midi.add_track("m")
     s_midi.add_midi_clip(tr, "c", 0.0, 2.0, asset=s_midi.midi_table.create_midi(MidiNoteBuffer([])))
     s_bus = base()
     s_bus.add_bus("b")
     s_bus.set_track_output(0, 0)
-    # catmull and sinc render; what still raises around them: the 16 slots
-    # of the oversampled form overflowing at the smallest tile (the JAX
-    # package switches to its XLA gather path there), and an unknown mode
+    # the 16 slots of the oversampled sinc form overflow at the smallest
+    # tile: the gather path takes the session, as in the JAX package
     s_dense = dense_session()
     for i, c in enumerate(s_dense.tracks[0].clips):  # twice 12 runs within one 1024-frame tile
         c.min_time, c.max_time = i * 0.0015, i * 0.0015 + 0.0012
@@ -153,22 +155,68 @@ def _unsupported_sessions():
 @pytest.mark.parametrize("feature", ["effects", "master_effects", "effect_lane", "midi",
                                      "routing", "sinc_slot_overflow", "unknown_interpolation"])
 def test_unsupported_features_raise(feature):
+    """MIDI and routing still raise naming their items; dynamics and an
+    effect lane now render through the generic finisher, within 5e-5 (the
+    lane 2e-4) of the JAX package's f64 reference_generic_finish, and a
+    sinc slot overflow through the gather path, within 3e-6 of the JAX
+    bounce."""
     s, kw = _unsupported_sessions()[feature]
     if feature == "unknown_interpolation":
         with pytest.raises(ValueError, match="interpolation must be"):
             bounce(s, 48000.0, device="cpu", **kw)
         return
-    error = SlotOverflow if feature == "sinc_slot_overflow" else NotImplementedError
-    with pytest.raises(error, match="max 16.*ROADMAP.md queue 1, item 1"
-                       if feature == "sinc_slot_overflow" else "ROADMAP.md queue 1"):
-        bounce(s, 48000.0, device="cpu", **kw)
+    if feature in ("midi", "routing"):
+        item = "item 5" if feature == "midi" else r"item 6\(b\)"
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, {item}"):
+            bounce(s, 48000.0, device="cpu", **kw)
+        return
+    got = bounce(s, 48000.0, device="cpu", **kw)
+    if feature == "sinc_slot_overflow":
+        want = jax_bounce(s, 48000.0, **kw).audio
+        assert got.stats.mix_path == "gather" and got.audio.shape == want.shape
+        np.testing.assert_allclose(got.audio, want, atol=3e-6)
+        return
+    ref = _generic_reference(s)
+    assert got.stats.mix_path == "kernel" and got.audio.shape == ref.shape
+    assert float(np.abs(ref).max()) > 0.01
+    assert rel_rms(got.audio, ref) < (2e-4 if feature == "effect_lane" else 5e-5)
+
+
+def _generic_reference(js):
+    """The JAX package's f64 generic finish of a JAX-package session."""
+    from whitebox_tpu.render.effects_generic import reference_generic_finish
+
+    table, pool = jax_carve_session(js, 48000.0, buffer_size=512)
+    return reference_generic_finish(render_segments_per_track_numpy(table, pool), js, 48000.0)
 
 
 def test_unported_effects_name_their_item():
-    s, _ = _unsupported_sessions()["effects"]
-    with pytest.raises(NotImplementedError, match="Compressor.*item 6"):
-        bounce(s, 48000.0, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    """An effect class registered only in the JAX package crosses as an
+    UnportedEffect, which bounce names; routed mode names item 6(b)."""
+    from whitebox_tpu.effects import registry as jax_registry
+    from whitebox_tpu.effects.base import Effect as JaxEffect
+
+    class JaxOnlyFx(JaxEffect):
+        def __init__(self, amount=0.5):
+            super().__init__()
+            self.amount = amount
+
+        def as_dict(self):
+            return {"amount": self.amount}
+
+        @classmethod
+        def from_dict(cls, d):
+            return cls(d["amount"])
+
+    jax_registry.register_effect("jaxonlyfx", JaxOnlyFx)
+    try:
+        s, _ = _unsupported_sessions()["effects"]
+        s.tracks[1].effects.append(JaxOnlyFx())
+        with pytest.raises(NotImplementedError, match="JaxOnlyFx.*register a port class"):
+            bounce(s, 48000.0, device="cpu")
+    finally:
+        jax_registry.unregister_effect("jaxonlyfx")
+    with pytest.raises(NotImplementedError, match=r"item 6\(b\)"):
         bounce(random_session(6, rate=48000, bpm=120.0, n_tracks=1, n_clips=1), 48000.0,
                device="cpu", effects_mode="routed")
     with pytest.raises(ValueError, match="effects_mode"):
@@ -195,13 +243,21 @@ def eq_case():
     return js, _f64_reference(js)
 
 
+@pytest.fixture(scope="module")
+def eq_jax_bounces(eq_case):
+    """The JAX package's bounce of the EQ session in each effects mode
+    (computed once: its Pallas interpret-mode compile is the cost)."""
+    return {mode: jax_bounce(eq_case[0], 48000.0, engine="pallas", effects_mode=mode).audio
+            for mode in ("scan", "fir")}
+
+
 @pytest.mark.parametrize("mode,bar", [("scan", 5e-5), ("fir", 2e-4)])
-def test_eq_bounce_matches_jax_pallas_and_f64_reference(eq_case, mode, bar):
+def test_eq_bounce_matches_jax_pallas_and_f64_reference(eq_case, eq_jax_bounces, mode, bar):
     js, ref = eq_case
     before = mix_cuda.mix_per_track_launches
     got = bounce(js, 48000.0, device="cpu", effects_mode=mode)
     assert mix_cuda.mix_per_track_launches == before  # the CPU takes the plain twin
-    want = jax_bounce(js, 48000.0, engine="pallas", effects_mode=mode).audio
+    want = eq_jax_bounces[mode]
     assert got.audio.shape == want.shape == ref.shape
     assert rel_rms(got.audio, want) < 1e-5
     assert rel_rms(got.audio, ref) < bar
@@ -270,12 +326,19 @@ def test_cli_renders_eq_project(tmp_path, eq_case):
 
 
 def test_unported_effect_in_project_raises(tmp_path):
+    """A project holding a compressor reads into the port and renders
+    within 5e-5 of the f64 generic finish of the JAX package's read of it."""
+    from whitebox_tpu.session.project import read_project as jax_read_project
+    from whitebox_tpu_torch.effects import Compressor
     from whitebox_tpu_torch.session.project import read_project
 
     js = _unsupported_sessions()["effects"][0]
     write_project(js, tmp_path / "c.wb")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        read_project(tmp_path / "c.wb")
+    s = read_project(tmp_path / "c.wb")
+    assert isinstance(s.tracks[0].effects.effects[-1], Compressor)
+    got = port_bounce(s, 48000.0, device="cpu").audio
+    want = _generic_reference(jax_read_project(tmp_path / "c.wb"))
+    assert got.shape == want.shape and rel_rms(got, want) < 5e-5
 
 
 def test_freeze_track_renders_its_chain():
@@ -292,21 +355,36 @@ def test_freeze_track_renders_its_chain():
     assert s.tracks[1].effects == [] and isinstance(s.tracks[1].frozen["effects"], EffectChain)
 
 
-def test_per_track_guard_raises_naming_item_1(monkeypatch, eq_case):
+def test_per_track_guard_raises_naming_item_1(monkeypatch, eq_case, eq_jax_bounces):
+    """Per-track buffers above the guard take the gather path with the
+    streaming scan finisher: within relative RMS 1e-5 of the JAX package's
+    bounce of the session and 5e-5 of the f64 reference."""
     from whitebox_tpu_torch.render import bounce as bounce_mod
 
+    js, ref = eq_case
     monkeypatch.setattr(bounce_mod, "PER_TRACK_LIMIT_BYTES", 1 << 10)
-    with pytest.raises(NotImplementedError, match="6 GiB.*item 1"):
-        bounce(eq_case[0], 48000.0, device="cpu")
+    got = bounce(js, 48000.0, device="cpu", chunk_frames=4096)
+    assert got.stats.mix_path == "gather"
+    want = eq_jax_bounces["scan"]
+    assert got.audio.shape == want.shape == ref.shape
+    assert rel_rms(got.audio, want) < 1e-5 and rel_rms(got.audio, ref) < 5e-5
 
 
 def test_slot_overflow_raises_instead_of_switching():
+    """engine="pallas" still raises on a slot overflow; "auto" switches to
+    the gather path (as the JAX package does) and stays within the
+    resampling contract of the NumPy reference."""
     s = from_reference(dense_session())
     # halve every clip and squeeze them into one 1024-frame tile: 12 runs
     for i, c in enumerate(s.tracks[0].clips):
         c.min_time, c.max_time = i * 0.003, i * 0.003 + 0.0025
-    with pytest.raises(SlotOverflow, match="ROADMAP.md queue 1, item 1"):
-        port_bounce(s, 48000.0, device="cpu")
+    with pytest.raises(SlotOverflow, match="engine='pallas' has no gather fallback"):
+        port_bounce(s, 48000.0, device="cpu", engine="pallas")
+    res = port_bounce(s, 48000.0, device="cpu")
+    assert res.stats.mix_path == "gather"
+    table, pool = carve_session(s, 48000.0, buffer_size=512)
+    from whitebox_tpu_torch.timeline.carve import render_segments_numpy as port_segments
+    assert_ulp_contract(res.audio, port_segments(table, pool, s))
 
 
 def test_cuda_device_without_cuda_raises(monkeypatch):
@@ -338,7 +416,8 @@ def test_cli_render_matches_oracle(tmp_path, capsys):
     n = min(ref.shape[1], audio.shape[1])
     np.testing.assert_array_equal(audio[:, :n], ref[:, :n])
     # an unsupported session is an error message, not a traceback
-    s.tracks[0].automation = _unsupported_sessions()["effect_lane"][0].tracks[0].automation
+    s.add_bus("b")
+    s.set_track_output(0, 0)
     write_project(s, wb)
     assert cli.main(["render", str(wb), str(out), "--device", "cpu"]) == 2
     assert "ROADMAP" in capsys.readouterr().err
@@ -370,13 +449,25 @@ def test_cli_renders_with_interpolation(tmp_path, flags, kw):
     ({"loudness": True}, "item 9"), ({"normalize": ("lufs", -14.0)}, "item 9"),
     ({"out_encode": {"bitrate_kbps": 192}}, "item 14")], ids=lambda v: next(iter(v)) if isinstance(v, dict) else None)
 def test_reference_keywords_raise_naming_their_item(kw, item):
-    s = from_reference(random_session(6, rate=48000, bpm=120.0, n_tracks=1, n_clips=1))
+    """The keywords items 1 and 6(a) ported render (speed 1, no chains:
+    bit-equal to the NumPy oracle; the relaxed sum within 1e-6); the others
+    raise naming their item, and at their default change nothing."""
+    js = random_session(6, rate=48000, bpm=120.0, n_tracks=1, n_clips=1)
+    s = from_reference(js)
     (name, value), = kw.items()
+    if name in ("chunk_frames", "strict_order", "engine", "pdc"):
+        kws = {"engine": "auto" if name == "pdc" else "xla", **kw}
+        got = port_bounce(s, 48000.0, device="cpu", **kws)
+        oracle = OracleRenderer(js, 48000.0, buffer_size=512).render()
+        n = min(oracle.shape[1], got.frames)
+        np.testing.assert_allclose(got.audio[:, :n], oracle[:, :n], atol=1e-6 if name == "strict_order" else 0,
+                                   rtol=0)
+        assert got.stats.mix_path == ("kernel" if name == "pdc" else "gather")
+        return
     with pytest.raises(NotImplementedError, match=f"{name}.*ROADMAP.md queue 1, {item}"):
         port_bounce(s, 48000.0, device="cpu", **kw)
-    if name != "engine":  # at its default the keyword changes nothing
-        default = port_bounce(s, 48000.0, device="cpu", engine="pallas", **{name: bounce_mod.DEFAULT_ONLY[name][0]})
-        np.testing.assert_array_equal(default.audio, port_bounce(s, 48000.0, device="cpu").audio)
+    default = port_bounce(s, 48000.0, device="cpu", engine="pallas", **{name: bounce_mod.DEFAULT_ONLY[name][0]})
+    np.testing.assert_array_equal(default.audio, port_bounce(s, 48000.0, device="cpu").audio)
 
 
 # ------------------------------------------------------ cli render against the JAX CLI

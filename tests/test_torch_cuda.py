@@ -330,3 +330,61 @@ def test_scan_and_metered_bounces_run_the_cascade_kernel(card, kw):
         for f in ("track_peak", "track_rms", "output_peak", "output_rms"):
             np.testing.assert_allclose(getattr(got.stats, f), getattr(cpu.stats, f), rtol=1e-5, atol=1e-7,
                                        err_msg=f)
+
+
+GATHER_CASES = {
+    "speed1_int_formats": (lambda: chip_smoke.int_formats_session(n_tracks=4), {}),
+    "resampled_fades": (SESSIONS["mixed_speeds_fades"], {}),
+    "resampled_catmull": (SESSIONS["mixed_speeds_fades"], {"interpolation": "catmull"}),
+    "resampled_sinc_bank": (SESSIONS["mixed_speeds_fades"], {"interpolation": "sinc"}),
+    "reverse_ragged_chunks": (chip_smoke.reverse_session, {"chunk_frames": 10007}),
+    "dense_overflow_auto": (chip_smoke.dense_session, {"engine": "auto"}),
+}
+
+
+@pytest.mark.parametrize("name", list(GATHER_CASES))
+def test_gather_path_on_the_card(card, name):
+    """The gather mix on the card: no mix-kernel launch, bit-equal to the
+    CPU's, and to the NumPy references under the repo's contract."""
+    make, kw = GATHER_CASES[name]
+    chip_smoke.gather_vs_reference(name, make(), **kw)
+
+
+@pytest.mark.parametrize("kind", list(chip_smoke._kind_chains()))
+def test_generic_stage_kind_on_the_card(card, kind):
+    """Each generic stage kind: the finisher on the card within relative
+    RMS 1e-5 of the CPU's and 5e-5 (2e-4 with lanes) of the f64 oracle;
+    static biquad/EQ stages through the cascade kernel."""
+    chain, lanes = chip_smoke._kind_chains()[kind]
+    chip_smoke.generic_kind_vs_cpu_and_f64(torch, kind, chain, lanes)
+
+
+def test_long_session_fallback_matches_the_per_track_path(card, monkeypatch):
+    """Per-track buffers over the card's limit (its share forced to 0): the
+    gather path with the streaming cascade finisher, no mix-kernel launch,
+    within relative RMS 1e-5 of the K4 path."""
+    from whitebox_tpu_torch.render import bounce as bounce_mod
+
+    s = _eq_session()
+    k4 = bounce(s, 48000.0, device=card)
+    monkeypatch.setattr(bounce_mod, "PER_TRACK_CARD_SHARE", 0.0)
+    chip_smoke.reset_launches()
+    got = bounce(s, 48000.0, device=card)
+    assert got.stats.mix_path == "gather" and not any(chip_smoke.mix_launches().values())
+    assert biquad_cuda.biquad_cascade_launches > 0
+    assert chip_smoke.rel_rms(got.audio, k4.audio) < 1e-5
+
+
+def test_per_track_limit_follows_the_cards_memory(card):
+    """On the card the per-track limit is a share of the memory the process
+    can still allocate, not the JAX package's 6 GiB: a 240 s 128-track
+    stereo session (11.8 GB of buffers) rides K4 on an 80 GB card."""
+    from whitebox_tpu_torch.render import bounce as bounce_mod
+
+    dev = torch.device(card)
+    free, _ = torch.cuda.mem_get_info(dev)
+    cached = torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
+    limit = bounce_mod.per_track_limit_bytes(dev)
+    assert abs(limit - (free + cached) * bounce_mod.PER_TRACK_CARD_SHARE) <= 64 << 20
+    if torch.cuda.get_device_properties(dev).total_memory > 64e9:
+        assert limit > 128 * 2 * 240 * 48000 * 4

@@ -5,7 +5,8 @@ on the surface the port's ``bounce`` covers:
 
     python -m whitebox_tpu_torch.cli render project.wb out.wav \\
         [--rate 48000] [--buffer-size 512] [--format f32] [--device cuda]
-        [--effects-mode scan|fir] [--interpolation linear|catmull|sinc]
+        [--effects-mode scan|fir] [--engine auto|pallas|xla] [--chunk-frames N]
+        [--fast-sum] [--pdc] [--interpolation linear|catmull|sinc]
         [--no-prerender] [--meters] [--dither none|tpdf|tpdf-hp]
         [--tail SECONDS] [--from-beat B | --from-bar B] [--to-beat B | --to-bar B]
         [--json]
@@ -80,7 +81,8 @@ def _cmd_render(args) -> int:
     num_blocks, trim_frames = _range(session, args)
     result = bounce(session, sample_rate=args.rate, device=args.device,
                     buffer_size=args.buffer_size, num_blocks=num_blocks, trim_frames=trim_frames,
-                    tail_seconds=args.tail, effects_mode=args.effects_mode,
+                    tail_seconds=args.tail, effects_mode=args.effects_mode, engine=args.engine,
+                    chunk_frames=args.chunk_frames, strict_order=not args.fast_sum, pdc=args.pdc,
                     interpolation=args.interpolation,
                     prerender=False if args.no_prerender else None, meters=args.meters,
                     out_path=args.out, out_format=fmt,
@@ -105,7 +107,14 @@ def main(argv=None) -> int:
     p.add_argument("out")
     p.add_argument("--rate", type=float, default=48000.0)
     p.add_argument("--buffer-size", type=int, default=512, help="emulated engine block size (event semantics)")
+    p.add_argument("--chunk-frames", type=int, default=1 << 17,
+                   help="frames per chunk of the gather path (engine xla, or auto's fallback)")
     p.add_argument("--format", choices=["f32", "i16", "i24", "i32"], default="f32")
+    p.add_argument("--fast-sum", action="store_true",
+                   help="gather path: sum the tracks in one torch.sum (order not fixed, not bit-parity)")
+    p.add_argument("--engine", choices=["auto", "pallas", "xla"], default="auto",
+                   help="auto: the CUDA mix kernel, the gather mix where the slot plan cannot hold "
+                        "the session; pallas: the kernel only; xla: the gather mix")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; 'cpu' renders with the plain PyTorch mix)")
     p.add_argument("--effects-mode", choices=["scan", "fir"], default="scan",
@@ -117,6 +126,9 @@ def main(argv=None) -> int:
                    help="sinc through the 4x oversampled pool and six polynomial taps only")
     p.add_argument("--meters", action="store_true",
                    help="per-track and output level meters (forces the scan finisher)")
+    p.add_argument("--pdc", action="store_true",
+                   help="plugin-delay compensation: align tracks across chain latency "
+                        "(limiter lookahead, linear-phase EQ); absorbs master latency")
     p.add_argument("--dither", choices=["none", "tpdf", "tpdf-hp"], default="none",
                    help="+-1 LSB TPDF dither before integer quantization "
                         "(tpdf-hp: high-passed, recommended for 16-bit)")

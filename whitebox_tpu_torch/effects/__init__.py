@@ -2,14 +2,24 @@
 
 Per-track chains run on the track buffer before volume/pan
 (track.cpp:600,648-662); a master-bus chain runs after the track sum,
-before the hard clip. Ported so far: the linear time-invariant family
-(``Gain``, ``Biquad``, ``ParametricEQ``), which the finishers collapse to
-biquad sections or impulse responses. Every other type arrives from the
-JAX package as an ``UnportedEffect`` and is refused by ``bounce``
-(``LinearPhaseEQ``, dynamics, delays, reverb, shaping and the registry:
-ROADMAP.md queue 1, item 6).
+before the hard clip. The linear time-invariant family (``Gain``,
+``Biquad``, ``ParametricEQ``) collapses to biquad sections or impulse
+responses in the linear finishers; the rest (``LinearPhaseEQ``, dynamics,
+delays, convolution reverb, shaping, registered user effects) finishes in
+the generic pipeline (``render/effects_generic.py``). An effect class that
+exists only in the JAX package arrives as an ``UnportedEffect``, which
+``bounce`` refuses by name.
 """
 
 from whitebox_tpu_torch.effects.base import Effect, EffectChain, UnportedEffect  # noqa: F401
-from whitebox_tpu_torch.effects.eq import Biquad, ParametricEQ, cascade_magnitude  # noqa: F401
 from whitebox_tpu_torch.effects.gain import Gain  # noqa: F401
+from whitebox_tpu_torch.effects.eq import (  # noqa: F401
+    Biquad, LinearPhaseEQ, ParametricEQ, cascade_magnitude, design_linear_phase_fir,
+)
+from whitebox_tpu_torch.effects.dynamics import Compressor, Limiter, NoiseGate  # noqa: F401
+from whitebox_tpu_torch.effects.delay import Chorus, Delay, Flanger  # noqa: F401
+from whitebox_tpu_torch.effects.reverb import ConvolutionReverb, design_room_ir  # noqa: F401
+from whitebox_tpu_torch.effects.shape import Saturator, StereoWidth  # noqa: F401
+from whitebox_tpu_torch.effects.registry import (  # noqa: F401
+    UnknownEffect, lookup_effect, register_effect, unregister_effect,
+)

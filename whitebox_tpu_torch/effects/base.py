@@ -12,19 +12,21 @@ tensors with the state threaded explicitly:
 Chunked processing with carried state equals one-shot processing up to
 f32 rounding (``tests/test_torch_effects.py``).
 
-:class:`UnportedEffect` stands in for an effect type the port has no class
-for yet (dynamics, delays, reverb, shaping, linear-phase EQ, registered
-user effects: ROADMAP.md queue 1, item 6). It keeps the type's name and
-its attributes as plain values; ``bounce`` refuses a session that holds
-one.
+:class:`UnportedEffect` stands in for an effect class that exists only in
+the JAX package (a user effect registered there: its stage runs ``jnp``
+code the port cannot call). It keeps the type's name and its attributes
+as plain values; ``bounce`` refuses a session that holds one and names
+it. Register a port class under the same name
+(``effects/registry.py::register_effect``) to render it.
 """
 
 from __future__ import annotations
 
 import torch
 
-#: what refuses an effect type without a port class
-GENERIC_EFFECTS_TODO = "ROADMAP.md queue 1, item 6 (generic effects and routing)"
+#: what refuses an effect class that exists only in the JAX package
+UNPORTED_EFFECT_TODO = ("it is registered only in the JAX package; register a port class "
+                        "under the same name with whitebox_tpu_torch.effects.register_effect")
 
 
 class Effect:
@@ -49,8 +51,18 @@ class Effect:
         """Ring-out length hint (PluginInterface tail queries)."""
         return 0
 
+    # --- the generic pipeline's stage protocol (see effects/registry.py)
+    def static_config(self) -> tuple:
+        """Hashable static config, part of the chain-grouping signature."""
+        return ()
+
+    def param_arrays(self) -> dict:
+        """Per-instance numeric params, stacked [B, ...] across a group."""
+        return {}
+
     def latency_frames(self) -> int:
-        """Processing latency (PluginInterface latency query)."""
+        """Processing latency (PluginInterface latency query); nonzero for
+        lookahead effects, it drives ``bounce(pdc=True)``."""
         return 0
 
 
@@ -98,9 +110,9 @@ class EffectChain(Effect):
 
 
 class UnportedEffect(Effect):
-    """An effect type without a port class: its type name (``type_name``,
-    e.g. ``"Compressor"``), its stage kind (``name``, e.g.
-    ``"compressor"``) and its attributes as plain values (``attrs``)."""
+    """An effect class without a port counterpart: its type name
+    (``type_name``, the class name), its stage kind (``name``) and its
+    attributes as plain values (``attrs``)."""
 
     def __init__(self, type_name: str, name: str, attrs: dict | None = None) -> None:
         super().__init__()
@@ -110,7 +122,7 @@ class UnportedEffect(Effect):
 
     def process(self, x, state):
         raise NotImplementedError(
-            f"whitebox_tpu_torch has no {self.type_name} effect yet: {GENERIC_EFFECTS_TODO}")
+            f"whitebox_tpu_torch cannot run the {self.type_name} effect: {UNPORTED_EFFECT_TODO}")
 
     def __repr__(self) -> str:
         return f"UnportedEffect({self.type_name!r})"

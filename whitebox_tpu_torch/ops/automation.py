@@ -86,9 +86,8 @@ class TrackAutomation:
     volume: AutomationLane | None = None  # linear gain
     pan: AutomationLane | None = None  # [-1, 1]
     #: timed *effect*-parameter lanes, keyed ``(slot_index, param_name)``
-    #: into the track's effect chain. Their time-varying sections are not
-    #: ported yet, so ``bounce`` refuses sessions that have any (ROADMAP.md
-    #: queue 1, item 6).
+    #: into the track's effect chain (the generic finisher evaluates them,
+    #: ``render/effects_generic.py``)
     effects: dict = field(default_factory=dict)
 
     def has_track_lanes(self) -> bool:

@@ -161,10 +161,19 @@ def finish_mix(per_track, coeffs, mcoeffs, track_gain, auto=None, *, T, C, S, Sm
     mixed = torch.cat(outs, dim=1)
     if not with_meters:
         return mixed
+    return mixed, meters_from_partials(parts, Fv)
+
+
+def meters_from_partials(parts, valid_frames: int):
+    """Chunk meter partials ``(track_peak, track_sumsq, out_peak,
+    out_sumsq)`` -> ``(track_peak, track_rms, output_peak, output_rms)``,
+    the RMS over ``valid_frames`` frames (frames past them were zeroed in
+    the partials, or are silence and ring-out, as the JAX package counts
+    them)."""
     pk, sq, opk, osq = (torch.stack(p) for p in zip(*parts))
-    denom = float(max(Fv, 1))
-    return mixed, (pk.amax(dim=0), torch.sqrt(sq.sum(dim=0) / denom),
-                   opk.amax(dim=0), torch.sqrt(osq.sum(dim=0) / denom))
+    denom = float(max(valid_frames, 1))
+    return (pk.amax(dim=0), torch.sqrt(sq.sum(dim=0) / denom),
+            opk.amax(dim=0), torch.sqrt(osq.sum(dim=0) / denom))
 
 
 def finish_mix_chunk(pt_chunk, coeffs, mcoeffs, track_gain, states, mstates, chunk_start=0, auto=None,

@@ -38,8 +38,12 @@ class RenderStats:
     compile_seconds: float = 0.0
     #: the mix kernel, plus the effects finisher when the session has one
     device_seconds: float = 0.0
-    #: the effects finisher's share of ``device_seconds`` (0 without one)
+    #: the effects finisher's share of ``device_seconds`` (0 without one,
+    #: and on the gather path, whose finisher interleaves with the mix)
     finish_seconds: float = 0.0
+    #: which mix rendered: "kernel" (the CUDA mix kernel, or its plain twin
+    #: on the CPU) or "gather" (the chunked gather mix, ``ops/mix.py``)
+    mix_path: str = ""
     #: device time of the sinc prerender's pool extension (0 without one);
     #: it runs before the mix, inside the window of ``carve_seconds``
     prerender_seconds: float = 0.0
@@ -51,6 +55,27 @@ class RenderStats:
     track_rms: np.ndarray | None = None
     output_peak: np.ndarray | None = None
     output_rms: np.ndarray | None = None
+    #: roofline cost estimate (``render/roofline.py`` CostEstimate): the
+    #: least bytes and operations this render must spend, on every path
+    cost: object = None
+    #: the card's ``(HBM bytes/s, f32 operations/s)`` peaks
+    #: (``roofline.device_peaks``); None off the card
+    peaks: tuple | None = None
+    #: EBU R128 measurement of the output (``bounce(loudness=True)``, not
+    #: ported yet: ROADMAP.md queue 1, item 9); always None here
+    loudness: object = None
+
+    @property
+    def roofline_fraction(self) -> float:
+        """The cost estimate's speed-of-light time on this card over the
+        device time it covers, ``device_seconds`` + ``prerender_seconds``
+        (the estimate holds the prerender's products; 1.0 = at the hardware
+        bound); NaN off the card, on a card without known peaks, or without
+        an estimate."""
+        seconds = self.device_seconds + self.prerender_seconds
+        if self.cost is None or self.peaks is None or seconds <= 0:
+            return float("nan")
+        return self.cost.utilization(seconds, *self.peaks)
 
     @property
     def audio_seconds(self) -> float:
@@ -74,7 +99,8 @@ class RenderStats:
             f"[carve+plan {self.carve_seconds:.4f}s, build {self.compile_seconds:.3f}s, "
             f"mix {self.device_seconds:.4f}s, readback {self.readback_seconds:.4f}s, "
             f"{self.msamples_per_sec:.0f} Msamples/s]"
-        )
+        ) + (f" [{self.cost.summary(self.peaks, self.device_seconds + self.prerender_seconds)}]"
+             if self.cost is not None else "")
 
 
 class Stopwatch:

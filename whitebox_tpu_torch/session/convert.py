@@ -16,9 +16,11 @@ import enum
 import numpy as np
 
 from whitebox_tpu_torch.core.formats import AudioFormat
+from whitebox_tpu_torch import effects as fx
 from whitebox_tpu_torch.effects import (
-    Biquad, Effect, EffectChain, Gain, ParametricEQ, UnportedEffect,
+    Biquad, Effect, EffectChain, Gain, LinearPhaseEQ, ParametricEQ, UnportedEffect,
 )
+from whitebox_tpu_torch.effects.registry import UnknownEffect, lookup_effect
 from whitebox_tpu_torch.core.meter import MeterMap, MeterPoint
 from whitebox_tpu_torch.core.tempo import TempoMap, TempoPoint
 from whitebox_tpu_torch.midi.notes import (
@@ -127,9 +129,27 @@ def _plain(v):
     return repr(v)
 
 
+#: built-in effect classes rebuilt by class name from these constructor
+#: arguments, read as attributes of the reference effect
+_BUILTIN_ARGS = {
+    "Compressor": ("threshold_db", "ratio", "knee_db", "attack_s", "release_s", "makeup_db",
+                   "detector", "rms_window_s", "sidechain"),
+    "Limiter": ("ceiling_db", "attack_s", "release_s", "lookahead_s"),
+    "NoiseGate": ("threshold_db", "range_db", "attack_s", "release_s", "hysteresis_db", "sidechain"),
+    "Delay": ("time_s", "feedback", "wet", "dry", "mode"),
+    "Chorus": ("rate_hz", "depth_s", "center_s", "voices", "wet", "dry"),
+    "Flanger": ("rate_hz", "depth_s", "center_s", "wet", "dry"),
+    "Saturator": ("drive_db", "mix"),
+    "StereoWidth": ("width",),
+}
+
+
 def _effect(e) -> Effect:
     """A port effect rebuilt from a reference effect's attributes, by class
-    name; a type without a port class becomes an :class:`UnportedEffect`."""
+    name. A user effect comes back through the port's registry under its
+    registered name (``from_dict(e.as_dict())``), an unknown persisted one
+    as an ``UnknownEffect``; a class registered only in the JAX package
+    becomes an :class:`UnportedEffect`, which ``bounce`` names."""
     kind = type(e).__name__
     if kind == "Gain":
         return Gain(e.gain_db)
@@ -137,10 +157,23 @@ def _effect(e) -> Effect:
         return Biquad(e.ftype.value, e.freq_hz, e.q, e.gain_db)
     if kind == "ParametricEQ":
         return ParametricEQ([(t.value, f, q, g) for (t, f, q, g) in e.bands])
+    if kind == "LinearPhaseEQ":
+        return LinearPhaseEQ([(t.value, f, q, g) for (t, f, q, g) in e.bands], taps=e.taps)
+    if kind == "ConvolutionReverb":
+        ir = None if e.ir_host is None else np.array(e.ir_host, dtype=np.float32, copy=True)
+        return fx.ConvolutionReverb(ir, wet=e.wet, dry=e.dry, room_seconds=e.room_seconds,
+                                    rt60_s=e.rt60_s, room_seed=e.room_seed)
+    if kind in _BUILTIN_ARGS:
+        return getattr(fx, kind)(**{a: _plain(getattr(e, a)) for a in _BUILTIN_ARGS[kind]})
     if kind == "EffectChain":
         return EffectChain([_effect(x) for x in e.effects])
-    return UnportedEffect(kind, str(getattr(e, "name", kind)),
-                          {k: _plain(v) for k, v in vars(e).items()})
+    if kind == "UnknownEffect":
+        return UnknownEffect(e.type_name, _plain(e.state))
+    name = str(getattr(e, "name", kind))
+    cls = lookup_effect(name)
+    if cls is not None and callable(getattr(e, "as_dict", None)):
+        return cls.from_dict(_plain(e.as_dict()))
+    return UnportedEffect(kind, name, {k: _plain(v) for k, v in vars(e).items()})
 
 
 def _chain(effects):
@@ -159,9 +192,10 @@ def from_reference(ref) -> Session:
     Carries tracks, clips (loop modes, fades, gains, speeds), sample and
     MIDI assets with copies of their data, the tempo and meter maps,
     buses and sends, automation lanes (volume/pan and effect-param), and
-    effect chains rebuilt as port effects (``Gain``, ``Biquad``,
-    ``ParametricEQ``; any other type as an ``UnportedEffect``, which
-    ``bounce`` refuses: ROADMAP.md queue 1, item 6). No object of the
+    effect chains rebuilt as port effects (every built-in type; a user
+    effect through the port's registry, or as an ``UnportedEffect``, which
+    ``bounce`` refuses by name, when only the JAX package registers it).
+    No object of the
     reference survives in the result. A recording input
     (``session/input.py``, not copied yet) raises ``NotImplementedError``.
     """

@@ -24,9 +24,12 @@ files are searched for recursively next to the project file
 
 from __future__ import annotations
 
+import base64
 import logging
 import os
 from pathlib import Path
+
+import numpy as np
 
 from whitebox_tpu_torch.midi.notes import MidiNote, MidiNoteBuffer
 from whitebox_tpu_torch.session.clip import AudioClipData, Clip, ClipMode, ClipType, MidiClipData
@@ -37,10 +40,6 @@ PROJECT_VERSION = 1
 
 _log = logging.getLogger("whitebox_tpu_torch.project")
 
-#: the port has the linear effects only (gain, biquad, eq): a project that
-#: stores another type neither reads nor writes
-_EFFECTS_TODO = ("whitebox_tpu_torch has only the gain, biquad and eq effects yet: "
-                 "ROADMAP.md queue 1, item 6 (generic effects)")
 _INPUT_TODO = ("whitebox_tpu_torch has no recording inputs yet (session/input.py): "
                "ROADMAP.md queue 1, item 14")
 
@@ -60,32 +59,131 @@ def find_file_recursive(root, filename: str, max_depth: int = 8):
     return None
 
 
-def _effect_to_doc(e) -> dict:
-    from whitebox_tpu_torch.effects import Biquad, Gain, ParametricEQ
+def _bands_doc(bands) -> list:
+    return [[t.value, f, q, g] for (t, f, q, g) in bands]
 
-    if isinstance(e, Gain):
+
+def _bands_from_doc(docs) -> list:
+    return [(_as_str(b[0]), float(b[1]), float(b[2]), float(b[3])) for b in docs]
+
+
+def _effect_to_doc(e) -> dict:
+    """An effect's ``fx`` document (the JAX package's ``project.py:59-128``)."""
+    from whitebox_tpu_torch import effects as fx
+    from whitebox_tpu_torch.effects.registry import UnknownEffect, type_name_of
+
+    if isinstance(e, fx.Gain):
         return {"type": "gain", "gain_db": e.gain_db}
-    if isinstance(e, Biquad):
+    if isinstance(e, fx.Biquad):
         return {"type": "biquad", "ftype": e.ftype.value, "freq": e.freq_hz, "q": e.q, "gain_db": e.gain_db}
-    if isinstance(e, ParametricEQ):
-        return {"type": "eq", "bands": [[t.value, f, q, g] for (t, f, q, g) in e.bands]}
-    raise NotImplementedError(f"cannot write effect {e!r}: {_EFFECTS_TODO}")
+    if isinstance(e, fx.ParametricEQ):
+        return {"type": "eq", "bands": _bands_doc(e.bands)}
+    if isinstance(e, fx.LinearPhaseEQ):
+        return {"type": "linphase", "taps": e.taps, "bands": _bands_doc(e.bands)}
+    if isinstance(e, fx.Compressor):
+        return {"type": "compressor", "threshold_db": e.threshold_db, "ratio": e.ratio,
+                "knee_db": e.knee_db, "attack_s": e.attack_s, "release_s": e.release_s,
+                "makeup_db": e.makeup_db, "detector": e.detector, "rms_window_s": e.rms_window_s,
+                **({"sidechain": True} if e.sidechain else {})}
+    if isinstance(e, fx.Limiter):
+        return {"type": "limiter", "ceiling_db": e.ceiling_db, "attack_s": e.attack_s,
+                "release_s": e.release_s, "lookahead_s": e.lookahead_s}
+    if isinstance(e, fx.NoiseGate):
+        return {"type": "gate", "threshold_db": e.threshold_db, "range_db": e.range_db,
+                "attack_s": e.attack_s, "release_s": e.release_s, "hysteresis_db": e.hysteresis_db,
+                **({"sidechain": True} if e.sidechain else {})}
+    if isinstance(e, fx.Delay):
+        return {"type": "delay", "time_s": e.time_s, "feedback": e.feedback,
+                "wet": e.wet, "dry": e.dry, "mode": e.mode}
+    if isinstance(e, fx.Flanger):  # Flanger subclasses Chorus: check first
+        return {"type": "flanger", "rate_hz": e.rate_hz, "depth_s": e.depth_s,
+                "center_s": e.center_s, "wet": e.wet, "dry": e.dry}
+    if isinstance(e, fx.Chorus):
+        return {"type": "chorus", "rate_hz": e.rate_hz, "depth_s": e.depth_s,
+                "center_s": e.center_s, "voices": e.voices, "wet": e.wet, "dry": e.dry}
+    if isinstance(e, fx.ConvolutionReverb):
+        doc = {"type": "convreverb", "wet": e.wet, "dry": e.dry, "room_seconds": e.room_seconds,
+               "rt60_s": e.rt60_s, "room_seed": e.room_seed}
+        if e.ir_host is not None:
+            # a custom IR embeds inline as base64 of f32 LE bytes (the
+            # document packs with use_bin_type=False)
+            doc["ir_shape"] = list(e.ir_host.shape)
+            doc["ir_data"] = base64.b64encode(e.ir_host.astype("<f4").tobytes()).decode("ascii")
+        return doc
+    if isinstance(e, fx.Saturator):
+        return {"type": "saturator", "drive_db": e.drive_db, "mix": e.mix}
+    if isinstance(e, fx.StereoWidth):
+        return {"type": "width", "width": e.width}
+    if isinstance(e, UnknownEffect):  # the original document, verbatim
+        return {"type": e.type_name, "state": e.as_dict()}
+    reg_name = type_name_of(type(e))
+    if reg_name is not None:  # a registered user effect: type + state blob
+        return {"type": reg_name, "state": e.as_dict()}
+    raise TypeError(f"cannot serialize effect {e!r}: not a built-in and not registered "
+                    f"(see whitebox_tpu_torch.effects.registry.register_effect)")
 
 
 def _effect_from_doc(d):
-    from whitebox_tpu_torch.effects import Biquad, Gain, ParametricEQ
+    from whitebox_tpu_torch import effects as fx
+    from whitebox_tpu_torch.effects.registry import UnknownEffect, lookup_effect
 
     t = _as_str(d.get("type"))
     if t == "gain":
-        return Gain(float(d.get("gain_db", 0.0)))
+        return fx.Gain(float(d.get("gain_db", 0.0)))
     if t == "biquad":
-        return Biquad(_as_str(d.get("ftype", "lowpass")), float(d.get("freq", 1000.0)),
-                      float(d.get("q", 0.7071067811865476)), float(d.get("gain_db", 0.0)))
+        return fx.Biquad(_as_str(d.get("ftype", "lowpass")), float(d.get("freq", 1000.0)),
+                         float(d.get("q", 0.7071067811865476)), float(d.get("gain_db", 0.0)))
     if t == "eq":
-        return ParametricEQ([(_as_str(b[0]), float(b[1]), float(b[2]), float(b[3])) for b in d.get("bands", [])])
-    raise NotImplementedError(f"cannot read effect type {t!r}: {_EFFECTS_TODO}")
-
-
+        return fx.ParametricEQ(_bands_from_doc(d.get("bands", [])))
+    if t == "linphase":
+        return fx.LinearPhaseEQ(_bands_from_doc(d.get("bands", [])), taps=int(d.get("taps", 2047)))
+    if t == "compressor":
+        return fx.Compressor(float(d.get("threshold_db", -18.0)), float(d.get("ratio", 4.0)),
+                             knee_db=float(d.get("knee_db", 6.0)), attack_s=float(d.get("attack_s", 0.005)),
+                             release_s=float(d.get("release_s", 0.1)), makeup_db=float(d.get("makeup_db", 0.0)),
+                             detector=_as_str(d.get("detector", "peak")),
+                             rms_window_s=float(d.get("rms_window_s", 0.03)),
+                             sidechain=bool(d.get("sidechain", False)))
+    if t == "limiter":
+        return fx.Limiter(float(d.get("ceiling_db", -0.3)), attack_s=float(d.get("attack_s", 0.001)),
+                          release_s=float(d.get("release_s", 0.05)),
+                          lookahead_s=float(d.get("lookahead_s", 0.005)))
+    if t == "gate":
+        return fx.NoiseGate(float(d.get("threshold_db", -50.0)), range_db=float(d.get("range_db", 80.0)),
+                            attack_s=float(d.get("attack_s", 0.001)), release_s=float(d.get("release_s", 0.1)),
+                            hysteresis_db=float(d.get("hysteresis_db", 0.0)),
+                            sidechain=bool(d.get("sidechain", False)))
+    if t == "delay":
+        return fx.Delay(float(d.get("time_s", 0.25)), float(d.get("feedback", 0.35)),
+                        wet=float(d.get("wet", 0.35)), dry=float(d.get("dry", 1.0)),
+                        mode=_as_str(d.get("mode", "stereo")))
+    if t == "chorus":
+        return fx.Chorus(rate_hz=float(d.get("rate_hz", 0.8)), depth_s=float(d.get("depth_s", 0.004)),
+                         center_s=float(d.get("center_s", 0.015)), voices=int(d.get("voices", 2)),
+                         wet=float(d.get("wet", 0.5)), dry=float(d.get("dry", 1.0)))
+    if t == "flanger":
+        return fx.Flanger(rate_hz=float(d.get("rate_hz", 0.25)), depth_s=float(d.get("depth_s", 0.002)),
+                          center_s=float(d.get("center_s", 0.003)), wet=float(d.get("wet", 0.7)),
+                          dry=float(d.get("dry", 1.0)))
+    if t == "convreverb":
+        ir = None
+        if "ir_data" in d:
+            shape = tuple(int(v) for v in d["ir_shape"])
+            ir = np.frombuffer(base64.b64decode(_as_str(d["ir_data"])), dtype="<f4").reshape(shape).copy()
+        return fx.ConvolutionReverb(ir, wet=float(d.get("wet", 0.3)), dry=float(d.get("dry", 1.0)),
+                                    room_seconds=float(d.get("room_seconds", 1.2)),
+                                    rt60_s=float(d.get("rt60_s", 0.9)), room_seed=int(d.get("room_seed", 0)))
+    if t == "saturator":
+        return fx.Saturator(float(d.get("drive_db", 6.0)), float(d.get("mix", 1.0)))
+    if t == "width":
+        return fx.StereoWidth(float(d.get("width", 1.0)))
+    state = d.get("state") or {}
+    cls = lookup_effect(t)
+    if cls is not None:
+        return cls.from_dict(state)
+    _log.warning("unknown effect type %r on load: preserved as a bypass "
+                 "(register it via effects.registry.register_effect)", t)
+    return UnknownEffect(t, state)
 def _chain_to_doc(effects) -> list:
     from whitebox_tpu_torch.effects import EffectChain
 

@@ -335,8 +335,7 @@ class Session:
         else:
             rt.automation = None
         tmp.tracks = [rt]
-        # the port's bounce renders on ``device`` and raises on what it
-        # does not render yet (effect chains and their lanes among them)
+        # the chain and its lanes through the port's bounce, on ``device``
         res = bounce(tmp, sample_rate, buffer_size=buffer_size, device=device)
 
         asset = self.sample_table.add_sample(

@@ -31,6 +31,7 @@ concerns and do not arise in a fresh render.
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -471,7 +472,7 @@ def carve_session(
     pool: SamplePool | None = None,
     out_channels: int = 2,
     slow_emit: str = "blocks",
-    native: bool = True,
+    native: bool | None = None,
 ) -> tuple[SegmentTable, SamplePool]:
     """Compile a session into (SegmentTable, SamplePool) for rendering.
 
@@ -492,6 +493,8 @@ def carve_session(
     to the Python walk; ``tests/test_torch_host.py`` holds the two against
     the JAX package's carve) when ``io.native`` built the host library (it
     needs ``g++``); the Python walk otherwise, or with ``native=False``.
+    ``native=None`` (the default) takes the C++ walk unless the environment
+    sets ``WBTPU_NO_NATIVE_CARVE`` or ``WBTPU_NO_NATIVE``.
     """
     start = session.playhead_start if playhead_start is None else playhead_start
     transport = BlockTransport(float(sample_rate), int(buffer_size), session.beat_duration, start,
@@ -507,6 +510,8 @@ def carve_session(
     if pool is None:
         pool = build_sample_pool(session, out_channels=out_channels, _stamp=stamp)
 
+    if native is None:
+        native = not (os.environ.get("WBTPU_NO_NATIVE_CARVE") or os.environ.get("WBTPU_NO_NATIVE"))
     native_out = None
     if native:
         # tempo-mapped sessions ride the C++ walk too: every beat->sample
