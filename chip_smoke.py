@@ -13,7 +13,9 @@ hand kernel, the biquad cascade), and 128-track sessions of resampled
 clips in the export-quality interpolation modes: Catmull-Rom and six
 polynomial taps in the kernel (K2-catmull, K2-poly) and the sinc
 prerender, which extends the sample pool on the card and mixes speed-1
-rows over it with the same kernel. It checks the results by the repo's
+rows over it with the same kernel, a routed session on group buses with a
+sidechain duck, and an arrangement with MIDI tracks through the synth.
+It checks the results by the repo's
 own references. It imports nothing of JAX or of the JAX package and reads
 no ``.wb`` project. Phases, one or more lines each:
 
@@ -105,7 +107,24 @@ no ``.wb`` project. Phases, one or more lines each:
     package's 6 GiB rule through the gather path (no mix-kernel launch),
     held to each other (relative RMS 1e-5); 3 warm iterations of each;
     the headline through ``engine="xla"`` is checked and timed in phase 4;
-11. the script's wall time, one JSON line of kernels (each entry's
+11. the routed finisher on a small session with every routing feature
+    (groups, post/pre/sidechain sends, a ducking bus, a generic bus with a
+    fader lane, PDC): on the card within relative RMS 1e-5 of the CPU's
+    and 5e-5 of the f64 ``reference_routed_finish``; its bounce one K4
+    launch, the gather path none;
+12. routed_sidechain_128trk (the JAX package's config 6 exactly: 8 group
+    buses, a sidechain duck, sends, a master limiter): one K4 launch,
+    then the routed finisher; its first 10 s against the CPU's (1e-5),
+    its first 2 s against the f64 reference (5e-5), ``engine="xla"`` (no
+    mix-kernel launch, within 1e-6 of the K4 path at equal chunks); 5
+    warm iterations, the stages by ``torch.profiler`` (``wb.route.matmul``,
+    ``wb.bus.<kind>``, ...) and the chunk sweep (2^15-2^20);
+13. midi_synth_128trk (112 audio tracks and 16 MIDI tracks of 960 notes):
+    one K4 launch, the synth on the card bit-equal to
+    ``render_synth_numpy``, the first 10 s bit-equal to the CPU bounce,
+    ``engine="xla"`` (no mix-kernel launch) bit-equal to the K4 path; 5
+    warm iterations, the synth's and the finisher's device times;
+14. the script's wall time, one JSON line of kernels (each entry's
     ``cell_launches`` the counts read in those cells), then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -140,6 +159,8 @@ INTERP_ATOL, EXT_ATOL, SINE_SNR_DB = 3e-6, 1e-6, 90.0
 GENERIC_REL_RMS, GENERIC_F64_REL_RMS, LANES_F64_REL_RMS = 1e-5, 5e-5, 2e-4
 #: chunk lengths swept for the generic finisher on the card (CUDA_CHUNK_CAP)
 GENERIC_CHUNK_SWEEP = (1 << 15, 1 << 16, 1 << 17, 1 << 18, 1 << 19, 1 << 20, 1 << 21)
+#: chunk lengths swept for the routed finisher on the card
+ROUTED_CHUNK_SWEEP = (1 << 15, 1 << 16, 1 << 17, 1 << 18, 1 << 19, 1 << 20)
 
 
 class SmokeFailure(RuntimeError):
@@ -1705,6 +1726,116 @@ def generic_fx_128trk(duration=60.0):
     return s
 
 
+def routed_sidechain_128trk(duration=60.0):
+    """The JAX package's benchmark config 6 (``benchmarks/run_all.py:451-475``)
+    exactly: 128 tracks, 16 to each of 8 group buses (even buses a two-band
+    ParametricEQ, bus 1 a -24 dB 4:1 sidechain compressor keyed by track
+    127's sidechain send, buses 3, 5 and 7 a -18 dB 3:1 compressor), a
+    post-fader send from track 3 to bus 5 (-6 dB), a pre-fader send from
+    track 40 to bus 7 (-9 dB), a 25 Hz highpass and a -0.5 dB limiter on
+    the master."""
+    from whitebox_tpu_torch.effects import Biquad, Compressor, EffectChain, Limiter, ParametricEQ
+    from whitebox_tpu_torch.render.demo import make_demo_session
+
+    s = make_demo_session(n_tracks=128, duration_seconds=duration, sample_rate=48000, seed=9)
+    for i in range(8):
+        b = s.add_bus(f"grp{i}", volume_db=-1.5, pan=0.05 * (i - 4))
+        if i == 1:
+            b.effects = EffectChain([Compressor(-24.0, 4.0, sidechain=True)])
+        elif i % 2 == 0:
+            b.effects = EffectChain([ParametricEQ([("lowshelf", 90.0, 0.707, 1.5),
+                                                   ("peak", 900.0 + 200.0 * i, 1.0, -2.0)])])
+        else:
+            b.effects = EffectChain([Compressor(-18.0, 3.0)])
+    for t in range(128):
+        s.set_track_output(t, t // 16)
+    s.add_send(127, 1, gain_db=0.0, sidechain=True)
+    s.add_send(3, 5, gain_db=-6.0)
+    s.add_send(40, 7, gain_db=-9.0, pre_fader=True)
+    s.master_effects = EffectChain([Biquad("highpass", 25.0), Limiter(-0.5)])
+    return s
+
+
+def add_midi_tracks(s, n_tracks: int, seed: int, duration: float, bpm: float = 120.0):
+    """``n_tracks`` MIDI tracks, each one clip over ``duration`` seconds:
+    4-voice chords on every eighth note, each note 0.75 beat long (two
+    chords overlap: 8 voices sound), keys 36-96 and velocities 0.3-1.0
+    from ``seed``."""
+    import numpy as np
+
+    from whitebox_tpu_torch.midi.notes import MidiNote, MidiNoteBuffer
+
+    rng = np.random.default_rng(seed)
+    beats = duration * bpm / 60.0
+    for m in range(n_tracks):
+        notes = [MidiNote(0.5 * i, 0.5 * i + 0.75, key=int(k), velocity=float(v))
+                 for i in range(int(beats / 0.5))
+                 for k, v in zip(rng.integers(36, 97, 4), rng.uniform(0.3, 1.0, 4))]
+        tr = s.add_track(f"midi{m}", volume_db=-6.0, pan=float(rng.uniform(-0.7, 0.7)))
+        s.add_midi_clip(tr, "chords", 0.0, beats, asset=s.midi_table.create_midi(MidiNoteBuffer(notes)))
+    return s
+
+
+def midi_synth_128trk(duration=60.0):
+    """``make_demo_session(n_tracks=112, 60 s, 48 kHz, seed 7)`` plus 16 MIDI
+    tracks (:func:`add_midi_tracks`, seed 13): 960 notes a track."""
+    from whitebox_tpu_torch.render.demo import make_demo_session
+
+    s = make_demo_session(n_tracks=112, duration_seconds=duration, sample_rate=48000, seed=7)
+    return add_midi_tracks(s, 16, 13, duration)
+
+
+def routed_small(seed=5):
+    """A small routed session: 6 tracks, a ducking bus keyed by a sidechain
+    send, a generic bus fed by post- and pre-fader sends with a fader lane,
+    an EQ group, a master highpass and lookahead limiter."""
+    from whitebox_tpu_torch.effects import (
+        Biquad, Compressor, Delay, EffectChain, Limiter, NoiseGate, ParametricEQ,
+    )
+    from whitebox_tpu_torch.ops.automation import AutomationLane, TrackAutomation
+    from whitebox_tpu_torch.render.demo import make_demo_session
+
+    s = make_demo_session(n_tracks=6, duration_seconds=3.0, sample_rate=48000, seed=seed)
+    eq = s.add_bus("eq", volume_db=-2.0, pan=0.2)
+    eq.effects = EffectChain([ParametricEQ([("lowshelf", 120.0, 0.707, 2.5), ("peak", 2500.0, 1.2, -2.0)])])
+    duck = s.add_bus("duck")
+    duck.effects = EffectChain([Compressor(-30.0, 8.0, attack_s=0.002, release_s=0.08, sidechain=True),
+                                NoiseGate(-50.0, sidechain=True)])
+    fxb = s.add_bus("fx", volume_db=-6.0)
+    fxb.effects = EffectChain([Delay(0.03, 0.35), Compressor(-18.0, 3.0)])
+    fxb.automation = TrackAutomation(volume=AutomationLane().add(0.0, 1.0).add(4.0, 0.2))
+    s.set_track_output(0, 0)
+    s.set_track_output(1, 0)
+    s.set_track_output(2, 1)
+    s.add_send(5, 1, gain_db=0.0, sidechain=True)
+    s.add_send(3, 2, gain_db=-3.0)
+    s.add_send(4, 2, gain_db=-4.5, pre_fader=True)
+    s.master_effects = EffectChain([Biquad("highpass", 30.0), Limiter(-1.0, lookahead_s=0.001)])
+    return s
+
+
+def midi_small(seed=6):
+    """4 audio tracks and 2 MIDI tracks of overlapping chords, 3 s."""
+    from whitebox_tpu_torch.render.demo import make_demo_session
+
+    s = make_demo_session(n_tracks=4, duration_seconds=3.0, sample_rate=48000, seed=seed)
+    return add_midi_tracks(s, 2, seed, 3.0)
+
+
+def synth_rows_numpy(session, frames: int, buffer_size: int = 512) -> dict:
+    """{MIDI track: its synth by ``render_synth_numpy``} on the grid of
+    ``frames // buffer_size`` blocks, as ``bounce`` carves it."""
+    from whitebox_tpu_torch.midi.synth import build_slot_segments, render_synth_numpy
+    from whitebox_tpu_torch.midi.voice import carve_midi_events
+
+    out = {}
+    for t, evs in carve_midi_events(session, RATE, buffer_size, frames // buffer_size).items():
+        ns, segs = build_slot_segments(evs)
+        if segs is not None:
+            out[t] = render_synth_numpy(segs, RATE, frames, ns)
+    return out
+
+
 def mix_launches() -> dict:
     from whitebox_tpu_torch.ops import mix_cuda
 
@@ -1927,7 +2058,6 @@ def phase_generic(torch) -> dict:
     import numpy as np
 
     from whitebox_tpu_torch.ops import biquad_cuda, mix_cuda
-    from whitebox_tpu_torch.ops.mix_plan import build_plan
     from whitebox_tpu_torch.render import effects_generic as gen
     from whitebox_tpu_torch.render.bounce import _effects_finisher, bounce
     from whitebox_tpu_torch.render.effects_pipeline import _chains_of
@@ -1993,25 +2123,7 @@ def phase_generic(torch) -> dict:
           f"{ {t: f'{v:.3g}' for t, v in sig.items()} }, master {rr_master:.3g} (< {GENERIC_F64_REL_RMS})")
     del stems, x, on_cpu
 
-    rows = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        t_, p_ = carve_session(session, RATE, buffer_size=512, pool=pool, slow_emit="runs")
-        t1 = time.perf_counter()
-        plan = build_plan(t_, p_, session)
-        t2 = time.perf_counter()
-        r = mix_cuda.CudaMixRenderer(t_, p_, session, device="cuda", plan=plan, pool_device=warm.pool_device)
-        t3 = time.perf_counter()
-        finish = _effects_finisher(session, r, plan, RATE, C, "scan", False, dev)
-        t4 = time.perf_counter()
-        finish(r.render_device_per_track())
-        torch.cuda.synchronize()
-        t5 = time.perf_counter()
-        rows.append((t1 - t0, t2 - t1, t3 - t2, t4 - t3, t5 - t4, t5 - t0))
-        del r, finish
-    carve_s, plan_s, upload_s, prep_s, launch_s, e2e_med = (statistics.median(c) for c in zip(*rows))
-    e2e_best = min(row[-1] for row in rows)
+    legs = _finisher_rows(torch, session, pool, warm.pool_device, C, "scan")
     finish = _effects_finisher(session, warm, p, RATE, C, "scan", False, dev)
     k4_ms, _ = _event_ms(torch, lambda: mix_cuda.mix_per_track_cuda(warm.pool_device, warm.tables, p.n_tiles,
                                                                     p.tile, C), 10)
@@ -2028,11 +2140,8 @@ def phase_generic(torch) -> dict:
     stats = {
         "cell": name, "tracks": T, "audio_seconds": duration, "frames": int(p.total_frames),
         "groups": [[len(g.track_idx), [k for k, _, _ in g.stages]] for g in fx.groups],
-        "master": [k for k, _, _ in fx.master.stages], "chunk": chunk,
-        "e2e_ms_median": e2e_med * 1e3, "e2e_ms_best": e2e_best * 1e3,
-        "rtf_median": duration / e2e_med, "carve_ms": carve_s * 1e3, "plan_ms": plan_s * 1e3,
-        "upload_ms": upload_s * 1e3, "fx_prep_ms": prep_s * 1e3, "launch_to_sync_ms": launch_s * 1e3,
-        "k4_ms": k4_ms, "finish_ms": finish_ms, "finish_ms_all": finish_all,
+        "master": [k for k, _, _ in fx.master.stages], "chunk": chunk, **legs,
+        "rtf_median": duration / (legs["e2e_ms_median"] / 1e3), "k4_ms": k4_ms, "finish_ms": finish_ms, "finish_ms_all": finish_all,
         "stage_ms": parts, "chunk_sweep": {str(c): v for c, v in sweep.items()},
         # the card's busy time in one finisher call (torch.profiler, kernels'
         # own device time), against the call's event time: its idle share
@@ -2137,6 +2246,295 @@ def _long_rows(torch, bounce_mod, session, n=3):
     return rows
 
 
+def _finisher_rows(torch, session, pool, pool_dev, C, effects_mode, n=5):
+    """``n`` warm carve+plan+upload+preparation+K4+finisher iterations ->
+    medians and best (seconds): carve, plan, upload, prep, launch-to-sync, e2e."""
+    from whitebox_tpu_torch.ops import mix_cuda
+    from whitebox_tpu_torch.ops.mix_plan import build_plan
+    from whitebox_tpu_torch.render.bounce import _effects_finisher
+    from whitebox_tpu_torch.timeline.carve import carve_session
+
+    dev = torch.device("cuda")
+    rows = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t_, p_ = carve_session(session, RATE, buffer_size=512, pool=pool, slow_emit="runs")
+        t1 = time.perf_counter()
+        plan = build_plan(t_, p_, session)
+        t2 = time.perf_counter()
+        r = mix_cuda.CudaMixRenderer(t_, p_, session, device="cuda", plan=plan, pool_device=pool_dev)
+        t3 = time.perf_counter()
+        finish = _effects_finisher(session, r, plan, RATE, C, effects_mode, False, dev)
+        t4 = time.perf_counter()
+        finish(r.render_device_per_track())
+        torch.cuda.synchronize()
+        t5 = time.perf_counter()
+        rows.append((t1 - t0, t2 - t1, t3 - t2, t4 - t3, t5 - t4, t5 - t0))
+        del r, finish
+    med = [statistics.median(c) for c in zip(*rows)]
+    return {"e2e_ms_median": med[5] * 1e3, "e2e_ms_best": min(r[-1] for r in rows) * 1e3,
+            "carve_ms": med[0] * 1e3, "plan_ms": med[1] * 1e3, "upload_ms": med[2] * 1e3,
+            "fx_prep_ms": med[3] * 1e3, "launch_to_sync_ms": med[4] * 1e3}
+
+
+def phase_routed_small(torch) -> None:
+    """The routed finisher on the card against the CPU (relative RMS 1e-5)
+    and the f64 reference (5e-5) on a small session with every routing
+    feature, and its bounce: one K4 launch, the gather path none."""
+    import numpy as np
+
+    from whitebox_tpu_torch.render import routing as rt
+    from whitebox_tpu_torch.render.bounce import bounce
+    from whitebox_tpu_torch.render.effects_pipeline import prepare_automation_tables
+    from whitebox_tpu_torch.timeline.carve import carve_session, render_segments_per_track_numpy
+
+    s = routed_small()
+    table, pool = carve_session(s, RATE, buffer_size=512)
+    pt = render_segments_per_track_numpy(table, pool)
+    tg = np.array([[np.float32((np.float32(0.0) if t.mute else t.volume_linear) * np.float32(t.pan_coeffs[c]))
+                    for c in range(2)] for t in s.tracks], np.float32)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        rfx = rt.prepare_routed_fx(s, RATE, 2, device=dev)
+        fin = rt.make_routed_finisher(rfx, len(s.tracks), 2, chunk=4096, pdc=True, device=dev)
+        outs[dev] = fin(torch.from_numpy(pt).to(dev), torch.from_numpy(tg).to(dev),
+                        prepare_automation_tables(s, RATE, device=dev)).cpu().numpy()
+    ref = rt.reference_routed_finish(pt, s, RATE, pdc=True)
+    rr_cpu, rr_f64 = rel_rms(outs["cuda"], outs["cpu"]), rel_rms(outs["cuda"], ref)
+    check(float(np.abs(ref).max()) > 0.01, "routed_small: silent reference")
+    check(rr_cpu < GENERIC_REL_RMS, f"routed_small: card vs CPU relative RMS {rr_cpu:.3g}")
+    check(rr_f64 < GENERIC_F64_REL_RMS, f"routed_small: card vs f64 relative RMS {rr_f64:.3g}")
+    reset_launches()
+    k4 = bounce(s, RATE, device="cuda", pdc=True)
+    k4_launches = mix_launches()
+    reset_launches()
+    gather = bounce(s, RATE, device="cuda", engine="xla", chunk_frames=8192)
+    gather_launches = mix_launches()
+    check(k4.stats.mix_path == "kernel" and k4_launches == {"mix": 0, "auto": 0, "per_track": 1},
+          f"routed_small: mix launches {k4_launches} (want one K4)")
+    check(gather.stats.mix_path == "gather" and not any(gather_launches.values()),
+          f"routed_small: the gather path launched {gather_launches}")
+    cpu = bounce(s, RATE, device="cpu", engine="xla", chunk_frames=8192).audio
+    rr_gather = rel_rms(gather.audio, cpu)
+    check(rr_gather < GENERIC_REL_RMS, f"routed_small: gather bounce card vs CPU {rr_gather:.3g}")
+    print(f"[routed-small] routed finisher (PDC) on the card vs CPU relative RMS {rr_cpu:.3g} (< "
+          f"{GENERIC_REL_RMS}), vs f64 reference_routed_finish {rr_f64:.3g} (< {GENERIC_F64_REL_RMS}); "
+          f"bounce: K4 launches {k4_launches['per_track']}, gather path launches {gather_launches}, "
+          f"gather card vs CPU {rr_gather:.3g}")
+
+
+def phase_routed(torch) -> dict:
+    """``routed_sidechain_128trk`` (config 6): one K4 launch then the routed
+    finisher; its first 10 s on the card against the CPU's (1e-5), its
+    first 2 s against the f64 ``reference_routed_finish`` (5e-5); the same
+    session through ``engine="xla"`` (no mix-kernel launch, 1e-6 off the
+    K4 path at equal chunks); 5 warm iterations, the stages by
+    ``torch.profiler`` (``wb.route.matmul``, ``wb.bus.<kind>``, ...) and
+    the chunk sweep that chose the card's default."""
+    import numpy as np
+
+    from whitebox_tpu_torch.ops import biquad_cuda, mix_cuda
+    from whitebox_tpu_torch.render import routing as rt
+    from whitebox_tpu_torch.render.bounce import _effects_finisher, bounce
+    from whitebox_tpu_torch.render.effects_pipeline import prepare_automation_tables
+    from whitebox_tpu_torch.render.roofline import fx_cost, routing_cost
+    from whitebox_tpu_torch.timeline.carve import carve_session
+
+    name, duration = "routed_sidechain_128trk", 60.0
+    session = routed_sidechain_128trk(duration)
+    dev = torch.device("cuda")
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res = bounce(session, RATE, device="cuda")
+    bounce_peak = torch.cuda.max_memory_allocated() / 1e9
+    k4_launches, casc = mix_launches(), biquad_cuda.biquad_cascade_launches
+    check(res.stats.mix_path == "kernel" and k4_launches == {"mix": 0, "auto": 0, "per_track": 1},
+          f"{name}: path {res.stats.mix_path}, mix launches {k4_launches} (want one K4)")
+    check(casc > 0, f"{name}: the EQ buses and the master highpass never ran the cascade kernel")
+    check(np.isfinite(res.audio).all() and float(np.abs(res.audio).max()) > 0.01, f"{name}: output")
+    print(f"[{name}] bounce(device='cuda'): {res.stats.summary()}; finisher "
+          f"{res.stats.finish_seconds * 1e3:.3f} ms; K4 launches={k4_launches['per_track']}; "
+          f"cascade kernel launches={casc}; peak memory {bounce_peak:.2f} GB")
+
+    table, pool = carve_session(session, RATE, buffer_size=512, slow_emit="runs")
+    warm = mix_cuda.CudaMixRenderer(table, pool, session, device="cuda")
+    p = warm.plan
+    pt = warm.render_device_per_track()
+    tg = warm.tables["track_gain"]
+    T, C = p.num_tracks, p.channels
+    rfx = rt.prepare_routed_fx(session, RATE, C, device=dev)
+    chunk = rt.routed_auto_chunk_frames(rfx, device=dev)
+    f10, f2 = int(10 * RATE), int(2 * RATE)
+    t0 = time.perf_counter()
+    on_card = rt.make_routed_finisher(rfx, T, C, chunk=chunk, device=dev, valid_frames=f10)(
+        pt[:, :, :f10], tg).cpu().numpy()
+    rfx_cpu = rt.prepare_routed_fx(session, RATE, C)
+    on_cpu = rt.make_routed_finisher(rfx_cpu, T, C, chunk=chunk, valid_frames=f10)(
+        pt[:, :, :f10].cpu(), tg.cpu()).numpy()
+    cpu_s = time.perf_counter() - t0
+    rr_cpu = rel_rms(on_card, on_cpu)
+    check(rr_cpu < GENERIC_REL_RMS, f"{name}: routed finisher on the card {rr_cpu:.3g} off the CPU's")
+    rr_bounce = rel_rms(on_card, res.audio[:, :f10])
+    check(rr_bounce < GENERIC_REL_RMS, f"{name}: the bounce's first 10 s {rr_bounce:.3g} off the finisher's")
+    t0 = time.perf_counter()
+    ref = rt.reference_routed_finish(pt[:, :, :f2].cpu().numpy(), session, RATE, C)
+    ref_s = time.perf_counter() - t0
+    short = rt.make_routed_finisher(rfx, T, C, chunk=chunk, device=dev)(pt[:, :, :f2], tg).cpu().numpy()
+    rr_f64 = rel_rms(short, ref)
+    check(rr_f64 < GENERIC_F64_REL_RMS, f"{name}: first 2 s {rr_f64:.3g} off reference_routed_finish")
+    print(f"[{name}] routed finisher's first 10 s on the card vs the CPU relative RMS {rr_cpu:.3g} (< "
+          f"{GENERIC_REL_RMS}; CPU {cpu_s:.1f} s), the bounce's {rr_bounce:.3g}; first 2 s vs the f64 "
+          f"reference_routed_finish {rr_f64:.3g} (< {GENERIC_F64_REL_RMS}; {ref_s:.1f} s)")
+    del on_cpu, ref, short
+
+    reset_launches()
+    xla = bounce(session, RATE, device="cuda", engine="xla", chunk_frames=chunk)
+    xla_launches = mix_launches()
+    rr_xla = rel_rms(xla.audio, res.audio)
+    check(xla.stats.mix_path == "gather" and not any(xla_launches.values()),
+          f"{name}: engine='xla' took {xla.stats.mix_path}, mix launches {xla_launches}")
+    check(xla.audio.shape == res.audio.shape and rr_xla < 1e-6,
+          f"{name}: engine='xla' {rr_xla:.3g} off the K4 path")
+    print(f"[{name}] bounce(engine='xla', chunk_frames={chunk}): {xla.stats.summary()}; mix launches "
+          f"{xla_launches}; vs the K4 path relative RMS {rr_xla:.3g} (< 1e-06)")
+
+    torch.cuda.reset_peak_memory_stats()
+    legs = _finisher_rows(torch, session, pool, warm.pool_device, C, "routed")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    finish = _effects_finisher(session, warm, p, RATE, C, "routed", False, dev)
+    k4_ms, _ = _event_ms(torch, lambda: mix_cuda.mix_per_track_cuda(warm.pool_device, warm.tables, p.n_tiles,
+                                                                    p.tile, C), 10)
+    finish_ms, finish_all = _event_ms(torch, lambda: finish(pt), 3)
+    busy_ms, parts = card_busy_ms(torch, lambda: finish(pt))
+    auto = prepare_automation_tables(session, RATE, device=dev)
+    sweep = {}
+    for c in ROUTED_CHUNK_SWEEP:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fin = rt.make_routed_finisher(rfx, T, C, chunk=c, device=dev, valid_frames=p.total_frames)
+        ms, _ = _event_ms(torch, lambda: fin(pt, tg, auto), 3)
+        sweep[c] = {"ms": ms, "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    cost = fx_cost(session, p.total_frames, C)
+    for k, (b, f) in routing_cost(session, p.total_frames, C).terms.items():
+        cost.add(k, b, f)
+    stats = {
+        "cell": name, "tracks": T, "buses": rfx.num_buses, "audio_seconds": duration,
+        "frames": int(p.total_frames),
+        "bus_groups": [[np.asarray(g.track_idx).tolist(), [k for k, _, _ in g.stages]] for g in rfx.bus_groups],
+        "master": [k for k, _, _ in rfx.fx.master.stages], "chunk": chunk, **legs,
+        "rtf_median": duration / (legs["e2e_ms_median"] / 1e3),
+        "k4_ms": k4_ms, "finish_ms": finish_ms, "finish_ms_all": finish_all,
+        "finish_busy_ms": busy_ms, "stage_ms": parts,
+        "finish_idle_share": None if busy_ms is None else 1.0 - busy_ms / finish_ms,
+        "card_idle_share": 1.0 - (k4_ms + (finish_ms if busy_ms is None else busy_ms)) / legs["e2e_ms_median"],
+        "finish_bound_ms": least_ms(cost.hbm_bytes, cost.mxu_flops)["bound_ms"],
+        "finish_bound_bytes": cost.hbm_bytes, "chunk_sweep": {str(c): v for c, v in sweep.items()},
+        "xla_device_ms": xla.stats.device_seconds * 1e3, "xla_wall_ms": xla.stats.wall_seconds * 1e3,
+        "bounce_peak_mem_gb": bounce_peak, "peak_mem_gb": peak,
+        "k4_launches": k4_launches["per_track"], "cascade_launches": casc,
+        "xla_launches": xla_launches,
+    }
+    print(f"[{name}] " + json.dumps(stats))
+    print(f"[{name}] " + sh(["nvidia-smi", "--query-gpu=name,power.limit,power.draw,clocks.sm,"
+                             "temperature.gpu", "--format=csv,noheader"]))
+    return stats
+
+
+def phase_midi(torch) -> dict:
+    """``midi_synth_128trk``: one K4 launch, the synth added on the card,
+    the scan finisher; the synth rows bit-equal to ``render_synth_numpy``,
+    the first 10 s bit-equal to the same bounce on the CPU, the same
+    session through ``engine="xla"`` (no mix-kernel launch) bit-equal to
+    the K4 path; 5 warm iterations, the synth's and the finisher's device
+    times."""
+    import numpy as np
+
+    from whitebox_tpu_torch.ops import biquad_cuda, mix_cuda
+    from whitebox_tpu_torch.render.bounce import (
+        _add_synth, _effects_finisher, _prepare_synth_tables, bounce,
+    )
+    from whitebox_tpu_torch.timeline.carve import carve_session
+
+    name, duration = "midi_synth_128trk", 60.0
+    session = midi_synth_128trk(duration)
+    dev = torch.device("cuda")
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res = bounce(session, RATE, device="cuda")
+    bounce_peak = torch.cuda.max_memory_allocated() / 1e9
+    k4_launches, casc = mix_launches(), biquad_cuda.biquad_cascade_launches
+    check(res.stats.mix_path == "kernel" and k4_launches == {"mix": 0, "auto": 0, "per_track": 1},
+          f"{name}: path {res.stats.mix_path}, mix launches {k4_launches} (want one K4)")
+    check(np.isfinite(res.audio).all() and float(np.abs(res.audio).max()) > 0.01, f"{name}: output")
+    print(f"[{name}] bounce(device='cuda'): {res.stats.summary()}; finisher (synth + scan) "
+          f"{res.stats.finish_seconds * 1e3:.3f} ms; K4 launches={k4_launches['per_track']}; "
+          f"cascade kernel launches={casc} (the scan finisher's identity sections); "
+          f"peak memory {bounce_peak:.2f} GB")
+
+    table, pool = carve_session(session, RATE, buffer_size=512, slow_emit="runs")
+    warm = mix_cuda.CudaMixRenderer(table, pool, session, device="cuda")
+    p = warm.plan
+    F = p.n_tiles * p.tile
+    synth = _prepare_synth_tables(session, RATE, 512, p.total_frames // 512, dev)
+    t0 = time.perf_counter()
+    want = synth_rows_numpy(session, p.total_frames)
+    host_s = time.perf_counter() - t0
+    check(sorted(want) == synth["rows"] and len(want) == 16, f"{name}: MIDI tracks {synth['rows']}")
+    rows = _add_synth(torch.zeros((len(session.tracks), 1, F), device=dev), synth, 0, F)
+    rows = rows[synth["rows"], 0, :p.total_frames].cpu().numpy()
+    for i, t in enumerate(synth["rows"]):
+        check(np.array_equal(rows[i], want[t]), f"{name}: track {t}'s synth on the card != render_synth_numpy")
+    f10 = int(10 * RATE)
+    cpu = bounce(session, RATE, device="cpu", num_blocks=f10 // 512).audio
+    check(np.array_equal(cpu, res.audio[:, :cpu.shape[1]]), f"{name}: first 10 s on the card != the CPU's")
+    reset_launches()
+    xla = bounce(session, RATE, device="cuda", engine="xla")
+    xla_launches = mix_launches()
+    check(xla.stats.mix_path == "gather" and not any(xla_launches.values()),
+          f"{name}: engine='xla' took {xla.stats.mix_path}, mix launches {xla_launches}")
+    check(np.array_equal(xla.audio, res.audio), f"{name}: engine='xla' != the K4 path")
+    voices = int(synth["tables"]["start"].shape[1])
+    print(f"[{name}] synth of {len(want)} tracks ({voices} voice slots) on the card bit-equal to "
+          f"render_synth_numpy ({host_s:.1f} s on the host); first 10 s bit-equal to the CPU bounce; "
+          f"engine='xla' ({xla.stats.summary()}) mix launches {xla_launches}, bit-equal to the K4 path")
+    del cpu, rows
+
+    torch.cuda.reset_peak_memory_stats()
+    legs = _finisher_rows(torch, session, pool, warm.pool_device, p.channels, "scan")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    pt = warm.render_device_per_track()
+    finish = _effects_finisher(session, warm, p, RATE, p.channels, "scan", False, dev)
+    k4_ms, _ = _event_ms(torch, lambda: mix_cuda.mix_per_track_cuda(warm.pool_device, warm.tables, p.n_tiles,
+                                                                    p.tile, p.channels), 10)
+    synth_ms, _ = _event_ms(torch, lambda: _add_synth(pt, synth, 0, F), 5)
+    finish_ms, finish_all = _event_ms(torch, lambda: finish(pt), 5)
+    busy_ms, parts = card_busy_ms(torch, lambda: finish(pt))
+    cells = len(synth["rows"]) * voices * p.total_frames
+    stats = {
+        "cell": name, "tracks": p.num_tracks, "midi_tracks": len(synth["rows"]), "voice_slots": voices,
+        "notes_per_track": 960, "audio_seconds": duration, "frames": int(p.total_frames), **legs,
+        "rtf_median": duration / (legs["e2e_ms_median"] / 1e3),
+        "k4_ms": k4_ms, "synth_ms": synth_ms, "finish_ms": finish_ms, "finish_ms_all": finish_all,
+        "finish_busy_ms": busy_ms, "stage_ms": parts,
+        "finish_idle_share": None if busy_ms is None else 1.0 - busy_ms / finish_ms,
+        "card_idle_share": 1.0 - (k4_ms + (finish_ms if busy_ms is None else busy_ms)) / legs["e2e_ms_median"],
+        # the synth: per (slot, frame) cell ~20 int and f32 operations and
+        # the tables read; it writes its rows into a copy of the buffers
+        # (read and written once) -> its least time
+        "synth_bound_ms": least_ms(2 * p.num_tracks * p.channels * F * 4, 20 * cells)["bound_ms"],
+        "xla_device_ms": xla.stats.device_seconds * 1e3, "xla_wall_ms": xla.stats.wall_seconds * 1e3,
+        "bounce_peak_mem_gb": bounce_peak, "peak_mem_gb": peak,
+        "k4_launches": k4_launches["per_track"], "cascade_launches": casc, "xla_launches": xla_launches,
+    }
+    print(f"[{name}] " + json.dumps(stats))
+    print(f"[{name}] " + sh(["nvidia-smi", "--query-gpu=name,power.limit,power.draw,clocks.sm,"
+                             "temperature.gpu", "--format=csv,noheader"]))
+    return stats
+
+
 def main() -> int:
     try:
         import torch
@@ -2165,6 +2563,9 @@ def main() -> int:
     dense = phase_gather_small(torch)
     generic = phase_generic(torch)
     long = phase_long(torch)
+    phase_routed_small(torch)
+    routed = phase_routed(torch)
+    midi = phase_midi(torch)
     check("jax" not in sys.modules and "whitebox_tpu" not in sys.modules,
           "the port loaded jax or the JAX package")
     print(f"[total] chip_smoke wall time {time.perf_counter() - t_start:.1f} s (limit 1200 s)")
@@ -2181,7 +2582,11 @@ def main() -> int:
          "cell_launches": {"generic_fx_128trk": generic["k4_launches"],
                            "effects_eq_240s_128trk": long["k4_launches"]["per_track"],
                            "effects_eq_240s_128trk_6gib_rule": long["gather_launches"]["per_track"],
-                           "headline_xla": headline_xla["per_track"], "dense_overflow": dense["per_track"]}},
+                           "headline_xla": headline_xla["per_track"], "dense_overflow": dense["per_track"],
+                           "routed_sidechain_128trk": routed["k4_launches"],
+                           "routed_sidechain_128trk_xla": routed["xla_launches"]["per_track"],
+                           "midi_synth_128trk": midi["k4_launches"],
+                           "midi_synth_128trk_xla": midi["xla_launches"]["per_track"]}},
         {"name": "mix_catmull", "route": "cuda", "source": src,
          "replaces": "whitebox_tpu/ops/mix_pallas.py:518-519,557-563", **interp["mix_catmull"]},
         {"name": "mix_poly", "route": "cuda", "source": src,
@@ -2194,7 +2599,9 @@ def main() -> int:
          **effects["biquad_cascade"],
          "cell_launches": {"generic_fx_128trk": generic["cascade_launches"],
                            "effects_eq_240s_128trk": long["cascade_launches"],
-                           "effects_eq_240s_128trk_6gib_rule": long["gather_cascade_launches"]}},
+                           "effects_eq_240s_128trk_6gib_rule": long["gather_cascade_launches"],
+                           "routed_sidechain_128trk": routed["cascade_launches"],
+                           "midi_synth_128trk": midi["cascade_launches"]}},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["device"],
                                              "count": env["device_count"]}}))

@@ -115,7 +115,7 @@ def test_demo_session_matches_jax_builder():
 
 def _unsupported_sessions():
     from whitebox_tpu.effects import Compressor, Gain, Limiter
-    from whitebox_tpu.midi.notes import MidiNoteBuffer
+    from whitebox_tpu.midi.notes import MidiNote, MidiNoteBuffer
     from whitebox_tpu.ops.automation import AutomationLane, TrackAutomation
 
     def base():
@@ -133,7 +133,8 @@ def _unsupported_sessions():
                                                                            .add(2.0, -9.0)})
     s_midi = base()
     tr = s_midi.add_track("m")
-    s_midi.add_midi_clip(tr, "c", 0.0, 2.0, asset=s_midi.midi_table.create_midi(MidiNoteBuffer([])))
+    s_midi.add_midi_clip(tr, "c", 0.0, 2.0, asset=s_midi.midi_table.create_midi(MidiNoteBuffer(
+        [MidiNote(0.0, 1.0, key=69, velocity=0.8), MidiNote(0.5, 1.5, key=76, velocity=0.5)])))
     s_bus = base()
     s_bus.add_bus("b")
     s_bus.set_track_output(0, 0)
@@ -155,22 +156,35 @@ def _unsupported_sessions():
 @pytest.mark.parametrize("feature", ["effects", "master_effects", "effect_lane", "midi",
                                      "routing", "sinc_slot_overflow", "unknown_interpolation"])
 def test_unsupported_features_raise(feature):
-    """MIDI and routing still raise naming their items; dynamics and an
-    effect lane now render through the generic finisher, within 5e-5 (the
-    lane 2e-4) of the JAX package's f64 reference_generic_finish, and a
-    sinc slot overflow through the gather path, within 3e-6 of the JAX
-    bounce."""
+    """Features once unported now render: dynamics and an effect lane
+    through the generic finisher, within 5e-5 (the lane 2e-4) of the JAX
+    package's f64 reference_generic_finish; a sinc slot overflow through
+    the gather path, within 3e-6 of the JAX bounce; a MIDI track through
+    the synth, within 1e-6 of the NumPy synth summed by the f64 reference;
+    a bus through the routed finisher, within 2e-5 of the f64
+    reference_routed_finish. An unknown interpolation still raises."""
     s, kw = _unsupported_sessions()[feature]
     if feature == "unknown_interpolation":
         with pytest.raises(ValueError, match="interpolation must be"):
             bounce(s, 48000.0, device="cpu", **kw)
         return
-    if feature in ("midi", "routing"):
-        item = "item 5" if feature == "midi" else r"item 6\(b\)"
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, {item}"):
-            bounce(s, 48000.0, device="cpu", **kw)
-        return
     got = bounce(s, 48000.0, device="cpu", **kw)
+    if feature in ("midi", "routing"):
+        from whitebox_tpu.render.routing import reference_routed_finish
+
+        table, pool = jax_carve_session(s, 48000.0, buffer_size=512)
+        pt = render_segments_per_track_numpy(table, pool)
+        if feature == "midi":
+            from tests.test_torch_midi import synth_rows
+
+            pt = pt + synth_rows(s, 48000.0, pt.shape[-1])
+            ref = _generic_reference(s, pt)
+            np.testing.assert_allclose(got.audio, ref, atol=1e-6)
+        else:
+            ref = reference_routed_finish(pt, s, 48000.0)
+            assert rel_rms(got.audio, ref) < 2e-5
+        assert got.stats.mix_path == "kernel" and float(np.abs(ref).max()) > 0.01
+        return
     if feature == "sinc_slot_overflow":
         want = jax_bounce(s, 48000.0, **kw).audio
         assert got.stats.mix_path == "gather" and got.audio.shape == want.shape
@@ -182,17 +196,21 @@ def test_unsupported_features_raise(feature):
     assert rel_rms(got.audio, ref) < (2e-4 if feature == "effect_lane" else 5e-5)
 
 
-def _generic_reference(js):
-    """The JAX package's f64 generic finish of a JAX-package session."""
+def _generic_reference(js, per_track=None):
+    """The JAX package's f64 generic finish of a JAX-package session (of
+    its carve's per-track buffers unless given)."""
     from whitebox_tpu.render.effects_generic import reference_generic_finish
 
-    table, pool = jax_carve_session(js, 48000.0, buffer_size=512)
-    return reference_generic_finish(render_segments_per_track_numpy(table, pool), js, 48000.0)
+    if per_track is None:
+        table, pool = jax_carve_session(js, 48000.0, buffer_size=512)
+        per_track = render_segments_per_track_numpy(table, pool)
+    return reference_generic_finish(per_track, js, 48000.0)
 
 
 def test_unported_effects_name_their_item():
     """An effect class registered only in the JAX package crosses as an
-    UnportedEffect, which bounce names; routed mode names item 6(b)."""
+    UnportedEffect, which bounce names; routed mode on a session without
+    buses, effects or lanes is the plain mix, bit for bit."""
     from whitebox_tpu.effects import registry as jax_registry
     from whitebox_tpu.effects.base import Effect as JaxEffect
 
@@ -216,9 +234,9 @@ def test_unported_effects_name_their_item():
             bounce(s, 48000.0, device="cpu")
     finally:
         jax_registry.unregister_effect("jaxonlyfx")
-    with pytest.raises(NotImplementedError, match=r"item 6\(b\)"):
-        bounce(random_session(6, rate=48000, bpm=120.0, n_tracks=1, n_clips=1), 48000.0,
-               device="cpu", effects_mode="routed")
+    plain = random_session(6, rate=48000, bpm=120.0, n_tracks=1, n_clips=1)
+    np.testing.assert_array_equal(bounce(plain, 48000.0, device="cpu", effects_mode="routed").audio,
+                                  bounce(plain, 48000.0, device="cpu").audio)
     with pytest.raises(ValueError, match="effects_mode"):
         bounce(random_session(6, rate=48000, bpm=120.0, n_tracks=1, n_clips=1), 48000.0,
                device="cpu", effects_mode="bogus")
@@ -415,10 +433,18 @@ def test_cli_render_matches_oracle(tmp_path, capsys):
     ref = OracleRenderer(s, 48000.0, buffer_size=512).render()
     n = min(ref.shape[1], audio.shape[1])
     np.testing.assert_array_equal(audio[:, :n], ref[:, :n])
-    # an unsupported session is an error message, not a traceback
+    # a bus renders now (routed finisher), as the port's bounce of the project
+    from whitebox_tpu_torch.session.project import read_project
+
     s.add_bus("b")
     s.set_track_output(0, 0)
     write_project(s, wb)
+    assert cli.main(["render", str(wb), str(out), "--device", "cpu"]) == 0
+    np.testing.assert_array_equal(wav.read_wav(out)[0], port_bounce(read_project(wb), 48000.0, device="cpu").audio)
+    # an unsupported session (a recording input) is an error message, not a traceback
+    s.set_track_input(1, "external_mono")
+    write_project(s, wb)
+    capsys.readouterr()
     assert cli.main(["render", str(wb), str(out), "--device", "cpu"]) == 2
     assert "ROADMAP" in capsys.readouterr().err
 
@@ -449,20 +475,20 @@ def test_cli_renders_with_interpolation(tmp_path, flags, kw):
     ({"loudness": True}, "item 9"), ({"normalize": ("lufs", -14.0)}, "item 9"),
     ({"out_encode": {"bitrate_kbps": 192}}, "item 14")], ids=lambda v: next(iter(v)) if isinstance(v, dict) else None)
 def test_reference_keywords_raise_naming_their_item(kw, item):
-    """The keywords items 1 and 6(a) ported render (speed 1, no chains:
+    """The keywords items 1, 6(a) and 6(b) ported render (speed 1, no chains:
     bit-equal to the NumPy oracle; the relaxed sum within 1e-6); the others
     raise naming their item, and at their default change nothing."""
     js = random_session(6, rate=48000, bpm=120.0, n_tracks=1, n_clips=1)
     s = from_reference(js)
     (name, value), = kw.items()
-    if name in ("chunk_frames", "strict_order", "engine", "pdc"):
-        kws = {"engine": "auto" if name == "pdc" else "xla", **kw}
+    if name in ("chunk_frames", "strict_order", "engine", "pdc", "routed_chunk"):
+        kws = {"engine": "auto" if name in ("pdc", "routed_chunk") else "xla", **kw}
         got = port_bounce(s, 48000.0, device="cpu", **kws)
         oracle = OracleRenderer(js, 48000.0, buffer_size=512).render()
         n = min(oracle.shape[1], got.frames)
         np.testing.assert_allclose(got.audio[:, :n], oracle[:, :n], atol=1e-6 if name == "strict_order" else 0,
                                    rtol=0)
-        assert got.stats.mix_path == ("kernel" if name == "pdc" else "gather")
+        assert got.stats.mix_path == ("kernel" if name in ("pdc", "routed_chunk") else "gather")
         return
     with pytest.raises(NotImplementedError, match=f"{name}.*ROADMAP.md queue 1, {item}"):
         port_bounce(s, 48000.0, device="cpu", **kw)

@@ -25,7 +25,10 @@ tile and with (block, track) cells it fills with zeros; the biquad cascade
 kernel within relative RMS 5e-6 per row of its plain version (EQ bands,
 the 25 Hz highpass, FIR and identity rows, states over two calls, two
 section groups), a finisher stream that alternates kernel and plain
-states, and the scan and metered bounces through it (no Hillis scan).
+states, and the scan and metered bounces through it (no Hillis scan); the
+routed finisher on the card against the CPU and the f64 reference, the
+synth bit-equal to its NumPy spec, and a routed and a MIDI bounce with
+one K4 launch each.
 """
 
 import numpy as np
@@ -388,3 +391,41 @@ def test_per_track_limit_follows_the_cards_memory(card):
     assert abs(limit - (free + cached) * bounce_mod.PER_TRACK_CARD_SHARE) <= 64 << 20
     if torch.cuda.get_device_properties(dev).total_memory > 64e9:
         assert limit > 128 * 2 * 240 * 48000 * 4
+
+
+def test_routed_finisher_on_the_card_matches_the_cpu(card):
+    """The routed finisher (groups, post/pre/sidechain sends, a ducking bus,
+    a generic bus with a fader lane, PDC) on the card within relative RMS
+    1e-5 of the CPU's and 5e-5 of the f64 reference_routed_finish; its
+    bounce one K4 launch, the gather path none."""
+    chip_smoke.phase_routed_small(torch)
+
+
+def test_synth_on_the_card_bit_equal_to_numpy(card):
+    """The synth of stacked MIDI tracks on the card, in pieces, bit-equal
+    to render_synth_numpy."""
+    from whitebox_tpu_torch.render.bounce import _add_synth, _prepare_synth_tables
+
+    s = chip_smoke.midi_small()
+    F = 3 * 48000
+    synth = _prepare_synth_tables(s, 48000.0, 512, F // 512, card)
+    want = chip_smoke.synth_rows_numpy(s, F // 512 * 512)
+    rows = _add_synth(torch.zeros((len(s.tracks), 1, F), device=card), synth, 0, F)
+    assert sorted(want) == synth["rows"]
+    for t in synth["rows"]:
+        np.testing.assert_array_equal(rows[t, 0, :len(want[t])].cpu().numpy(), want[t])
+
+
+@pytest.mark.parametrize("kind", ["routed", "midi"])
+def test_routed_and_midi_bounces_count_one_k4_launch(card, kind):
+    """A routed and a MIDI bounce on the card: one K4 launch each, equal to
+    the CPU's (routed: relative RMS 1e-5; MIDI: bit-equal)."""
+    s = chip_smoke.routed_small() if kind == "routed" else chip_smoke.midi_small()
+    chip_smoke.reset_launches()
+    got = bounce(s, 48000.0, device=card)
+    assert got.stats.mix_path == "kernel" and chip_smoke.mix_launches() == {"mix": 0, "auto": 0, "per_track": 1}
+    cpu = bounce(s, 48000.0, device="cpu").audio
+    if kind == "midi":
+        np.testing.assert_array_equal(got.audio, cpu)
+    else:
+        assert chip_smoke.rel_rms(got.audio, cpu) < 1e-5

@@ -230,6 +230,9 @@ def _unported_calls(tmp_path):
 @pytest.mark.parametrize("call", ["stretch_preserving_pitch", "start_recording", "set_track_input",
                                   "aiff_decode", "midi_file"])
 def test_unported_session_methods_raise(tmp_path, call):
+    if call == "midi_file":  # ported (midi/smf.py): a missing file reads as None, as in the reference
+        assert _unported_calls(tmp_path)[call]() is None
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item"):
         _unported_calls(tmp_path)[call]()
 

@@ -54,7 +54,17 @@ def _sessions():
         s.master_effects = jfx.EffectChain([jfx.Limiter(-0.5)])
         return s
 
-    return {"headline": headline, "resampled": resampled, "linear_fx": linear_fx, "generic_fx": generic_fx}
+    def routed():
+        s = linear_fx()
+        for b in range(2):
+            s.add_bus(f"b{b}").effects = jfx.EffectChain([jfx.Compressor(-20.0, 3.0)] if b else [])
+        s.set_track_output(0, 0)
+        s.add_send(1, 1, gain_db=-6.0)
+        s.add_send(2, 1, gain_db=-3.0, sidechain=True)
+        return s
+
+    return {"headline": headline, "resampled": resampled, "linear_fx": linear_fx, "generic_fx": generic_fx,
+            "routed": routed}
 
 
 @pytest.mark.parametrize("name", list(_sessions()))
@@ -69,6 +79,8 @@ def test_estimate_bounce_cost_equals_jax(name):
     assert (got.hbm_bytes, got.mxu_flops) == (want.hbm_bytes, want.mxu_flops)
     if name == "generic_fx":
         assert got.mxu_flops > 0 and {"fx.convreverb", "fx.linphase", "fx.compressor"} <= set(got.terms)
+    if name == "routed":
+        assert got.terms["route.matmul"] == roofline.routing_cost(s, pt.total_frames, 2).terms["route.matmul"]
 
 
 def test_bounce_cost_with_prerender_equals_jax():

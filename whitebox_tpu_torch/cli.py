@@ -1,7 +1,9 @@
-"""Command-line interface of the port: offline render of a ``.wb`` project.
+"""Command-line interface of the port: offline render, inspection and
+tempo edits of a ``.wb`` project.
 
-Counterpart of ``whitebox_tpu/cli.py`` (``_cmd_render`` and its parser),
-on the surface the port's ``bounce`` covers:
+Counterpart of ``whitebox_tpu/cli.py`` (``_cmd_render``, ``_cmd_inspect``,
+``_cmd_tempo`` and their parsers), on the surface the port's ``bounce``
+covers:
 
     python -m whitebox_tpu_torch.cli render project.wb out.wav \\
         [--rate 48000] [--buffer-size 512] [--format f32] [--device cuda]
@@ -10,6 +12,10 @@ on the surface the port's ``bounce`` covers:
         [--no-prerender] [--meters] [--dither none|tpdf|tpdf-hp]
         [--tail SECONDS] [--from-beat B | --from-bar B] [--to-beat B | --to-bar B]
         [--json]
+    python -m whitebox_tpu_torch.cli inspect project.wb
+    python -m whitebox_tpu_torch.cli tempo project.wb [--out other.wb] [--set-bpm BPM]
+        [--point BEAT:BPM[:CURVE[:BPM_END]]] [--remove BEAT] [--meter BAR:NUM/DEN]
+        [--remove-meter BAR] [--from-smf FILE.mid]
 """
 
 from __future__ import annotations
@@ -97,6 +103,104 @@ def _cmd_render(args) -> int:
     return 0
 
 
+def _cmd_inspect(args) -> int:
+    from whitebox_tpu_torch.session.project import read_project
+
+    session = read_project(args.project)
+    info = {
+        "bpm": session.bpm,
+        "title": session.project_info.title,
+        "tracks": [
+            {
+                "name": t.name,
+                "volume_db": t.volume_db,
+                "pan": t.pan,
+                "mute": t.mute,
+                **({"output_bus": t.output_bus} if t.output_bus is not None else {}),
+                **({"sends": [{"bus": s.bus, "gain_db": s.gain_db, "pre": s.pre_fader,
+                               **({"sc": True} if s.sidechain else {})}
+                              for s in t.sends]} if t.sends else {}),
+                "clips": [
+                    {
+                        "name": c.name,
+                        "type": c.type.name,
+                        "start": c.min_time,
+                        "end": c.max_time,
+                        "offset": c.start_offset,
+                    }
+                    for c in t.clips
+                ],
+            }
+            for t in session.tracks
+        ],
+        "samples": [a.sample.name for a in session.sample_table.samples.values()],
+        "end_time_beats": session.end_time(),
+    }
+    if session.buses:
+        info["buses"] = [
+            {"name": b.name, "volume_db": b.volume_db, "pan": b.pan, "mute": b.mute,
+             "effects": len(b.effects or [])}
+            for b in session.buses
+        ]
+    if session.tempo_map is not None:
+        info["tempo_map"] = session.tempo_map.as_dict()["points"]
+    if session.meter_map is not None:
+        info["meter_map"] = session.meter_map.as_dict()["points"]
+        info["end_position"] = session.meter_map.label(session.end_time())
+    print(json.dumps(info, indent=2))
+    return 0
+
+
+def _cmd_tempo(args) -> int:
+    """Edit the project tempo map (add/remove points, set session bpm)."""
+    from whitebox_tpu_torch.session.project import read_project, write_project
+
+    session = read_project(args.project)
+    if args.set_bpm is not None:
+        session.set_bpm(args.set_bpm)
+    if args.from_smf:
+        from whitebox_tpu_torch.midi.smf import (
+            load_notes_from_file, meter_map_from_smf, tempo_map_from_smf,
+        )
+
+        buf = load_notes_from_file(args.from_smf)
+        tm = tempo_map_from_smf(buf)
+        mm = meter_map_from_smf(buf)
+        if tm is None and mm is None:
+            raise ValueError(f"{args.from_smf} carries no tempo/time-signature events")
+        if tm is not None:
+            session.tempo_map = None
+            session.set_bpm(tm.bpm_at(0.0))
+            session.tempo_map = None if tm.is_constant else tm
+        if mm is not None:
+            session.meter_map = mm
+    for spec in args.point or []:
+        parts = spec.split(":")
+        if len(parts) not in (2, 3, 4):
+            raise ValueError(f"bad --point {spec!r}: expected BEAT:BPM[:CURVE[:BPM_END]]")
+        session.set_tempo_point(float(parts[0]), float(parts[1]),
+                                parts[2] if len(parts) >= 3 else "step",
+                                float(parts[3]) if len(parts) == 4 else None)
+    for beat in args.remove or []:
+        session.remove_tempo_point(float(beat))
+    for spec in args.meter or []:
+        bar, _, sig = spec.partition(":")
+        num, _, den = sig.partition("/")
+        if not (bar and num and den):
+            raise ValueError(f"bad --meter {spec!r}: expected BAR:NUM/DEN")
+        session.set_meter(int(bar), int(num), int(den))
+    for bar in args.remove_meter or []:
+        session.remove_meter(int(bar))
+    write_project(session, args.out or args.project)
+    pts = (session.tempo_map.as_dict()["points"]
+           if session.tempo_map is not None else [])
+    blob = {"bpm": session.bpm, "tempo_map": pts}
+    if session.meter_map is not None:
+        blob["meter_map"] = session.meter_map.as_dict()["points"]
+    print(json.dumps(blob, indent=2))
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="whitebox-tpu-torch", description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -145,6 +249,28 @@ def main(argv=None) -> int:
                    help="stop at this (0-based) bar, via the meter map")
     p.add_argument("--json", action="store_true")
     p.set_defaults(fn=_cmd_render)
+
+    p = sub.add_parser("inspect", help="dump a .wb project as JSON")
+    p.add_argument("project")
+    p.set_defaults(fn=_cmd_inspect)
+
+    p = sub.add_parser("tempo", help="edit the project tempo map")
+    p.add_argument("project")
+    p.add_argument("--out", help="write to a different .wb (default: in place)")
+    p.add_argument("--set-bpm", type=float, help="session bpm (beat-0 anchor)")
+    p.add_argument("--point", action="append", metavar="BEAT:BPM[:CURVE[:BPM_END]]",
+                   help="add/replace a tempo point (CURVE: step|linear; "
+                        "BPM_END: explicit linear ramp target, allowing a "
+                        "discontinuity at the next point)")
+    p.add_argument("--remove", action="append", metavar="BEAT",
+                   help="remove the tempo point at BEAT")
+    p.add_argument("--meter", action="append", metavar="BAR:NUM/DEN",
+                   help="set the time signature from a (0-based) bar onward")
+    p.add_argument("--remove-meter", action="append", metavar="BAR",
+                   help="remove the time-signature change at BAR")
+    p.add_argument("--from-smf", metavar="FILE.mid",
+                   help="import tempo + time-signature maps from an SMF")
+    p.set_defaults(fn=_cmd_tempo)
 
     args = parser.parse_args(argv)
     try:

@@ -1,6 +1,8 @@
-"""MIDI layer: the note model only (``notes``), copied from
-``whitebox_tpu/midi/notes.py`` because sessions and projects hold notes.
-SMF parsing, voices and the synth arrive with ROADMAP.md queue 1, item 5.
+"""MIDI layer: the note model (``notes``), Standard MIDI File parsing and
+writing (``smf``), voice allocation and block-accurate note-event carving
+(``voice``), controller lanes (``cc``), all copied from
+``whitebox_tpu/midi/``, and the built-in synth (``synth``: the host halves
+copied, ``render_synth_chunk`` in torch ops).
 """
 
 from whitebox_tpu_torch.midi.notes import MidiNote, MidiNoteBuffer  # noqa: F401

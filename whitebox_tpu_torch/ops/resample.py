@@ -254,15 +254,23 @@ def design_sinc_matrix(P: int, Q: int, taps: int = DEFAULT_TAPS, atten_db: float
 class full_f32_matmul:
     """``with full_f32_matmul(): ...``: f32 matrix products in full f32 on
     the card (no TF32), restored on exit. PyTorch's default already is
-    full f32; this pins it against a caller who changed it."""
+    full f32; this pins it against a caller who changed it, through the
+    switch that caller used: ``allow_tf32``, or the newer
+    ``fp32_precision`` (which ``torch.set_float32_matmul_precision`` sets
+    in recent PyTorch, and after which reading ``allow_tf32`` raises)."""
 
     def __enter__(self):
-        self._prev = torch.backends.cuda.matmul.allow_tf32
-        torch.backends.cuda.matmul.allow_tf32 = False
+        m = torch.backends.cuda.matmul
+        try:
+            self._prev = ("allow_tf32", m.allow_tf32)
+            m.allow_tf32 = False
+        except RuntimeError:  # the caller set the newer switch
+            self._prev = ("fp32_precision", m.fp32_precision)
+            m.fp32_precision = "ieee"
         return self
 
     def __exit__(self, *exc) -> None:
-        torch.backends.cuda.matmul.allow_tf32 = self._prev
+        setattr(torch.backends.cuda.matmul, *self._prev)
 
 
 def _resample_gather(x_padded: torch.Tensor, ratio_hi: float, ratio_lo: float, bank: torch.Tensor,

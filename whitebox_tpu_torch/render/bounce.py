@@ -2,12 +2,15 @@
 
 Counterpart of ``whitebox_tpu/render/bounce.py``: audio clips (any loop
 mode, fades, clip gain, speed), track volume/pan/mute, volume/pan lanes
-(any of the nine curves, under a tempo map too), effect chains on tracks
-and the master bus (the whole built-in family and registered user
-effects), effect-parameter lanes on tracks and the master, level meters,
-plugin-delay compensation, the ordered track sum and the hard clip, in
-the three interpolation modes of resampled clips (``"linear"``,
-``"catmull"``, ``"sinc"``). Two mixes, chosen as the JAX package chooses:
+(any of the nine curves, under a tempo map too), effect chains on tracks,
+buses and the master bus (the whole built-in family and registered user
+effects), effect-parameter lanes on tracks, buses and the master, bus
+routing (group outputs, post-fader, pre-fader and sidechain sends, bus
+faders and their lanes, ``render/routing.py``), MIDI clips through the
+built-in synth (``midi/synth.py``), level meters, plugin-delay
+compensation, the ordered track sum and the hard clip, in the three
+interpolation modes of resampled clips (``"linear"``, ``"catmull"``,
+``"sinc"``). Two mixes, chosen as the JAX package chooses:
 
 - the kernel path (``engine="auto"`` or ``"pallas"``; the JAX package's
   Pallas branch, ``bounce.py:236-442``): carve with ``slow_emit="runs"``,
@@ -16,25 +19,28 @@ the three interpolation modes of resampled clips (``"linear"``,
   that cannot ride it play a 4x oversampled copy through six polynomial
   taps, ``timeline/oversample.py``), plan the slots, then one launch of
   the CUDA mix kernel (its automation variant when a track has lanes) or,
-  for a session with effects, effect lanes or meters, one launch of the
-  per-track mode (K4) into ``[T, C, F]`` buffers and a finisher:
+  for a session with effects, effect lanes, meters, MIDI clips or
+  routing, one launch of the per-track mode (K4) into ``[T, C, F]``
+  buffers, the MIDI tracks' synth added to their rows, and a finisher:
   ``effects_mode="scan"`` (the biquad cascade kernel,
   ``effects_pipeline.finish_mix``) or ``"fir"`` (``effects_fir``) for
   linear chains, ``"generic"`` (``effects_generic``) for every other
-  chain or any effect-parameter lane; meters force the scan;
+  chain or any effect-parameter lane, ``"routed"`` (``routing``) for
+  every session with buses in use; meters force the scan, routing the
+  routed finisher;
 - the gather path (``engine="xla"``, and ``"auto"`` where the plan cannot
   hold the session: a slot overflow at the smallest tile, or per-track
   buffers above :func:`per_track_limit_bytes`; the JAX package's
   ``bounce.py:444-629``): carve with ``slow_emit="blocks"``, the chunked
-  gather mix of ``ops/mix.py`` in ``chunk_frames`` chunks, with the
-  finishers' streaming forms (``finish_mix_chunk``,
-  ``make_generic_chunk_fn``) carrying their states from chunk to chunk.
+  gather mix of ``ops/mix.py`` in ``chunk_frames`` chunks, the synth
+  added chunk by chunk, with the finishers' streaming forms
+  (``finish_mix_chunk``, ``make_generic_chunk_fn``,
+  ``make_routed_chunk_fn``) carrying their states from chunk to chunk.
   ``engine="xla"`` with ``interpolation="sinc"`` is the direct 32-tap
   windowed sinc. ``engine="pallas"`` raises on a slot overflow, as the
   JAX package does.
 
-``stats.mix_path`` says which mix rendered. Routing (buses, sends,
-``effects_mode="routed"``), MIDI clips, loudness and codecs raise
+``stats.mix_path`` says which mix rendered. Loudness and codecs raise
 ``NotImplementedError`` naming the ROADMAP.md item that ports them.
 """
 
@@ -44,11 +50,16 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from whitebox_tpu_torch.core.formats import AudioFormat
 from whitebox_tpu_torch.device import resolve_device
-from whitebox_tpu_torch.effects.base import UNPORTED_EFFECT_TODO, UnportedEffect
+from whitebox_tpu_torch.effects.base import UNPORTED_EFFECT_TODO, EffectChain, UnportedEffect
 from whitebox_tpu_torch.io.wav import write_wav
+from whitebox_tpu_torch.midi.synth import (
+    build_slot_segments, pack_slot_tables, render_synth_chunk, synth_device_tables,
+)
+from whitebox_tpu_torch.midi.voice import carve_midi_events
 from whitebox_tpu_torch.ops import cuda_build
 from whitebox_tpu_torch.ops.automation import session_has_automation
 from whitebox_tpu_torch.ops.mix import pack_device_tables, render_chunk, render_chunk_per_track
@@ -58,7 +69,7 @@ from whitebox_tpu_torch.ops.resample import design_sinc_bank
 from whitebox_tpu_torch.render.effects_fir import prepare_fir_finish
 from whitebox_tpu_torch.render.effects_generic import (
     auto_chunk_frames, fx_latencies, init_generic_states, make_generic_chunk_fn,
-    make_generic_finisher, prepare_generic_fx, session_fx_packable,
+    make_generic_finisher, prepare_generic_fx, session_fx_packable, stage_latency_frames,
 )
 from whitebox_tpu_torch.render.effects_pipeline import (
     _chains_of, finish_mix, finish_mix_chunk, init_effect_states, meters_from_partials,
@@ -67,6 +78,10 @@ from whitebox_tpu_torch.render.effects_pipeline import (
 )
 from whitebox_tpu_torch.render.metrics import DeviceTimer, RenderStats, Stopwatch, device_name
 from whitebox_tpu_torch.render.roofline import device_peaks, estimate_bounce_cost, prerender_cost
+from whitebox_tpu_torch.render.routing import (
+    init_routed_states, make_routed_chunk_fn, make_routed_finisher, prepare_routed_fx,
+    routed_auto_chunk_frames,
+)
 from whitebox_tpu_torch.session.bus import session_has_routing
 from whitebox_tpu_torch.session.session import Session
 from whitebox_tpu_torch.timeline.carve import carve_session
@@ -83,7 +98,6 @@ PER_TRACK_LIMIT_BYTES = 6 << 30
 #: set (peaks on an H100: 1.2x the buffers for the scan finisher, 1.6x for
 #: the generic one; the FIR finisher pads a copy of them)
 PER_TRACK_CARD_SHARE = 1 / 3
-_ROUTING = "item 6(b) (routing)"
 
 
 def per_track_limit_bytes(dev: torch.device) -> int:
@@ -104,11 +118,48 @@ def session_has_midi(session) -> bool:
                for t in session.tracks for c in t.clips)
 
 
+def _prepare_synth_tables(session, sample_rate, buffer_size, num_blocks, device) -> dict:
+    """The MIDI tracks' slot tables for the built-in synth, stacked on
+    ``device``: {"rows": their track indices, "tables": [R, slots, S]
+    tensors} (empty without a sounding MIDI track;
+    ``whitebox_tpu/render/bounce.py:32-45``)."""
+    rows, host = [], []
+    for t, evs in carve_midi_events(session, sample_rate, buffer_size, num_blocks).items():
+        ns, segs = build_slot_segments(evs)
+        if segs is not None:
+            rows.append(t)
+            host.append(pack_slot_tables(segs, sample_rate, ns))
+    return {"rows": rows, "tables": synth_device_tables(host, device)} if rows else {}
+
+
+def _synth_subset(synth: dict, rows: list) -> dict:
+    """The synth of the tracks ``rows`` (sorted), renumbered to their
+    positions in ``rows``: the PDC fetch-ahead renders those rows alone."""
+    pos = {t: i for i, t in enumerate(rows)}
+    keep = [j for j, t in enumerate(synth.get("rows", ())) if t in pos]
+    if not keep:
+        return {}
+    k = torch.as_tensor(keep, device=synth["tables"]["start"].device)
+    return {"rows": [pos[synth["rows"][j]] for j in keep],
+            "tables": {n: v[k] for n, v in synth["tables"].items()}}
+
+
+def _add_synth(per_track, synth: dict, chunk_start: int, frames: int):
+    """``per_track`` ``[T, C, frames]`` with each MIDI track's synth added
+    to all its channels, as a new tensor: ``per_track`` is read, not
+    written (a finisher may be handed the same K4 buffer again)."""
+    if not synth:
+        return per_track
+    with record_function("wb.synth"):
+        sy = render_synth_chunk(synth["tables"], chunk_start, frames)  # [R, frames]
+        idx = torch.as_tensor(synth["rows"], device=per_track.device)
+        return per_track.index_add(0, idx, sy[:, None, :].expand(-1, per_track.shape[1], -1))
+
+
 #: keywords of the reference's ``bounce`` that the port takes at their
 #: defaults only: name -> (default, the ROADMAP.md queue 1 item that ports
 #: the feature); any other value raises ``NotImplementedError`` naming it
 DEFAULT_ONLY = {
-    "routed_chunk": (None, _ROUTING),
     "loudness": (False, "item 9 (loudness)"),
     "normalize": (None, "item 9 (loudness)"),
     "out_encode": (None, "item 14 (codecs)"),
@@ -129,22 +180,15 @@ def _check_keywords(engine: str, **given) -> None:
 
 def _check_supported(session: Session, interpolation: str, effects_mode: str) -> None:
     chains, master = _chains_of(session)
-    unported = sorted({e.type_name for c in [*chains, master] if c is not None for e in c.effects
+    buses = [b.effects if isinstance(b.effects, EffectChain) else EffectChain(list(b.effects))
+             for b in session.buses if b.effects]
+    unported = sorted({e.type_name for c in [*chains, master, *buses] if c is not None for e in c.effects
                        if isinstance(e, UnportedEffect)})
     if unported:
         raise NotImplementedError(f"whitebox_tpu_torch bounce cannot render the effect(s) "
                                   f"{', '.join(unported)}: {UNPORTED_EFFECT_TODO}")
-    todo = [
-        (effects_mode == "routed", "effects_mode='routed'", _ROUTING),
-        (session_has_midi(session), "MIDI clips", "item 5 (MIDI synth)"),
-        (session_has_routing(session), "bus routing", _ROUTING),
-    ]
-    for present, what, item in todo:
-        if present:
-            raise NotImplementedError(f"whitebox_tpu_torch bounce does not render {what} yet: "
-                                      f"ROADMAP.md queue 1, {item}")
-    if effects_mode not in ("scan", "fir", "generic"):
-        raise ValueError(f"effects_mode must be 'scan', 'fir' or 'generic', got {effects_mode!r}")
+    if effects_mode not in ("scan", "fir", "generic", "routed"):
+        raise ValueError(f"effects_mode must be 'scan', 'fir', 'generic' or 'routed', got {effects_mode!r}")
     if interpolation not in ("linear", "catmull", "sinc"):
         raise ValueError(f"interpolation must be 'linear', 'catmull', or 'sinc', got {interpolation!r}")
 
@@ -160,24 +204,36 @@ class BounceResult:
 
 
 def _effects_finisher(session, renderer, plan, sample_rate, channels, effects_mode, meters, dev,
-                      pdc=False):
+                      pdc=False, routed_chunk=None, buffer_size=512):
     """Host preparation of the finisher -> ``finish(per_track)``: the chain
-    tables (scan), impulse responses (fir) or grouped stages (generic: any
-    chain the linear finishers cannot take, or any effect lane) and the
-    lane tables, on ``dev``."""
+    tables (scan), impulse responses (fir), grouped stages (generic: any
+    chain the linear finishers cannot take, or any effect lane) or grouped
+    stages and routing matrices (routed), the lane tables and the MIDI
+    tracks' synth tables, on ``dev``. ``finish`` adds the synth to a copy
+    of ``per_track`` first (``whitebox_tpu/render/bounce.py:344-405``)."""
     auto = prepare_automation_tables(session, sample_rate, device=dev)
     tg = renderer.tables["track_gain"]
     T = plan.num_tracks
-    if effects_mode == "generic" or not session_fx_packable(session):
-        fx = prepare_generic_fx(session, sample_rate, channels)
-        finish = make_generic_finisher(fx, T, channels, with_meters=meters,
+    if effects_mode == "routed":
+        rfx = prepare_routed_fx(session, sample_rate, channels, device=dev)
+        rfinish = make_routed_finisher(rfx, T, channels, chunk=routed_chunk, with_meters=meters,
                                        valid_frames=plan.total_frames, pdc=pdc, device=dev)
-        return lambda pt: finish(pt, tg, auto)
-    if effects_mode == "fir":
-        return prepare_fir_finish(session, sample_rate, tg, auto, channels, device=dev)
-    (S, coeffs), (Sm, mcoeffs) = prepare_effect_tables(session, sample_rate, channels, device=dev)
-    return lambda pt: finish_mix(pt, coeffs, mcoeffs, tg, auto, T=T, C=channels, S=S, Sm=Sm,
-                                 with_meters=meters, valid_frames=plan.total_frames)
+        finish = lambda pt: rfinish(pt, tg, auto)  # noqa: E731
+    elif effects_mode == "generic" or not session_fx_packable(session):
+        fx = prepare_generic_fx(session, sample_rate, channels)
+        gfinish = make_generic_finisher(fx, T, channels, with_meters=meters,
+                                        valid_frames=plan.total_frames, pdc=pdc, device=dev)
+        finish = lambda pt: gfinish(pt, tg, auto)  # noqa: E731
+    elif effects_mode == "fir":
+        finish = prepare_fir_finish(session, sample_rate, tg, auto, channels, device=dev)
+    else:
+        (S, coeffs), (Sm, mcoeffs) = prepare_effect_tables(session, sample_rate, channels, device=dev)
+        finish = lambda pt: finish_mix(pt, coeffs, mcoeffs, tg, auto, T=T, C=channels,  # noqa: E731
+                                       S=S, Sm=Sm, with_meters=meters, valid_frames=plan.total_frames)
+    if not session_has_midi(session):
+        return finish
+    synth = _prepare_synth_tables(session, sample_rate, buffer_size, plan.total_frames // buffer_size, dev)
+    return lambda pt: finish(_add_synth(pt, synth, 0, pt.shape[-1]))
 
 
 def _read_meters(stats, meters, T: int) -> None:
@@ -187,7 +243,8 @@ def _read_meters(stats, meters, T: int) -> None:
 
 
 def _render_kernel(session, table, pool, plan, interp, pre_pool_dev, sample_rate, channels,
-                   effects_mode, meters, pdc, has_fx, dev, stats, watch) -> np.ndarray:
+                   effects_mode, meters, pdc, has_fx, routed_chunk, buffer_size, dev, stats,
+                   watch) -> np.ndarray:
     """The mix kernel (or K4 and a finisher) over the slot plan."""
     finish = None
     if has_fx:
@@ -195,7 +252,8 @@ def _render_kernel(session, table, pool, plan, interp, pre_pool_dev, sample_rate
         renderer = CudaMixRenderer(table, pool, session, device=dev, channels=channels, plan=plan,
                                    interp=interp, pool_device=pre_pool_dev)
         finish = _effects_finisher(session, renderer, plan, sample_rate, channels, effects_mode,
-                                   meters, dev, pdc=pdc)
+                                   meters, dev, pdc=pdc, routed_chunk=routed_chunk,
+                                   buffer_size=buffer_size)
     else:
         # automation-only sessions evaluate the volume/pan lanes in the kernel
         # (the JAX package's fused single pass, bounce.py:316-333)
@@ -229,7 +287,7 @@ def _render_kernel(session, table, pool, plan, interp, pre_pool_dev, sample_rate
 
 def _render_gather(session, table, pool, sample_rate, channels, buffer_size, num_blocks, engine,
                    interpolation, sinc_bank, interp, pre_pool_dev, chunk_frames, strict_order,
-                   meters, pdc, dev, stats, watch) -> np.ndarray:
+                   meters, pdc, has_midi, has_routing, dev, stats, watch) -> np.ndarray:
     """The chunked gather mix (``whitebox_tpu/render/bounce.py:444-629``)."""
     if engine != "xla" and len(table) and (not table.fast.all() or pre_pool_dev is not None):
         # the table was carved with slow_emit="runs" for the slot plan; the
@@ -248,35 +306,67 @@ def _render_gather(session, table, pool, sample_rate, channels, buffer_size, num
     T = tables.num_tracks
     chunk = min(chunk_frames, max(F, 1))
 
-    def per_track(start, tab=jt):
-        return render_chunk_per_track(pool_dev, tab, start, chunk, sinc_bank=sinc_bank, interp=interp)
+    synth = (_prepare_synth_tables(session, sample_rate, buffer_size, F // buffer_size, dev)
+             if has_midi else {})
+
+    def per_track(start, tab=jt, synth=synth):
+        pt = render_chunk_per_track(pool_dev, tab, start, chunk, sinc_bank=sinc_bank, interp=interp)
+        return _add_synth(pt, synth, start, chunk)
+
+    ahead = []  # PDC fetch-ahead: the rows of latent chains, rendered lat frames ahead
+
+    def fetch_ahead(fx):
+        """The rows of ``fx``'s latent track chains by latency -> ``ahead``
+        (each with its row subset of the tables and of the synth's); the
+        master latency."""
+        glat, mlat = fx_latencies(fx)
+        by_lat: dict = {}
+        for g, lat in zip(fx.groups, glat):
+            if lat > 0:
+                by_lat.setdefault(lat, []).extend(np.asarray(g.track_idx).tolist())
+        for lat, rows in by_lat.items():
+            rows = sorted(rows)
+            idx = torch.as_tensor(rows, device=dev)
+            ahead.append((lat, idx, {k: v[idx] for k, v in jt.items()}, _synth_subset(synth, rows)))
+        return mlat
+
+    def per_track_ahead(start):
+        pt = per_track(start)
+        for lat, idx, sub, sub_synth in ahead:
+            pt[idx] = per_track(start + lat, sub, sub_synth)
+        return pt
 
     fx_chunk = None
     mlat = 0
-    if session_has_effects(session) or session_has_automation(session) or meters:
+    if session_has_effects(session) or session_has_automation(session) or meters or has_midi or has_routing:
         auto = prepare_automation_tables(session, sample_rate, device=dev)
         tg = jt["track_gain"]
-        if not session_fx_packable(session):
-            gfx = prepare_generic_fx(session, sample_rate, channels)
-            ahead = []  # PDC fetch-ahead: the rows of latent chains, rendered lat frames ahead
+        if has_routing:
+            rfx = prepare_routed_fx(session, sample_rate, channels, device=dev)
             if pdc:
-                glat, mlat = fx_latencies(gfx)
-                by_lat: dict = {}
-                for g, lat in zip(gfx.groups, glat):
-                    if lat > 0:
-                        by_lat.setdefault(lat, []).extend(np.asarray(g.track_idx).tolist())
-                for lat, rows in by_lat.items():
-                    idx = torch.as_tensor(sorted(rows), device=dev)
-                    ahead.append((lat, idx, {k: v[idx] for k, v in jt.items()}))
+                if any(stage_latency_frames(g.stages) > 0 for g in rfx.bus_groups):
+                    raise ValueError("the streaming (gather) path does not carry bus-chain latency delay "
+                                     "lines; render with engine='auto'/'pallas' (the routed finisher "
+                                     "compensates bus latency), or move lookahead limiters to tracks or "
+                                     "the master")
+                mlat = fetch_ahead(rfx.fx)
+            chunk = routed_auto_chunk_frames(rfx, chunk, device=dev)
+            rstep = make_routed_chunk_fn(rfx, T, channels, chunk=chunk, with_meters=meters, device=dev)
+            states = init_routed_states(rfx, channels, dev)
+
+            def fx_chunk(start, states):
+                res = rstep(per_track_ahead(start), states, start, tg, auto)
+                return res[0], res[1], res[2] if meters else None
+        elif not session_fx_packable(session):
+            gfx = prepare_generic_fx(session, sample_rate, channels)
+            if pdc:
+                mlat = fetch_ahead(gfx)
             chunk = auto_chunk_frames(gfx, chunk, device=dev)
             gstep = make_generic_chunk_fn(gfx, T, channels, chunk=chunk, with_meters=meters, device=dev)
             states = init_generic_states(gfx, channels, dev)
 
             def fx_chunk(start, states):
-                pt = per_track(start)
-                for lat, idx, sub in ahead:
-                    pt[idx] = per_track(start + lat, sub)
-                res = gstep(pt, *states, start, tg, auto)
+                res = gstep(per_track_ahead(start), *states, start, tg, auto)
                 return res[0], res[1:3], res[3] if meters else None
         else:
             (S, coeffs), (Sm, mcoeffs) = prepare_effect_tables(session, sample_rate, channels, device=dev)
@@ -355,24 +445,33 @@ def bounce(
     direct 32-tap form). ``chunk_frames``: frames per gather-path chunk;
     ``strict_order=False`` lets that path sum the tracks in one
     ``torch.sum`` (order not fixed). ``effects_mode``: ``"scan"``,
-    ``"fir"`` or ``"generic"`` (chains the first two cannot take, or any
-    effect lane, finish generic regardless). ``meters``: also fill
+    ``"fir"``, ``"generic"`` (chains the first two cannot take, or any
+    effect lane, finish generic regardless) or ``"routed"`` (which every
+    session with routing takes). ``routed_chunk``: the routed finisher's
+    chunk length on the kernel path (None: ``routed_auto_chunk_frames``).
+    ``meters``: also fill
     ``stats.track_peak``/``track_rms``/``output_peak``/``output_rms``;
-    forces the scan. ``pdc``: plugin-delay compensation (chains with
-    latency read their input that far ahead; master latency is rendered
-    past and trimmed). On the CPU (``device="cpu"``) the plain PyTorch
-    versions render the same audio. ``routed_chunk``, ``loudness``,
+    forces the scan (routed sessions stay routed). ``pdc``: plugin-delay
+    compensation (chains with latency read their input that far ahead;
+    bus latency is aligned by delay lines on the kernel path and refused
+    on the gather path; master latency is rendered past and trimmed). On
+    the CPU (``device="cpu"``) the plain PyTorch versions render the same
+    audio. ``loudness``,
     ``normalize`` and ``out_encode`` are taken at their defaults; another
     value raises ``NotImplementedError`` naming the ROADMAP.md item
     (:data:`DEFAULT_ONLY`). ``stats.cost`` holds the roofline estimate,
     ``stats.roofline_fraction`` its share of the card's peaks.
     """
-    _check_keywords(engine, routed_chunk=routed_chunk, loudness=loudness, normalize=normalize,
-                    out_encode=out_encode)
+    _check_keywords(engine, loudness=loudness, normalize=normalize, out_encode=out_encode)
     dev = resolve_device(device)
     _check_supported(session, interpolation, effects_mode)
     if meters:
         effects_mode = "scan"  # the spectral FIR sum never holds per-track audio
+    has_midi, has_routing = session_has_midi(session), session_has_routing(session)
+    if has_routing:
+        # buses, groups and sends replace the flat ordered track sum: the
+        # routed finisher hosts every chain (render/routing.py)
+        effects_mode = "routed"
     if num_blocks is None and tail_seconds > 0.0:
         tr_ = BlockTransport(float(sample_rate), int(buffer_size), session.beat_duration,
                              session.playhead_start, tempo_map=getattr(session, "tempo_map", None))
@@ -412,7 +511,7 @@ def bounce(
 
     # effect lanes ride the finisher of the chains they automate (the JAX
     # package's rule: a lane on a slot no chain fills renders nothing)
-    has_fx = session_has_effects(session) or meters
+    has_fx = session_has_effects(session) or meters or has_midi or has_routing
     plan = None
     if engine != "xla" and sinc_bank is None:
         try:
@@ -430,12 +529,13 @@ def bounce(
     if plan is not None:
         stats.mix_path = "kernel"
         out = _render_kernel(session, table, pool, plan, interp, pre_pool_dev, sample_rate, channels,
-                             effects_mode, meters, pdc, has_fx, dev, stats, watch)
+                             effects_mode, meters, pdc, has_fx, routed_chunk, buffer_size, dev, stats,
+                             watch)
     else:
         stats.mix_path = "gather"
         out = _render_gather(session, table, pool, sample_rate, channels, buffer_size, num_blocks,
                              engine, interpolation, sinc_bank, interp, pre_pool_dev, chunk_frames,
-                             strict_order, meters, pdc, dev, stats, watch)
+                             strict_order, meters, pdc, has_midi, has_routing, dev, stats, watch)
 
     if trim_frames is not None:
         out = out[:, :trim_frames]

@@ -1,7 +1,6 @@
 """Roofline cost model: the least bytes and operations a render must spend.
 
-Counterpart of ``whitebox_tpu/render/roofline.py`` (without
-``routing_cost``, which comes with the routed finisher). For a render we
+Counterpart of ``whitebox_tpu/render/roofline.py``. For a render we
 estimate its speed-of-light device time: the memory traffic it must move
 and the operations it must execute, over the card's peak memory rate and
 peak f32 rate. ``RenderStats.roofline_fraction`` is that time over the
@@ -189,6 +188,20 @@ def fx_cost(session, frames: int, channels: int) -> CostEstimate:
     return est
 
 
+def routing_cost(session, frames: int, channels: int) -> CostEstimate:
+    """The routed finisher's routing products (``render/routing.py``):
+    ``r_post [1+NB, T]`` and ``r_pre [NB, T]`` against ``[T, C*F]``."""
+    est = CostEstimate()
+    buses = getattr(session, "buses", []) or []
+    if not buses:
+        return est
+    T = len(session.tracks)
+    NB = len(buses)
+    cf = float(channels) * frames
+    est.add("route.matmul", mxu_flops=2.0 * (1 + 2 * NB) * T * cf, hbm_bytes=(T + 2 * NB + 1) * cf * 4.0)
+    return est
+
+
 def prerender_cost(pplan, channels: int = 2) -> CostEstimate:
     """The sinc prerender's banded products (timeline/prerender.py): one
     row of ``taps`` coefficients per output sample, the extension written
@@ -210,6 +223,7 @@ def estimate_bounce_cost(table, session, frames: int, channels: int) -> CostEsti
 
     est = mix_cost(table, frames, channels)
     if session_has_effects(session) or session_has_automation(session) or session_has_routing(session):
-        for name, (b, f) in fx_cost(session, frames, channels).terms.items():
-            est.add(name, b, f)
+        for sub in (fx_cost(session, frames, channels), routing_cost(session, frames, channels)):
+            for name, (b, f) in sub.terms.items():
+                est.add(name, b, f)
     return est

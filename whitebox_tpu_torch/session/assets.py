@@ -99,9 +99,13 @@ class MidiTable:
         return asset
 
     def load_from_file(self, path) -> MidiAsset | None:
-        raise NotImplementedError(
-            "whitebox_tpu_torch reads no Standard MIDI File yet (midi/smf.py): "
-            "ROADMAP.md queue 1, item 5")
+        from whitebox_tpu_torch.midi.smf import load_notes_from_file
+
+        try:
+            notes = load_notes_from_file(path)
+        except (ValueError, OSError):
+            return None
+        return self.create_midi(notes)
 
     def __len__(self) -> int:
         return len(self.midi_assets)

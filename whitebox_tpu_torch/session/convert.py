@@ -72,6 +72,9 @@ class _Carrier:
                     cc=[MidiCCEvent(e.time, e.controller, e.value, e.channel) for e in nb.cc],
                     poly_pressure=[MidiPolyPressureEvent(e.time, e.key, e.pressure, e.channel)
                                    for e in nb.poly_pressure])
+                for meta in ("tempo", "meter"):  # a parsed SMF's Set-Tempo / Time-Signature metas
+                    if hasattr(nb, meta):
+                        setattr(notes, meta, [tuple(x) for x in getattr(nb, meta)])
             got = MidiAsset(notes=notes, ref_count=int(a.ref_count))
             self.midi[id(a)] = got
         return got
