@@ -14,8 +14,10 @@ clips in the export-quality interpolation modes: Catmull-Rom and six
 polynomial taps in the kernel (K2-catmull, K2-poly) and the sinc
 prerender, which extends the sample pool on the card and mixes speed-1
 rows over it with the same kernel, a routed session on group buses with a
-sidechain duck, and an arrangement with MIDI tracks through the synth.
-It checks the results by the repo's
+sidechain duck, and an arrangement with MIDI tracks through the synth;
+then the export deliverables: stems and bus stems (K4 and the cascade
+kernel), EBU R128 loudness and normalize, the phase-vocoder stretch and
+the waveform peak pyramid. It checks the results by the repo's
 own references. It imports nothing of JAX or of the JAX package and reads
 no ``.wb`` project. Phases, one or more lines each:
 
@@ -124,7 +126,25 @@ no ``.wb`` project. Phases, one or more lines each:
     ``render_synth_numpy``, the first 10 s bit-equal to the CPU bounce,
     ``engine="xla"`` (no mix-kernel launch) bit-equal to the K4 path; 5
     warm iterations, the synth's and the finisher's device times;
-14. the script's wall time, one JSON line of kernels (each entry's
+14. the export deliverables, each 128 tracks x 60 s at 48 kHz with the
+    launch counts reset just before: stems_eq_128trk and
+    stems_generic_128trk (``render_stems``: one K4 launch, then the stems
+    finisher, the EQ cell's through the cascade kernel; the stems' sum
+    within atol 5e-5 of the pre-master bounce, the first 10 s of a stem of
+    each chain within relative RMS 1e-5 of the CPU's), bus_stems_routed_128trk
+    (``render_bus_stems`` of config 6: one K4 launch, the master chain over
+    direct + buses within 1e-5 of the routed bounce, the first 2 s within
+    1e-5 of the CPU's), loudness_headline (``bounce(loudness=True)``: one
+    mix-kernel and one cascade launch, the readings within 0.02 LU / 0.05
+    LU LRA / 0.05 dB true peak of the f64 host reference, the cascade at
+    that shape against its plain version, ``normalize`` to -14 LUFS and
+    -1 dBTP), stretch_60s (the vocoder at 1.25 and a +3 semitone shift of
+    a seeded 60 s programme: bit-equal across card runs, 1e-5 off the
+    CPU's) and peaks_10min (``build_mipmaps`` of 28.8 M stereo frames in
+    F32 and I16, both qualities, bit-identical to the C++ scalar walk);
+    e2e, the kernels and finishers by CUDA events, the readback, peak
+    memory;
+15. the script's wall time, one JSON line of kernels (each entry's
     ``cell_launches`` the counts read in those cells), then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -446,17 +466,25 @@ def effects_eq_128trk(duration=60.0):
     """The JAX package's benchmark config 5 (``benchmarks/run_all.py:362-374``):
     the headline session (128 tracks, seed 7) with a 3-band ParametricEQ on
     every track and a 25 Hz highpass on the master bus."""
-    from whitebox_tpu_torch.effects import Biquad, EffectChain, ParametricEQ
+    from whitebox_tpu_torch.effects import Biquad, EffectChain
     from whitebox_tpu_torch.render.demo import make_demo_session
 
     s = make_demo_session(n_tracks=128, duration_seconds=duration, sample_rate=48000, seed=7)
+    add_eq_chains(s)
+    s.master_effects = EffectChain([Biquad("highpass", 25.0)])
+    return s
+
+
+def add_eq_chains(s):
+    """Config 5's track chains: a 3-band ParametricEQ on every track, the
+    peak band at 1000 + 37 * track Hz."""
+    from whitebox_tpu_torch.effects import EffectChain, ParametricEQ
+
     for i, tr in enumerate(s.tracks):
         tr.effects = EffectChain([ParametricEQ([
             ("lowshelf", 100.0, 0.707, 2.0), ("peak", 1000.0 + 37.0 * i, 1.0, -1.5),
             ("highshelf", 8000.0, 0.707, 1.0),
         ])])
-    s.master_effects = EffectChain([Biquad("highpass", 25.0)])
-    return s
 
 
 # ---------------------------------------------------------------- phases
@@ -2535,6 +2563,387 @@ def phase_midi(torch) -> dict:
     return stats
 
 
+# ---------------------------------------------------- export deliverables
+
+#: loudness bars of the card's measurement against the f64 host reference:
+#: LU for the three loudness readings and LRA, dB for the true peak
+LOUDNESS_BARS = {"integrated_lufs": 0.02, "momentary_max_lufs": 0.02, "shortterm_max_lufs": 0.02,
+                 "lra_lu": 0.05, "true_peak_dbtp": 0.05}
+#: seconds of each export held against the same finisher on the CPU
+STEMS_CPU_SECONDS, BUS_STEMS_CPU_SECONDS = 10.0, 2.0
+#: frames of the peaks cell's sample: 10 minutes at 48 kHz
+PEAKS_FRAMES = 28_800_000
+
+
+def program_signal(seconds: float, seed: int = 17):
+    """A seeded stereo programme: two tones with vibrato and a third tone
+    under a moving level, a hum, and noise bursts on every beat at 120 bpm."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n = int(seconds * RATE)
+    t = np.arange(n) / RATE
+    level = 0.6 + 0.4 * np.sin(2 * np.pi * 0.05 * t)
+    x = np.stack([0.25 * np.sin(2 * np.pi * f * t + d * np.sin(2 * np.pi * 5.0 * t))
+                  + 0.12 * np.sin(2 * np.pi * 1244.5 * t + c) + 0.05 * np.sin(2 * np.pi * 55.0 * t)
+                  for c, (f, d) in enumerate(((220.0, 0.6), (330.0, 0.9)))])
+    burst = np.exp(-(t % 0.5) * 30.0)
+    return (x * level + 0.15 * burst * rng.standard_normal((2, n))).astype(np.float32)
+
+
+def peaks_sample(fmt, n: int, seed: int = 23):
+    """A seeded stereo sample of ``n`` frames in ``fmt`` (F32 or I16): noise
+    under a slow envelope, with ties (a frame repeated every 4096)."""
+    import numpy as np
+
+    from whitebox_tpu_torch.core.formats import AudioFormat
+    from whitebox_tpu_torch.session.sample import Sample
+
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((2, n), dtype=np.float32) * np.float32(0.3)
+    x *= np.float32(0.5) + np.float32(0.5) * np.sin(np.arange(n, dtype=np.float32) * np.float32(2e-5))
+    x[:, ::4096] = x[:, 1::4096]
+    x = np.clip(x, -1.0, 1.0)
+    data = x if fmt == AudioFormat.F32 else np.round(x * 32767.0).astype(np.int16)
+    return Sample.from_planar(np.ascontiguousarray(data), int(RATE), fmt)
+
+
+def check_mipmaps(got, sample, quality: str) -> None:
+    """Every level of ``got`` bit-identical to the C++ scalar walk
+    (``io/native.py::peaks_level``) over the host's quantized codes."""
+    import numpy as np
+
+    from whitebox_tpu_torch.io import native
+    from whitebox_tpu_torch.ops import peaks
+
+    mips = peaks.mip_levels_for(sample.count)
+    check([lv.mip_level for lv in got.levels] == mips, f"peaks {quality}: levels != {mips}")
+    for c in range(sample.channels):
+        codes = peaks.quantize_codes(sample.data[c], sample.format, quality)
+        for lv in got.levels:
+            walk = native.peaks_level(codes, lv.mip_level, peaks.level_out_count(sample.count, lv.mip_level))
+            check(walk is not None, "peaks: no native host library (no g++) for the scalar walk")
+            check(np.array_equal(walk.astype(lv.data.dtype), lv.data[c]),
+                  f"peaks {sample.format.name} {quality}: mip {lv.mip_level} channel {c} != the C++ walk")
+
+
+def _wall_ms(torch, fn, n=3):
+    """``n`` calls of ``fn``, each synchronised -> (median ms by the host
+    clock, all ms, the results)."""
+    ts, outs = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(fn())
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts), ts, outs
+
+
+def _pinned_readback(torch, t) -> dict:
+    """What the readback of ``t`` would take into page-locked host memory
+    (not what the port does: ``render_stems`` returns pageable NumPy): the
+    allocation once, then the copy (median of 3)."""
+    t0 = time.perf_counter()
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    alloc_ms = (time.perf_counter() - t0) * 1e3
+    copy_ms, _, _ = _wall_ms(torch, lambda: host.copy_(t).shape)
+    return {"pinned_alloc_ms": alloc_ms, "pinned_readback_ms": copy_ms,
+            "pinned_readback_gb_per_s": t.numel() * t.element_size() / 1e9 / (copy_ms / 1e3)}
+
+
+def _without_master(session):
+    """``session`` with no master chain: its bounce is the pre-master mix,
+    clipped."""
+    import copy
+
+    s = copy.copy(session)
+    s.master_effects = None
+    return s
+
+
+def _k4_buffer(torch, session):
+    """K4's per-track buffer of ``session`` on the card (``[T, C, F]``, a
+    view of the padded one), its time by CUDA events (median of 10)."""
+    from whitebox_tpu_torch.ops import mix_cuda
+    from whitebox_tpu_torch.timeline.carve import carve_session
+
+    table, pool = carve_session(session, RATE, buffer_size=512, slow_emit="runs")
+    r = mix_cuda.CudaMixRenderer(table, pool, session, device="cuda")
+    p = r.plan
+    k4_ms, _ = _event_ms(torch, lambda: mix_cuda.mix_per_track_cuda(r.pool_device, r.tables, p.n_tiles,
+                                                                    p.tile, p.channels), 10)
+    return r.render_device_per_track()[..., :p.total_frames], k4_ms
+
+
+def _stems_finisher(session, kind: str, device):
+    """The stems finisher ``render_stems`` runs for ``kind`` ("eq": the
+    cascade and gains, ``stems_finish``; "generic": the generic stems form)
+    -> fn(per_track, track_gain, auto) -> [T, C, F]."""
+    from whitebox_tpu_torch.render import effects_generic as gen
+    from whitebox_tpu_torch.render.effects_pipeline import prepare_effect_tables
+    from whitebox_tpu_torch.render.stems import stems_finish
+
+    T, C = len(session.tracks), 2
+    if kind == "eq":
+        (S, coeffs), _ = prepare_effect_tables(session, RATE, C, device=device)
+        return lambda pt, tg, auto=None: stems_finish(pt, coeffs, tg, auto, T=T, C=C, S=S)
+    return gen.make_generic_stems_finisher(gen.prepare_generic_fx(session, RATE, C), T, C, device=device)
+
+
+def stems_cell(torch, name: str, session, kind: str, rows: list) -> dict:
+    """``render_stems(device="cuda")`` with the launch counts reset just
+    before: one K4 launch; the stems' sum within atol 5e-5 of the
+    pre-master bounce; the first 10 s of the stems of ``rows`` (a track of
+    each chain) within relative RMS 1e-5 of the same finisher on the CPU;
+    e2e (median of 3), K4 and the stems finisher (CUDA events), the
+    readback (median of 3), peak memory."""
+    import copy
+
+    import numpy as np
+
+    from whitebox_tpu_torch.ops import biquad_cuda
+    from whitebox_tpu_torch.render.bounce import bounce
+    from whitebox_tpu_torch.render.effects_pipeline import prepare_automation_tables
+    from whitebox_tpu_torch.render.stems import _track_gains, render_stems
+
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stems, names = render_stems(session, RATE, device="cuda")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches, casc = mix_launches(), biquad_cuda.biquad_cascade_launches
+    check(launches == {"mix": 0, "auto": 0, "per_track": 1}, f"{name}: mix launches {launches} (want one K4)")
+    check(casc > 0, f"{name}: the stems finisher never ran the cascade kernel")
+    T, C, F = stems.shape
+    check(T == len(session.tracks) == len(names) and np.isfinite(stems).all(), f"{name}: stems {stems.shape}")
+
+    mix = bounce(_without_master(session), RATE, device="cuda").audio
+    n = min(F, mix.shape[1])
+    sum_err = float(np.abs(np.clip(stems.sum(axis=0, dtype=np.float64), -1.0, 1.0)[:, :n] - mix[:, :n]).max())
+    check(sum_err <= 5e-5, f"{name}: the stems' sum {sum_err:.3g} off the pre-master bounce (atol 5e-5)")
+    del mix
+
+    pt, k4_ms = _k4_buffer(torch, session)
+    tg = _track_gains(session, C, "cuda")
+    f10 = int(STEMS_CPU_SECONDS * RATE)
+    sub = copy.copy(session)
+    sub.tracks = [session.tracks[t] for t in rows]
+    t0 = time.perf_counter()
+    on_cpu = _stems_finisher(sub, kind, "cpu")(pt[rows, :, :f10].cpu(), tg[rows].cpu()).numpy()
+    cpu_s = time.perf_counter() - t0
+    rr = max(rel_rms(stems[t, :, :f10], on_cpu[i]) for i, t in enumerate(rows))
+    check(rr < GENERIC_REL_RMS, f"{name}: the stems' first 10 s {rr:.3g} off the CPU's")
+    print(f"[{name}] render_stems(device='cuda'): {T} stems x {F} frames; K4 launches=1, cascade kernel "
+          f"launches={casc}, peak memory {peak:.2f} GB; the stems' sum max abs {sum_err:.3g} off the "
+          f"pre-master bounce (<= 5e-5); first 10 s of stems {rows} vs the CPU relative RMS max {rr:.3g} "
+          f"(< {GENERIC_REL_RMS}; CPU {cpu_s:.1f} s)")
+    del stems, on_cpu
+
+    e2e_ms, e2e_all, _ = _wall_ms(torch, lambda: render_stems(session, RATE, device="cuda")[0].shape)
+    auto = prepare_automation_tables(session, RATE, device="cuda")
+    finish = _stems_finisher(session, kind, "cuda")
+    fin_ms, fin_all = _event_ms(torch, lambda: finish(pt, tg, auto), 3)
+    out = finish(pt, tg, auto)
+    read_ms, _, _ = _wall_ms(torch, lambda: out.cpu().shape)
+    pinned = _pinned_readback(torch, out)
+    stats = {"cell": name, "tracks": T, "audio_seconds": F / RATE, "frames": F,
+             "e2e_ms_median": e2e_ms, "e2e_ms_all": e2e_all, "rtf_median": F / RATE / (e2e_ms / 1e3),
+             "k4_ms": k4_ms, "stems_finish_ms": fin_ms, "stems_finish_ms_all": fin_all,
+             "readback_ms": read_ms, "stems_gb": out.numel() * 4 / 1e9,
+             "readback_gb_per_s": out.numel() * 4 / 1e9 / (read_ms / 1e3), **pinned, "peak_mem_gb": peak,
+             "sum_max_abs": sum_err, "cpu_rel_rms_max": rr, "k4_launches": 1, "cascade_launches": casc}
+    print(f"[{name}] " + json.dumps(stats))
+    del pt, out
+    return stats
+
+
+def phase_stems(torch) -> tuple[dict, dict]:
+    """``stems_eq_128trk`` (config 5's chains: K4, then ``stems_finish``
+    through the cascade kernel) and ``stems_generic_128trk`` (config 6's
+    chains on the flat mix: K4, then the generic stems form): one track of
+    each chain signature against the CPU (the CPU's plain scans take
+    seconds per track)."""
+    eq = stems_cell(torch, "stems_eq_128trk", effects_eq_128trk(60.0), "eq", list(range(0, 128, 16)) + [127])
+    generic = stems_cell(torch, "stems_generic_128trk", generic_fx_128trk(60.0), "generic", [0, 16, 48])
+    return eq, generic
+
+
+def phase_bus_stems(torch) -> dict:
+    """``bus_stems_routed_128trk`` (config 6 exactly): ``render_bus_stems``
+    with the launch counts reset just before (one K4 launch), the master
+    chain over ``direct + bus.sum(0)`` within relative RMS 1e-5 of the
+    routed bounce, the first 2 s within 1e-5 of the same finisher on the
+    CPU; e2e, K4, finisher, readback and peak memory."""
+    from whitebox_tpu_torch.ops import biquad_cuda
+    from whitebox_tpu_torch.render import effects_generic as gen
+    from whitebox_tpu_torch.render import routing as rt
+    from whitebox_tpu_torch.render.bounce import bounce
+    from whitebox_tpu_torch.render.effects_pipeline import prepare_automation_tables
+    from whitebox_tpu_torch.render.stems import _track_gains, render_bus_stems
+    from whitebox_tpu_torch.session.session import Session
+
+    name = "bus_stems_routed_128trk"
+    session = routed_sidechain_128trk(60.0)
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    direct, bus, names = render_bus_stems(session, RATE, device="cuda")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches, casc = mix_launches(), biquad_cuda.biquad_cascade_launches
+    check(launches == {"mix": 0, "auto": 0, "per_track": 1}, f"{name}: mix launches {launches} (want one K4)")
+    B, C, F = bus.shape
+    check(B == 8 and direct.shape == (C, F) and names == [b.name for b in session.buses], f"{name}: shapes")
+
+    # the master chain over the pre-master parts, as a one-track session's
+    # generic finisher (unity fader), against the routed bounce
+    one = Session(bpm=session.bpm)
+    one.add_track("sum")
+    one.master_effects = session.master_effects
+    total = torch.from_numpy(direct).cuda() + torch.from_numpy(bus).cuda().sum(dim=0)
+    master = gen.make_generic_finisher(gen.prepare_generic_fx(one, RATE, C), 1, C, device="cuda")
+    recon = master(total[None], torch.ones((1, C), device="cuda")).cpu().numpy()
+    mix = bounce(session, RATE, device="cuda").audio
+    rr_mix = rel_rms(recon, mix)
+    check(rr_mix < GENERIC_REL_RMS, f"{name}: master(direct + buses) {rr_mix:.3g} off the routed bounce")
+
+    pt, k4_ms = _k4_buffer(torch, session)
+    tg = _track_gains(session, C, "cuda")
+    f2 = int(BUS_STEMS_CPU_SECONDS * RATE)
+    t0 = time.perf_counter()
+    rfx_cpu = rt.prepare_routed_fx(session, RATE, C)
+    d_cpu, b_cpu = rt.make_routed_stems_finisher(rfx_cpu, len(session.tracks), C)(
+        pt[..., :f2].cpu(), tg.cpu(), prepare_automation_tables(session, RATE))
+    cpu_s = time.perf_counter() - t0
+    rr_cpu = max(rel_rms(direct[:, :f2], d_cpu.numpy()), rel_rms(bus[:, :, :f2], b_cpu.numpy()))
+    check(rr_cpu < GENERIC_REL_RMS, f"{name}: the first 2 s {rr_cpu:.3g} off the CPU's")
+    print(f"[{name}] render_bus_stems(device='cuda'): direct + {B} buses x {F} frames; K4 launches=1, "
+          f"cascade kernel launches={casc}, peak memory {peak:.2f} GB; master(direct + buses) vs the routed "
+          f"bounce relative RMS {rr_mix:.3g} (< {GENERIC_REL_RMS}); first 2 s vs the CPU {rr_cpu:.3g} "
+          f"(CPU {cpu_s:.1f} s)")
+    del direct, bus, recon, mix
+
+    e2e_ms, e2e_all, _ = _wall_ms(torch, lambda: render_bus_stems(session, RATE, device="cuda")[1].shape)
+    rfx = rt.prepare_routed_fx(session, RATE, C, device="cuda")
+    auto = prepare_automation_tables(session, RATE, device="cuda")
+    finish = rt.make_routed_stems_finisher(rfx, len(session.tracks), C, device="cuda")
+    fin_ms, fin_all = _event_ms(torch, lambda: finish(pt, tg, auto), 3)
+    d, b = finish(pt, tg, auto)
+    read_ms, _, _ = _wall_ms(torch, lambda: [t.cpu().shape for t in (d, b)])
+    stats = {"cell": name, "tracks": len(session.tracks), "buses": B, "audio_seconds": F / RATE, "frames": F,
+             "e2e_ms_median": e2e_ms, "e2e_ms_all": e2e_all, "rtf_median": F / RATE / (e2e_ms / 1e3),
+             "k4_ms": k4_ms, "bus_finish_ms": fin_ms, "bus_finish_ms_all": fin_all, "readback_ms": read_ms,
+             "peak_mem_gb": peak, "master_rel_rms": rr_mix, "cpu_rel_rms": rr_cpu,
+             "k4_launches": 1, "cascade_launches": casc}
+    print(f"[{name}] " + json.dumps(stats))
+    return stats
+
+
+def phase_loudness(torch) -> dict:
+    """``loudness_headline``: ``bounce(loudness=True)`` of the headline
+    session with the launch counts reset just before (one mix-kernel
+    launch, one cascade launch for the K-weighting); the readings within
+    0.02 LU (0.05 LU LRA, 0.05 dB true peak) of the f64 host reference on
+    the 60 s output; the cascade at that shape against its plain version;
+    ``normalize=("lufs", -14)`` within 0.2 LU and ``("peak", -1)`` within
+    0.15 dB of the target; the measurement's time."""
+    from whitebox_tpu_torch.ops import biquad_cuda, mix_cuda
+    from whitebox_tpu_torch.ops.loudness import k_weighting_cascade, measure_loudness, measure_loudness_reference
+    from whitebox_tpu_torch.render.bounce import bounce
+    from whitebox_tpu_torch.render.demo import make_demo_session
+
+    name = "loudness_headline"
+    session = make_demo_session(n_tracks=128, duration_seconds=60.0, sample_rate=int(RATE), seed=7)
+    reset_launches()
+    res = bounce(session, RATE, device="cuda", loudness=True)
+    k1, casc = mix_cuda.mix_kernel_launches, biquad_cuda.biquad_cascade_launches
+    check(k1 == 1 and casc == 1, f"{name}: mix launches {k1}, cascade launches {casc} (want 1, 1)")
+    t0 = time.perf_counter()
+    ref = measure_loudness_reference(res.audio, RATE).as_dict()
+    ref_s = time.perf_counter() - t0
+    got = res.stats.loudness.as_dict()
+    diffs = {k: abs(got[k] - ref[k]) for k in LOUDNESS_BARS}
+    check(all(diffs[k] <= bar for k, bar in LOUDNESS_BARS.items()),
+          f"{name}: card readings {got} off the f64 reference {ref}")
+    x = torch.from_numpy(res.audio).cuda()
+    coeffs = k_weighting_cascade(RATE, x.shape[0], "cuda")
+    zeros = [torch.zeros((x.shape[0], 2), device="cuda") for _ in range(2)]
+    casc_err, casc_abs = cascade_vs_plain("k_weighting_headline", torch, x, coeffs, zeros)
+    casc_ms, _ = _event_ms(torch, lambda: biquad_cuda.biquad_cascade(x, coeffs, zeros), 10)
+    casc_plain_ms, _ = _event_ms(torch, lambda: biquad_cuda.biquad_cascade_reference(x, coeffs, zeros), 3)
+    targets = {}
+    for mode, target, reading, bar in (("lufs", -14.0, "integrated_lufs", 0.2), ("peak", -1.0, "true_peak_dbtp", 0.15)):
+        r = bounce(session, RATE, device="cuda", loudness=True, normalize=(mode, target))
+        v = getattr(r.stats.loudness, reading)
+        check(abs(v - target) < bar, f"{name}: normalize {mode} {target} read {v}")
+        targets[mode] = v
+    measure_ms, measure_all, _ = _wall_ms(torch, lambda: measure_loudness(res.audio, RATE, device="cuda"))
+    stats = {"cell": name, "frames": int(res.audio.shape[1]), "readings": got, "f64_reference": ref,
+             "reading_diffs": diffs, "f64_reference_s": ref_s, "normalized": targets,
+             "measure_ms_median": measure_ms, "measure_ms_all": measure_all,
+             "k_weighting_cascade_ms": casc_ms, "k_weighting_plain_ms": casc_plain_ms,
+             "k_weighting_vs_plain_rel_rms": casc_err, "k_weighting_vs_plain_max_abs": casc_abs,
+             "mix_launches": k1, "cascade_launches": casc}
+    print(f"[{name}] bounce(loudness=True): {res.stats.summary()}; " + json.dumps(stats))
+    return stats
+
+
+def phase_stretch(torch) -> dict:
+    """``stretch_60s``: ``time_stretch`` (ratio 1.25) and ``pitch_shift``
+    (+3 semitones) of a seeded 60 s stereo programme on the card: bit-equal
+    across runs, within relative RMS 1e-5 of the CPU's; medians of 3."""
+    import numpy as np
+
+    from whitebox_tpu_torch.ops.stretch import pitch_shift, time_stretch
+
+    name = "stretch_60s"
+    x = program_signal(60.0)
+    stats = {"cell": name, "frames": int(x.shape[1])}
+    for label, fn in (("time_stretch_1.25", lambda d: time_stretch(x, 1.25, device=d)),
+                      ("pitch_shift_+3", lambda d: pitch_shift(x, 3.0, RATE, device=d))):
+        ms, ms_all, outs = _wall_ms(torch, lambda: fn("cuda"))
+        check(all(np.array_equal(o, outs[0]) for o in outs[1:]), f"{name}: {label} differs between card runs")
+        t0 = time.perf_counter()
+        cpu = fn("cpu")
+        cpu_s = time.perf_counter() - t0
+        rr = rel_rms(outs[0], cpu)
+        check(outs[0].shape == cpu.shape and np.isfinite(outs[0]).all() and rr < 1e-5,
+              f"{name}: {label} {rr:.3g} off the CPU's")
+        busy_ms, _ = card_busy_ms(torch, lambda: fn("cuda"))
+        stats[label] = {"ms_median": ms, "ms_all": ms_all, "card_busy_ms": busy_ms, "cpu_rel_rms": rr,
+                        "cpu_s": cpu_s, "out_frames": int(outs[0].shape[1])}
+    print(f"[{name}] bit-equal across 3 card runs; " + json.dumps(stats))
+    return stats
+
+
+def phase_peaks(torch) -> dict:
+    """``peaks_10min``: ``build_mipmaps`` of a seeded 10-minute stereo sample
+    in F32 and I16, "high" and "low", on the card: every level
+    bit-identical to the C++ scalar walk; medians of 3."""
+    import numpy as np
+
+    from whitebox_tpu_torch.core.formats import AudioFormat
+    from whitebox_tpu_torch.ops import peaks
+
+    name = "peaks_10min"
+    stats = {"cell": name, "frames": PEAKS_FRAMES, "channels": 2}
+    for fmt in (AudioFormat.F32, AudioFormat.I16):
+        sample = peaks_sample(fmt, PEAKS_FRAMES)
+        data = torch.from_numpy(np.stack(sample.data)).cuda()
+        mips = peaks.mip_levels_for(sample.count)
+        for q in ("high", "low"):
+            ms, ms_all, outs = _wall_ms(torch, lambda: peaks.build_mipmaps(sample, q, device="cuda"))
+            # the pyramid alone, the sample already on the card
+            pyr_ms, _ = _event_ms(torch, lambda: peaks._pyramid(peaks.quantize_codes_torch(data, fmt, q),
+                                                                sample.count, mips), 5)
+            t0 = time.perf_counter()
+            check_mipmaps(outs[-1], sample, q)
+            stats[f"{fmt.name}_{q}"] = {"ms_median": ms, "ms_all": ms_all, "pyramid_ms": pyr_ms,
+                                        "levels": len(outs[-1].levels), "cpp_walk_s": time.perf_counter() - t0}
+    print(f"[{name}] every level bit-identical to the C++ walk; " + json.dumps(stats))
+    return stats
+
+
 def main() -> int:
     try:
         import torch
@@ -2566,6 +2975,11 @@ def main() -> int:
     phase_routed_small(torch)
     routed = phase_routed(torch)
     midi = phase_midi(torch)
+    stems_eq, stems_generic = phase_stems(torch)
+    bus_stems = phase_bus_stems(torch)
+    loud = phase_loudness(torch)
+    phase_stretch(torch)
+    phase_peaks(torch)
     check("jax" not in sys.modules and "whitebox_tpu" not in sys.modules,
           "the port loaded jax or the JAX package")
     print(f"[total] chip_smoke wall time {time.perf_counter() - t_start:.1f} s (limit 1200 s)")
@@ -2574,7 +2988,8 @@ def main() -> int:
         {"name": "mix_linear", "route": "cuda", "source": src,
          "replaces": "whitebox_tpu/ops/mix_pallas.py:407", **linear,
          "cell_launches": {"headline_xla": headline_xla["mix"], "dense_overflow": dense["mix"],
-                           "effects_eq_240s_128trk_6gib_rule": long["gather_launches"]["mix"]}},
+                           "effects_eq_240s_128trk_6gib_rule": long["gather_launches"]["mix"],
+                           "loudness_headline": loud["mix_launches"]}},
         {"name": "mix_automation", "route": "cuda", "source": src,
          "replaces": "whitebox_tpu/ops/mix_pallas.py:384-460", **auto},
         {"name": "mix_per_track", "route": "cuda", "source": src,
@@ -2586,7 +3001,10 @@ def main() -> int:
                            "routed_sidechain_128trk": routed["k4_launches"],
                            "routed_sidechain_128trk_xla": routed["xla_launches"]["per_track"],
                            "midi_synth_128trk": midi["k4_launches"],
-                           "midi_synth_128trk_xla": midi["xla_launches"]["per_track"]}},
+                           "midi_synth_128trk_xla": midi["xla_launches"]["per_track"],
+                           "stems_eq_128trk": stems_eq["k4_launches"],
+                           "stems_generic_128trk": stems_generic["k4_launches"],
+                           "bus_stems_routed_128trk": bus_stems["k4_launches"]}},
         {"name": "mix_catmull", "route": "cuda", "source": src,
          "replaces": "whitebox_tpu/ops/mix_pallas.py:518-519,557-563", **interp["mix_catmull"]},
         {"name": "mix_poly", "route": "cuda", "source": src,
@@ -2601,7 +3019,9 @@ def main() -> int:
                            "effects_eq_240s_128trk": long["cascade_launches"],
                            "effects_eq_240s_128trk_6gib_rule": long["gather_cascade_launches"],
                            "routed_sidechain_128trk": routed["cascade_launches"],
-                           "midi_synth_128trk": midi["cascade_launches"]}},
+                           "midi_synth_128trk": midi["cascade_launches"],
+                           "stems_eq_128trk": stems_eq["cascade_launches"],
+                           "loudness_headline": loud["cascade_launches"]}},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["device"],
                                              "count": env["device_count"]}}))

@@ -373,6 +373,42 @@ def test_freeze_track_renders_its_chain():
     assert s.tracks[1].effects == [] and isinstance(s.tracks[1].frozen["effects"], EffectChain)
 
 
+def test_freeze_track_takes_the_engine_keyword():
+    """``freeze_track(engine=)`` reaches the bounce, as in the JAX package:
+    the gather path's render equals the kernel path's (speed 1, an EQ
+    chain: within the finishers' chunking, 1e-6)."""
+    js = _eq_session(seed=9, n_tracks=2)
+    s_auto, s_xla = from_reference(js), from_reference(js)
+    s_auto.freeze_track(1, 48000.0, device="cpu")
+    s_xla.freeze_track(1, 48000.0, engine="xla", device="cpu")
+    a = np.stack(s_auto.tracks[1].clips[0].audio.asset.sample.data)
+    x = np.stack(s_xla.tracks[1].clips[0].audio.asset.sample.data)
+    assert a.shape == x.shape and np.abs(a).max() > 0.01 and rel_rms(x, a) < 1e-6
+
+
+def test_cli_freeze_matches_jax_cli(tmp_path, capsys):
+    """``freeze`` then ``freeze --unfreeze`` on the same .wb in both CLIs:
+    the same printouts, the frozen render within 1e-5 of the JAX package's,
+    the unfrozen project's chain back."""
+    from whitebox_tpu import cli as jax_cli
+    from whitebox_tpu_torch.session.project import read_project
+
+    wb, want_wb, got_wb = tmp_path / "p.wb", tmp_path / "jax.wb", tmp_path / "port.wb"
+    write_project(_eq_session(seed=9, n_tracks=2), wb)
+    assert jax_cli.main(["freeze", str(wb), "--track", "1", "--out", str(want_wb)]) == 0
+    jout = capsys.readouterr().out
+    assert cli.main(["freeze", str(wb), "--track", "1", "--out", str(got_wb), "--device", "cpu"]) == 0
+    assert capsys.readouterr().out == jout
+    from whitebox_tpu.session.project import read_project as jax_read_project
+
+    want, got = jax_read_project(want_wb).tracks[1], read_project(got_wb).tracks[1]
+    a, b = np.stack(got.clips[0].audio.asset.sample.data), np.stack(want.clips[0].audio.asset.sample.data)
+    assert got.frozen is not None and a.shape == b.shape and rel_rms(a, b) < 1e-5
+    assert cli.main(["freeze", str(got_wb), "--track", "1", "--unfreeze"]) == 0
+    assert "unfroze track 1" in capsys.readouterr().out
+    assert read_project(got_wb).tracks[1].effects
+
+
 def test_per_track_guard_raises_naming_item_1(monkeypatch, eq_case, eq_jax_bounces):
     """Per-track buffers above the guard take the gather path with the
     streaming scan finisher: within relative RMS 1e-5 of the JAX package's
@@ -476,11 +512,26 @@ def test_cli_renders_with_interpolation(tmp_path, flags, kw):
     ({"out_encode": {"bitrate_kbps": 192}}, "item 14")], ids=lambda v: next(iter(v)) if isinstance(v, dict) else None)
 def test_reference_keywords_raise_naming_their_item(kw, item):
     """The keywords items 1, 6(a) and 6(b) ported render (speed 1, no chains:
-    bit-equal to the NumPy oracle; the relaxed sum within 1e-6); the others
-    raise naming their item, and at their default change nothing."""
+    bit-equal to the NumPy oracle; the relaxed sum within 1e-6); item 9's
+    measure and normalize as the JAX package's f64 measurement says; the
+    others raise naming their item, and at their default change nothing."""
     js = random_session(6, rate=48000, bpm=120.0, n_tracks=1, n_clips=1)
     s = from_reference(js)
     (name, value), = kw.items()
+    if name in ("loudness", "normalize"):
+        from whitebox_tpu.ops.loudness import measure_loudness as jax_measure
+
+        raw = port_bounce(s, 48000.0, device="cpu").audio
+        got = port_bounce(s, 48000.0, device="cpu", **{"loudness": True, **kw})
+        if name == "normalize":
+            gain = 10.0 ** ((value[1] - jax_measure(raw, 48000.0, device=False).integrated_lufs) / 20.0)
+            np.testing.assert_allclose(got.audio, np.clip(raw * np.float32(gain), -1.0, 1.0), rtol=2e-5)
+        else:
+            np.testing.assert_array_equal(got.audio, raw)
+        want = jax_measure(got.audio, 48000.0, device=False)
+        assert abs(got.stats.loudness.integrated_lufs - want.integrated_lufs) < 0.02
+        assert abs(got.stats.loudness.true_peak_dbtp - want.true_peak_dbtp) < 0.05
+        return
     if name in ("chunk_frames", "strict_order", "engine", "pdc", "routed_chunk"):
         kws = {"engine": "auto" if name in ("pdc", "routed_chunk") else "xla", **kw}
         got = port_bounce(s, 48000.0, device="cpu", **kws)

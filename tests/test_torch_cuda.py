@@ -28,7 +28,11 @@ section groups), a finisher stream that alternates kernel and plain
 states, and the scan and metered bounces through it (no Hillis scan); the
 routed finisher on the card against the CPU and the f64 reference, the
 synth bit-equal to its NumPy spec, and a routed and a MIDI bounce with
-one K4 launch each.
+one K4 launch each; the export deliverables on the card against the CPU:
+stems (one K4 launch, the cascade kernel) and bus stems within relative
+RMS 1e-5, the loudness readings within 0.02 LU / 0.05 dB, the vocoder
+within 1e-5 and bit-equal across two runs, the peak pyramid bit-identical
+to the C++ scalar walk.
 """
 
 import numpy as np
@@ -429,3 +433,56 @@ def test_routed_and_midi_bounces_count_one_k4_launch(card, kind):
         np.testing.assert_array_equal(got.audio, cpu)
     else:
         assert chip_smoke.rel_rms(got.audio, cpu) < 1e-5
+
+
+def test_stems_on_the_card_match_the_cpu(card):
+    """Stems of an EQ session: one K4 launch, the cascade kernel, within
+    relative RMS 1e-5 of the CPU's per stem; bus stems of the small routed
+    session within 1e-5 of the CPU's."""
+    from whitebox_tpu_torch.render.stems import render_bus_stems, render_stems
+
+    s = make_demo_session(n_tracks=6, duration_seconds=3.0, seed=4)
+    chip_smoke.add_eq_chains(s)
+    chip_smoke.reset_launches()
+    got, names = render_stems(s, 48000.0, device=card)
+    assert chip_smoke.mix_launches() == {"mix": 0, "auto": 0, "per_track": 1}
+    assert biquad_cuda.biquad_cascade_launches > 0
+    want, _ = render_stems(s, 48000.0, device="cpu")
+    assert got.shape == want.shape and len(names) == 6
+    for t in range(6):
+        assert chip_smoke.rel_rms(got[t], want[t]) < 1e-5
+    r = chip_smoke.routed_small()
+    for g, w in zip(render_bus_stems(r, 48000.0, device=card)[:2], render_bus_stems(r, 48000.0, device="cpu")[:2]):
+        assert g.shape == w.shape and chip_smoke.rel_rms(g, w) < 1e-5
+
+
+def test_loudness_on_the_card_matches_the_cpu_and_f64(card):
+    from whitebox_tpu_torch.ops.loudness import measure_loudness, measure_loudness_reference
+
+    x = chip_smoke.program_signal(8.0)
+    got = measure_loudness(x, 48000.0, device=card).as_dict()
+    for want in (measure_loudness(x, 48000.0, device="cpu").as_dict(),
+                 measure_loudness_reference(x, 48000.0).as_dict()):
+        for k, bar in chip_smoke.LOUDNESS_BARS.items():
+            assert abs(got[k] - want[k]) <= bar, k
+
+
+def test_vocoder_on_the_card_matches_the_cpu_and_repeats(card):
+    from whitebox_tpu_torch.ops.stretch import pitch_shift, time_stretch
+
+    x = chip_smoke.program_signal(4.0)
+    a = time_stretch(x, 1.25, device=card)
+    np.testing.assert_array_equal(a, time_stretch(x, 1.25, device=card))
+    assert chip_smoke.rel_rms(a, time_stretch(x, 1.25, device="cpu")) < 1e-5
+    p = pitch_shift(x, 3.0, 48000.0, device=card)
+    assert chip_smoke.rel_rms(p, pitch_shift(x, 3.0, 48000.0, device="cpu")) < 1e-5
+
+
+@pytest.mark.parametrize("fmt", ["F32", "I16"])
+def test_peaks_on_the_card_bit_identical_to_the_scalar_walk(card, fmt):
+    from whitebox_tpu_torch.core.formats import AudioFormat
+    from whitebox_tpu_torch.ops.peaks import build_mipmaps
+
+    sample = chip_smoke.peaks_sample(AudioFormat[fmt], 200_001)
+    for q in ("low", "high"):
+        chip_smoke.check_mipmaps(build_mipmaps(sample, q, device=card), sample, q)

@@ -219,7 +219,7 @@ def _unported_calls(tmp_path):
     aif = tmp_path / "x.aiff"
     aif.write_bytes(b"FORM\x00\x00\x00\x04AIFF")
     return {
-        "stretch_preserving_pitch": lambda: s.stretch_clip(0, 0, 1.5, preserve_pitch=True),
+        "stretch_preserving_pitch": lambda: s.stretch_clip(0, 0, 1.5, preserve_pitch=True, device="cpu"),
         "start_recording": lambda: s.start_recording(s.tracks[0], 48000.0),
         "set_track_input": lambda: s.set_track_input(0, "external_mono"),
         "aiff_decode": lambda: Session().sample_table.load_from_file(aif),
@@ -233,8 +233,28 @@ def test_unported_session_methods_raise(tmp_path, call):
     if call == "midi_file":  # ported (midi/smf.py): a missing file reads as None, as in the reference
         assert _unported_calls(tmp_path)[call]() is None
         return
+    if call == "stretch_preserving_pitch":
+        _check_stretch_preserving_pitch(tmp_path)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item"):
         _unported_calls(tmp_path)[call]()
+
+
+def _check_stretch_preserving_pitch(tmp_path):
+    """Ported (ops/stretch.py): the clip plays the phase vocoder's render of
+    its source, on the span the JAX package's ``stretch_clip`` gives it."""
+    from whitebox_tpu_torch.ops.stretch import time_stretch
+
+    js = make_demo_session(n_tracks=1, duration_seconds=2.0, sample_seconds=1.0, seed=1)
+    s = from_reference(js)
+    src = np.stack(s.tracks[0].clips[0].audio.asset.sample.data)
+    js.stretch_clip(0, 0, 1.5, preserve_pitch=False)  # the span; the JAX vocoder's audio is held elsewhere
+    assert _unported_calls(tmp_path)["stretch_preserving_pitch"]() is None
+    s.stretch_clip(0, 0, 1.5, preserve_pitch=True, device="cpu")
+    got, want = s.tracks[0].clips[0], js.tracks[0].clips[0]
+    assert (got.min_time, got.max_time, got.start_offset) == (want.min_time, want.max_time, want.start_offset)
+    assert got.audio.speed == 1.0
+    np.testing.assert_array_equal(np.stack(got.audio.asset.sample.data), time_stretch(src, 1.5, device="cpu"))
 
 
 def test_resample_stretch_still_works():

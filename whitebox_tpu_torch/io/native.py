@@ -1,10 +1,12 @@
-"""ctypes bindings for the port's native host library (carve walk + plan).
+"""ctypes bindings for the port's native host library (carve walk, plan,
+peaks).
 
-Counterpart of ``whitebox_tpu/io/native.py``, limited to the two entry
-points the render path calls: the carve walk (``csrc/host/wb_carve.cpp``,
-bit-equal to the Python walk in ``timeline/carve.py``) and the speed-1
-plan row expansion (``csrc/host/wb_plan.cpp``, used by
-``ops/mix_plan.py::build_plan``).
+Counterpart of ``whitebox_tpu/io/native.py``, limited to the entry points
+the port calls: the carve walk (``csrc/host/wb_carve.cpp``, bit-equal to
+the Python walk in ``timeline/carve.py``), the speed-1 plan row expansion
+(``csrc/host/wb_plan.cpp``, used by ``ops/mix_plan.py::build_plan``) and
+the peak summarize of one mip level (``csrc/host/wb_peaks.cpp``, the
+scalar oracle of ``ops/peaks.py::build_mipmaps``).
 
 The library is built at first use with ``g++`` into
 ``build/host/<hash of the sources and flags>/`` (``buildlib``). The flags
@@ -85,6 +87,8 @@ def load() -> ctypes.CDLL | None:
     ]
     lib.wb_carve_free.restype = None
     lib.wb_carve_free.argtypes = [ctypes.c_void_p]
+    lib.wb_peaks_level.restype = None
+    lib.wb_peaks_level.argtypes = [i32p, ctypes.c_int64, ctypes.c_int32, i32p, ctypes.c_int64]
     _LIB = lib
     return _LIB
 
@@ -139,6 +143,21 @@ def carve_audio(P, S, num_blocks, bs, rate, bd, runs, clip_begin, ci0, cols):
     finally:
         lib.wb_carve_free(h)
     return fa, sa
+
+
+def peaks_level(codes: np.ndarray, mip: int, out_count: int) -> np.ndarray | None:
+    """One mip level of occurrence-ordered (min, max) pairs over the int32
+    ``codes`` (``csrc/host/wb_peaks.cpp``) -> [out_count] int32, or None
+    without the library. ``out_count`` is ``ops/peaks.py::level_out_count``."""
+    lib = load()
+    if lib is None:
+        return None
+    codes = np.ascontiguousarray(codes, dtype=np.int32)
+    if out_count % 2 or mip < 1:
+        raise ValueError(f"out_count must be even and mip >= 1, got {out_count}, {mip}")
+    out = np.zeros(out_count, dtype=np.int32)
+    lib.wb_peaks_level(codes, codes.shape[0], int(mip), out, out_count)
+    return out
 
 
 def build_mix_plan(table, pool, channels: int, tile: int, n_tiles: int, T: int, K: int):

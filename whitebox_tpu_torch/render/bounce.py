@@ -40,8 +40,11 @@ interpolation modes of resampled clips (``"linear"``, ``"catmull"``,
   windowed sinc. ``engine="pallas"`` raises on a slot overflow, as the
   JAX package does.
 
-``stats.mix_path`` says which mix rendered. Loudness and codecs raise
-``NotImplementedError`` naming the ROADMAP.md item that ports them.
+``stats.mix_path`` says which mix rendered. ``normalize`` scales the
+output to a true-peak or integrated-loudness target and ``loudness``
+measures the final audio (``ops/loudness.py``, on the bounce's device);
+codecs raise ``NotImplementedError`` naming the ROADMAP.md item that
+ports them.
 """
 
 from __future__ import annotations
@@ -62,6 +65,7 @@ from whitebox_tpu_torch.midi.synth import (
 from whitebox_tpu_torch.midi.voice import carve_midi_events
 from whitebox_tpu_torch.ops import cuda_build
 from whitebox_tpu_torch.ops.automation import session_has_automation
+from whitebox_tpu_torch.ops.loudness import measure_loudness
 from whitebox_tpu_torch.ops.mix import pack_device_tables, render_chunk, render_chunk_per_track
 from whitebox_tpu_torch.ops.mix_cuda import CudaMixRenderer
 from whitebox_tpu_torch.ops.mix_plan import SlotOverflow, build_plan
@@ -160,8 +164,6 @@ def _add_synth(per_track, synth: dict, chunk_start: int, frames: int):
 #: defaults only: name -> (default, the ROADMAP.md queue 1 item that ports
 #: the feature); any other value raises ``NotImplementedError`` naming it
 DEFAULT_ONLY = {
-    "loudness": (False, "item 9 (loudness)"),
-    "normalize": (None, "item 9 (loudness)"),
     "out_encode": (None, "item 14 (codecs)"),
 }
 
@@ -191,6 +193,34 @@ def _check_supported(session: Session, interpolation: str, effects_mode: str) ->
         raise ValueError(f"effects_mode must be 'scan', 'fir', 'generic' or 'routed', got {effects_mode!r}")
     if interpolation not in ("linear", "catmull", "sinc"):
         raise ValueError(f"interpolation must be 'linear', 'catmull', or 'sinc', got {interpolation!r}")
+
+
+def _finalize_output(out: np.ndarray, stats, sample_rate: float, loudness: bool, normalize,
+                     device) -> np.ndarray:
+    """Optional output normalization + loudness measurement
+    (``whitebox_tpu/render/bounce.py:57-87``), measured on ``device``.
+
+    ``normalize``: None, ("peak", target_dbtp) — scale so the 4x-oversampled
+    TRUE peak hits the target — or ("lufs", target_lufs) — scale so
+    integrated loudness hits the target (delivery-spec normalization, e.g.
+    -14 LUFS streaming). Gain is applied then hard-clipped to ±1 (the
+    engine's output ceiling); stats.loudness measures the FINAL audio."""
+    if normalize is not None:
+        mode, target = normalize
+        pre = measure_loudness(out, sample_rate, device=device)
+        if mode == "peak":
+            gain = 10.0 ** ((float(target) - pre.true_peak_dbtp) / 20.0)
+        elif mode == "lufs":
+            if not np.isfinite(pre.integrated_lufs):
+                gain = 1.0  # silence: nothing to normalize
+            else:
+                gain = 10.0 ** ((float(target) - pre.integrated_lufs) / 20.0)
+        else:
+            raise ValueError(f"normalize mode {mode!r} (want 'peak' or 'lufs')")
+        out = np.clip(out * np.float32(gain), -1.0, 1.0)
+    if loudness:
+        stats.loudness = measure_loudness(out, sample_rate, device=device)
+    return out
 
 
 @dataclass
@@ -456,13 +486,15 @@ def bounce(
     bus latency is aligned by delay lines on the kernel path and refused
     on the gather path; master latency is rendered past and trimmed). On
     the CPU (``device="cpu"``) the plain PyTorch versions render the same
-    audio. ``loudness``,
-    ``normalize`` and ``out_encode`` are taken at their defaults; another
-    value raises ``NotImplementedError`` naming the ROADMAP.md item
+    audio. ``normalize``: ("peak", dBTP) or ("lufs", LUFS) scales the
+    output to the target, then clips to ±1; ``loudness`` fills
+    ``stats.loudness`` from the final audio (:func:`_finalize_output`).
+    ``out_encode`` is taken at its default; another value raises
+    ``NotImplementedError`` naming the ROADMAP.md item
     (:data:`DEFAULT_ONLY`). ``stats.cost`` holds the roofline estimate,
     ``stats.roofline_fraction`` its share of the card's peaks.
     """
-    _check_keywords(engine, loudness=loudness, normalize=normalize, out_encode=out_encode)
+    _check_keywords(engine, out_encode=out_encode)
     dev = resolve_device(device)
     _check_supported(session, interpolation, effects_mode)
     if meters:
@@ -541,6 +573,7 @@ def bounce(
         out = out[:, :trim_frames]
     stats.frames = out.shape[1]
     stats.wall_seconds = stats.carve_seconds + stats.device_seconds
+    out = _finalize_output(out, stats, sample_rate, loudness, normalize, dev)
     if out_path is not None:
         write_wav(out_path, out, int(sample_rate), out_format, dither=out_dither)
     return BounceResult(audio=out, stats=stats)

@@ -61,8 +61,8 @@ class RenderStats:
     #: the card's ``(HBM bytes/s, f32 operations/s)`` peaks
     #: (``roofline.device_peaks``); None off the card
     peaks: tuple | None = None
-    #: EBU R128 measurement of the output (``bounce(loudness=True)``, not
-    #: ported yet: ROADMAP.md queue 1, item 9); always None here
+    #: EBU R128 measurement of the output (``bounce(loudness=True)``,
+    #: ``ops/loudness.py::LoudnessStats``)
     loudness: object = None
 
     @property

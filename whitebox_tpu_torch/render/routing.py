@@ -400,28 +400,43 @@ def make_routed_chunk_fn(rfx: RoutedFX, T: int, C: int, *, chunk: int, with_mete
     return call
 
 
+def make_routed_stems_chunk_fn(rfx: RoutedFX, T: int, C: int, *, chunk: int, device="cpu"):
+    """Streaming bus-stems form: fn(pt_chunk [T, C, chunk], states, start,
+    track_gain, auto) -> ((direct [C, chunk], bus_out [B, C, chunk]), new
+    states), the states :func:`init_routed_states` at the first chunk."""
+    prog = _Program(rfx, chunk, device)
+
+    def call(pt_chunk, states, start, track_gain, auto=None):
+        parts, states, _ = _routed_chunk_step(prog, pt_chunk, states, int(start), track_gain, auto, T, C,
+                                              False, None, emit_parts=True)
+        return parts, states
+
+    return call
+
+
 def make_routed_stems_finisher(rfx: RoutedFX, T: int, C: int, *, chunk: int | None = None,
                                device="cpu"):
     """fn(per_track [T, C, F], track_gain, auto) -> (direct [C, F],
     bus_out [B, C, F]): the pre-master routed components for bus-stem
-    export. ``direct`` is the master-direct track sum, ``bus_out`` each bus
-    post-chain and post-fader; direct + sum(bus_out), then the master
-    chain, is the full mix."""
+    export, written chunk by chunk into one buffer each. ``direct`` is the
+    master-direct track sum, ``bus_out`` each bus post-chain and
+    post-fader; direct + sum(bus_out), then the master chain, is the full
+    mix."""
     if chunk is None:
         chunk = routed_auto_chunk_frames(rfx, device=device)
-    prog = _Program(rfx, chunk, device)
+    step = make_routed_stems_chunk_fn(rfx, T, C, chunk=chunk, device=device)
 
     def finish(per_track, track_gain, auto=None):
         F = per_track.shape[-1]
         states = init_routed_states(rfx, C, device)
-        directs, buses = [], []
+        direct = torch.empty((C, F), dtype=torch.float32, device=per_track.device)
+        bus = torch.empty((rfx.num_buses, C, F), dtype=torch.float32, device=per_track.device)
         for start in range(0, F, chunk):
-            (direct, bus), states, _ = _routed_chunk_step(
-                prog, _chunk_input(per_track, start, chunk, ()), states, start, track_gain, auto, T, C,
-                False, None, emit_parts=True)
-            directs.append(direct)
-            buses.append(bus)
-        return torch.cat(directs, dim=-1)[:, :F], torch.cat(buses, dim=-1)[:, :, :F]
+            (d, b), states = step(_chunk_input(per_track, start, chunk, ()), states, start, track_gain, auto)
+            n = min(chunk, F - start)
+            direct[:, start:start + n] = d[:, :n]
+            bus[..., start:start + n] = b[..., :n]
+        return direct, bus
 
     return finish
 

@@ -292,7 +292,7 @@ class Session:
     # ---- track freeze / bounce-in-place (extension; no upstream equiv) ----
 
     def freeze_track(self, slot: int, sample_rate: float = 48000.0, *,
-                     buffer_size: int = 512, device=None) -> None:
+                     buffer_size: int = 512, engine: str = "auto", device=None) -> None:
         """Bounce-in-place: render the track's clips through its effect
         chain (and effect-param lanes) into a new sample asset, swap the
         clips for one speed-1 audio clip of that render, and clear the
@@ -336,7 +336,7 @@ class Session:
             rt.automation = None
         tmp.tracks = [rt]
         # the chain and its lanes through the port's bounce, on ``device``
-        res = bounce(tmp, sample_rate, buffer_size=buffer_size, device=device)
+        res = bounce(tmp, sample_rate, buffer_size=buffer_size, engine=engine, device=device)
 
         asset = self.sample_table.add_sample(
             Sample.from_planar(np.ascontiguousarray(res.audio), int(sample_rate),
@@ -387,15 +387,19 @@ class Session:
     #      sampler.cpp:34-59 — duration and pitch always move together) ----
 
     def stretch_clip(self, track_slot: int, clip_index: int, ratio: float, *,
-                     preserve_pitch: bool = True) -> None:
+                     preserve_pitch: bool = True, device=None) -> None:
         """Stretch an audio clip's duration by ``ratio``.
 
-        ``preserve_pitch=True`` (the phase vocoder, ``ops/stretch.py``) is
-        not ported yet and raises. ``preserve_pitch=False`` is the classic
-        resample move: the clip's playback speed drops by ``ratio`` (pitch
-        follows), no new audio. The clip's span scales in place, trimming
-        neighbors it now overlaps (reserve_track_region semantics).
+        ``preserve_pitch=True`` renders the source through the phase
+        vocoder (ops/stretch.py, on ``device``: default the CUDA card) into
+        a new sample asset — duration scales, pitch stays.
+        ``preserve_pitch=False`` is the classic resample move: the clip's
+        playback speed drops by ``ratio`` (pitch follows), no new audio.
+        Either way the clip's span scales in place, trimming neighbors it
+        now overlaps (reserve_track_region semantics).
         """
+        import numpy as np
+
         track = self.tracks[track_slot]
         clip = track.clips[clip_index]
         if not clip.is_audio() or clip.audio.asset is None:
@@ -406,11 +410,24 @@ class Session:
 
         length = clip.max_time - clip.min_time
         if preserve_pitch:
-            raise NotImplementedError(
-                "whitebox_tpu_torch has no phase-vocoder stretch yet (ops/stretch.py): "
-                "ROADMAP.md queue 1, item 9")
-        clip.audio.speed = clip.audio.speed / ratio
-        clip.start_offset = clip.start_offset * ratio
+            from whitebox_tpu_torch.core.formats import AudioFormat, normalize_unclamped
+            from whitebox_tpu_torch.ops.stretch import time_stretch
+            from whitebox_tpu_torch.session.sample import Sample
+
+            src = clip.audio.asset.sample
+            f32 = np.asarray(normalize_unclamped(np.stack(src.data), src.format),
+                             np.float32)
+            stretched = time_stretch(f32, ratio, device=device)
+            asset = self.sample_table.add_sample(
+                Sample.from_planar(stretched, int(src.sample_rate), AudioFormat.F32,
+                                   name=f"{src.name or clip.name} (x{ratio:g})"),
+                key=f"stretch:{clip.name}:{id(stretched)}",
+            )
+            clip.audio.asset = asset
+            clip.start_offset = clip.start_offset * ratio
+        else:
+            clip.audio.speed = clip.audio.speed / ratio
+            clip.start_offset = clip.start_offset * ratio
         # fades keep their relative musical position within the clip
         clip.audio.fade_start *= ratio
         clip.audio.fade_end *= ratio
