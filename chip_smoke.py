@@ -17,7 +17,9 @@ rows over it with the same kernel, a routed session on group buses with a
 sidechain duck, and an arrangement with MIDI tracks through the synth;
 then the export deliverables: stems and bus stems (K4 and the cascade
 kernel), EBU R128 loudness and normalize, the phase-vocoder stretch and
-the waveform peak pyramid. It checks the results by the repo's
+the waveform peak pyramid; then the render cache over K1 and K3, the
+block-pull preview and the streamed bounce of a pool past its cap (the
+gather mix and the cascade kernel). It checks the results by the repo's
 own references. It imports nothing of JAX or of the JAX package and reads
 no ``.wb`` project. Phases, one or more lines each:
 
@@ -144,7 +146,31 @@ no ``.wb`` project. Phases, one or more lines each:
     F32 and I16, both qualities, bit-identical to the C++ scalar walk);
     e2e, the kernels and finishers by CUDA events, the readback, peak
     memory;
-15. the script's wall time, one JSON line of kernels (each entry's
+15. cached_headline and cached_automation_tempo_128trk
+    (``render/cached.py::SessionRenderCache`` on the headline and config
+    7, launch counts reset just before each render): every render one K1
+    (K3) launch and bit-equal to ``bounce`` on the card; the first render,
+    the unchanged re-render (``render_device`` synchronised and
+    ``render`` with its readback, medians of 20), a re-render after a
+    clip-gain edit (the pool on the card kept) and after an edit that adds
+    an asset (rebuilt), the edit stamp alone;
+16. preview_32trk (the JAX package's config 8: ``PreviewStream`` with
+    512-frame blocks and 64 of lookahead): no mix-kernel launch, the
+    cascade kernel launched, the first 10 s within relative RMS 1e-5 of
+    ``bounce`` on the card; the cascade kernel against its plain version
+    on the window's track rows and master over two windows, the states
+    carried; the duty of a pulled block and of the card's window against
+    the 10.67 ms block budget, a seek and an edit;
+17. stream_takes_128trk (``render/stream_pool.py::bounce_streamed`` of
+    128 seeded 60 s takes, a 2.95 GB pool, under a 256 MiB cap in windows
+    of 2^17 frames): bit-equal to ``bounce(engine="xla")``, no mix-kernel
+    launch, peak memory below the resident bounce's; e2e, the host's
+    window builds, the page-locked copies, the renders and the card's busy
+    time; with config 5's chains (the cascade kernel) within relative RMS
+    1e-5 of the resident bounce, and the cascade kernel against its plain
+    version on a window's 256 track rows and master over two windows, the
+    states carried;
+18. the script's wall time, one JSON line of kernels (each entry's
     ``cell_launches`` the counts read in those cells), then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -2944,6 +2970,338 @@ def phase_peaks(torch) -> dict:
     return stats
 
 
+# ---------------------------------------------------------------- cache, preview, stream
+
+
+def preview_session(n_tracks=32, duration=60.0):
+    """The JAX package's benchmark config 8 (``benchmarks/run_all.py:509-``):
+    32 tracks with fades (seed 2), a two-band EQ on every track, a volume
+    lane on every track and a 25 Hz highpass on the master."""
+    from whitebox_tpu_torch.effects import Biquad, EffectChain, ParametricEQ
+    from whitebox_tpu_torch.ops.automation import AutomationLane, TrackAutomation
+    from whitebox_tpu_torch.render.demo import make_demo_session
+
+    s = make_demo_session(n_tracks=n_tracks, duration_seconds=duration, sample_rate=48000, seed=2, fades=True)
+    beats = duration / s.beat_duration
+    for i, tr in enumerate(s.tracks):
+        tr.effects = EffectChain([ParametricEQ([
+            ("lowshelf", 100.0, 0.707, 2.0), ("peak", 1000.0 + 37.0 * i, 1.0, -1.5)])])
+        tr.automation = TrackAutomation(volume=AutomationLane().add(0.0, 1.0).add(beats, 0.6))
+    s.master_effects = EffectChain([Biquad("highpass", 25.0)])
+    return s
+
+
+def takes_session(n_tracks=128, duration=60.0, seed=31):
+    """A recording-shaped session: every track plays its own stereo take
+    over the whole length (128 x 60 s: a 2.95 GB pool). The takes are one
+    seeded noise rolled by a seeded offset each (drawing 2.95 GB of
+    normals took ~14 s of the card machine's host)."""
+    import numpy as np
+
+    from whitebox_tpu_torch.core.formats import AudioFormat
+    from whitebox_tpu_torch.session import Sample, Session
+
+    s = Session(bpm=120.0)
+    rng = np.random.default_rng(seed)
+    frames = int(duration * RATE)
+    base = rng.standard_normal((2, frames), dtype=np.float32)
+    base *= np.float32(0.02)
+    for t, shift in enumerate(rng.integers(0, frames, n_tracks)):
+        take = np.roll(base, int(shift), axis=1)
+        a = s.sample_table.add_sample(Sample.from_planar(take, int(RATE), AudioFormat.F32, name=f"take{t}"),
+                                      key=f"take{t}")
+        s.add_audio_clip(s.add_track(f"t{t}"), f"take{t}", 0.0, duration / s.beat_duration, asset=a)
+    return s
+
+
+def cached_cell(torch, name: str, session, automated: bool) -> dict:
+    """``SessionRenderCache`` on the card: the first ``render()`` (carve,
+    plan, upload, one launch), the unchanged re-render (``render_device``
+    synchronised, and ``render`` with its readback, medians of 20), a
+    re-render after a clip-gain edit (the pool on the card kept: the same
+    tensor) and after an edit that adds an asset (rebuilt); every render
+    bit-equal to ``bounce`` on the card and one launch of K1 (K3 with
+    lanes), counted; the edit stamp's own time; ``render``'s readback
+    through a kept page-locked buffer, for comparison."""
+    import numpy as np
+
+    from whitebox_tpu_torch.core.formats import AudioFormat
+    from whitebox_tpu_torch.render.bounce import bounce
+    from whitebox_tpu_torch.render.cached import SessionRenderCache
+    from whitebox_tpu_torch.session import Sample
+
+    kernel = "auto" if automated else "mix"
+    want_launches = {"mix": 0, "auto": 0, "per_track": 0, kernel: 1}
+
+    def checked(label, out):
+        launches = mix_launches()
+        check(launches == want_launches, f"{name}: {label} launches {launches}, want {want_launches}")
+        ref = bounce(session, RATE, device="cuda").audio
+        check(out.shape == ref.shape and np.array_equal(out, ref), f"{name}: {label} != bounce on the card")
+        return launches[kernel]
+
+    cache = SessionRenderCache(session, RATE)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = cache.render()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    launches = checked("first render", out)
+    renderer = cache.renderer()
+
+    def timed(fn, n=20):
+        ts = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(ts), min(ts)
+
+    reset_launches()
+    dev_ms, dev_best = timed(cache.render_device)
+    check(mix_launches()[kernel] == 20 and cache.renderer() is renderer,
+          f"{name}: 20 unchanged render_device calls gave {mix_launches()} launches or rebuilt")
+    host_ms, host_best = timed(cache.render)
+    # the readback through a kept page-locked buffer instead (the copy into
+    # it, then a fresh array for the caller), for comparison
+    frames = renderer.plan.total_frames
+    pinned = torch.empty((renderer.plan.channels, frames), dtype=torch.float32, pin_memory=True)
+
+    def via_pinned():
+        session.edit_stamp()
+        pinned.copy_(renderer.render_device()[:, :frames])
+        return pinned.numpy().copy()
+
+    pinned_ms, _ = timed(via_pinned)
+    kernel_ms, _ = _event_ms(torch, renderer.render_device, 20)
+    stamp_ms, _ = timed(session.edit_stamp)
+
+    pool = cache._pool_dev
+    session.tracks[0].clips[0].audio.gain *= 0.5
+    reset_launches()
+    t0 = time.perf_counter()
+    out = cache.render()
+    gain_edit_ms = (time.perf_counter() - t0) * 1e3
+    checked("gain edit", out)
+    check(cache._pool_dev is pool, f"{name}: a clip-gain edit re-uploaded the pool")
+
+    rng = np.random.default_rng(5)
+    extra = (rng.standard_normal((2, int(RATE))) * 0.1).astype(np.float32)
+    a = session.sample_table.add_sample(Sample.from_planar(extra, int(RATE), AudioFormat.F32, name="added"),
+                                        key="added")
+    session.add_audio_clip(session.tracks[1], "added", 4.0, 6.0, asset=a)
+    reset_launches()
+    t0 = time.perf_counter()
+    out = cache.render()
+    asset_edit_ms = (time.perf_counter() - t0) * 1e3
+    checked("new-asset edit", out)
+    check(cache._pool_dev is not pool, f"{name}: a new asset kept the old pool")
+    stats = {"cell": name, "kernel": "K3" if automated else "K1", "frames": int(out.shape[1]),
+             "tracks": len(session.tracks), "launches_per_render": launches, "first_render_ms": build_ms,
+             "render_device_ms_median": dev_ms, "render_device_ms_best": dev_best,
+             "render_ms_median": host_ms, "render_ms_best": host_best,
+             "render_pinned_ms_median": pinned_ms, "kernel_ms_median": kernel_ms,
+             "edit_stamp_ms_median": stamp_ms, "gain_edit_render_ms": gain_edit_ms,
+             "asset_edit_render_ms": asset_edit_ms, "pool_mb": pool.numel() * 4 / 1e6}
+    print(f"[{name}] every render bit-equal to bounce on the card, one {stats['kernel']} launch each; "
+          + json.dumps(stats))
+    return stats
+
+
+def phase_cached(torch) -> tuple[dict, dict]:
+    from whitebox_tpu_torch.render.demo import make_demo_session
+
+    headline = make_demo_session(n_tracks=128, duration_seconds=60.0, sample_rate=int(RATE), seed=7)
+    return (cached_cell(torch, "cached_headline", headline, automated=False),
+            cached_cell(torch, "cached_automation_tempo_128trk", automation_tempo_128trk(), automated=True))
+
+
+def phase_preview(torch) -> dict:
+    """``preview_32trk``: the JAX package's config 8 through
+    ``PreviewStream`` (512-frame blocks, 64 blocks of lookahead) on the
+    card with the launch counts reset just before: no mix-kernel launch,
+    the cascade kernel launched; the first 10 s of blocks within relative
+    RMS 1e-5 of ``bounce`` on the card; the cascade kernel against its
+    plain version at the window's shapes, the states carried over two
+    windows; then config 8's measures: the
+    steady-state pull (5 windows of blocks) as a duty of the 10.67 ms
+    block budget, the fenced window on the card (``fetch_window_device``
+    + a synchronise, median of 5) per block, a seek and an edit
+    (re-carve + re-render)."""
+    import numpy as np
+
+    from whitebox_tpu_torch.ops import biquad_cuda
+    from whitebox_tpu_torch.ops.mix import pack_device_tables, render_chunk_per_track
+    from whitebox_tpu_torch.render.bounce import bounce
+    from whitebox_tpu_torch.render.effects_pipeline import init_effect_states, prepare_effect_tables
+    from whitebox_tpu_torch.render.preview import PreviewStream
+    from whitebox_tpu_torch.timeline.carve import carve_session
+
+    name, bs, look = "preview_32trk", 512, 64
+    s = preview_session()
+    ref = bounce(s, RATE, device="cuda").audio
+    reset_launches()
+    t0 = time.perf_counter()
+    ps = PreviewStream(s, RATE, buffer_size=bs, lookahead_blocks=look)
+    build_ms = (time.perf_counter() - t0) * 1e3
+    n10 = int(10.0 * RATE)
+    blocks = [ps.next_block() for _ in range(-(-n10 // bs))]
+    launches, casc = mix_launches(), biquad_cuda.biquad_cascade_launches
+    check(not any(launches.values()) and casc > 0,
+          f"{name}: mix launches {launches}, cascade launches {casc} (want none, > 0)")
+    head = np.concatenate(blocks, axis=1)[:, :n10]
+    rr = rel_rms(head, ref[:, :n10])
+    check(np.isfinite(head).all() and rr < 1e-5, f"{name}: first 10 s {rr:.3g} off the bounce")
+    # the cascade kernel at this path's shapes against its plain version: the
+    # tracks' rows [T*C, lookahead] and the master's [C, lookahead] over two
+    # windows, the states carried from the first to the second
+    table, pool = carve_session(s, RATE, buffer_size=bs, out_channels=2)
+    tables = pack_device_tables(table, pool, s, channels=2).as_torch("cuda")
+    pt = render_chunk_per_track(torch.from_numpy(pool.data).cuda(), tables, 0, 2 * ps.lookahead)
+    (S, coeffs), (Sm, mcoeffs) = prepare_effect_tables(s, RATE, 2, device="cuda")
+    states, mstates = init_effect_states(len(s.tracks), 2, S, Sm, "cuda")
+    vs_plain = {"tracks": cascade_vs_plain("preview_tracks_two_windows", torch, pt.reshape(-1, pt.shape[-1]),
+                                       coeffs, states, pieces=(ps.lookahead,)),
+                "master": cascade_vs_plain("preview_master_two_windows", torch, pt.sum(0), mcoeffs, mstates,
+                                           pieces=(ps.lookahead,))}
+    del pt, tables
+
+    budget_ms = bs / RATE * 1e3
+    n_blocks = look * 5
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_blocks):
+        check(ps.next_block() is not None, f"{name}: the stream ended early")
+    block_e2e_ms = (time.perf_counter() - t0) * 1e3 / n_blocks
+    pos = ps.position_frames
+    ps.fetch_window_device(pos)
+    torch.cuda.synchronize()
+    win_ms = []
+    for k in range(5):
+        t0 = time.perf_counter()
+        ps.fetch_window_device(pos + (k + 1) * ps.lookahead)
+        torch.cuda.synchronize()
+        win_ms.append((time.perf_counter() - t0) * 1e3)
+    window_ms = statistics.median(win_ms)
+    busy_ms, _ = card_busy_ms(torch, lambda: ps.fetch_window_device(pos + 7 * ps.lookahead))
+    t0 = time.perf_counter()
+    ps.seek(1.0)
+    check(ps.next_block() is not None, f"{name}: no block after the seek")
+    seek_ms = (time.perf_counter() - t0) * 1e3
+    s.tracks[0].volume_db = -3.0
+    t0 = time.perf_counter()
+    check(ps.next_block() is not None, f"{name}: no block after the edit")
+    edit_ms = (time.perf_counter() - t0) * 1e3
+    stats = {"cell": name, "tracks": len(s.tracks), "lookahead_blocks": look, "budget_ms": budget_ms,
+             "build_ms": build_ms, "first_10s_rel_rms": rr, "mix_launches": launches, "cascade_launches": casc,
+             "block_e2e_ms": block_e2e_ms, "duty_e2e_pct": 100.0 * block_e2e_ms / budget_ms,
+             "window_device_ms": window_ms, "window_device_ms_all": win_ms,
+             "block_device_ms": window_ms / look, "duty_device_pct": 100.0 * window_ms / look / budget_ms,
+             "window_card_busy_ms": busy_ms, "seek_ms": seek_ms, "edit_ms": edit_ms,
+             "cascade_vs_plain_rel_rms_max_abs": vs_plain}
+    print(f"[{name}] 0 mix-kernel launches, {casc} cascade launches; " + json.dumps(stats))
+    return stats
+
+
+def phase_stream(torch) -> dict:
+    """``stream_takes_128trk``: ``bounce_streamed`` of 128 seeded 60 s
+    takes (a 2.95 GB pool) under a 256 MiB cap in windows of 2^17 frames,
+    with the launch counts reset just before: bit-equal to
+    ``bounce(engine="xla")`` on the card, no mix-kernel launch, the peak
+    allocated memory below the resident bounce's; e2e (median of 3), the
+    host's window builds, the copies and the renders by CUDA events, the
+    card's busy time (``torch.profiler``); then the same session with
+    config 5's EQ chains through the cascade kernel, within relative RMS
+    1e-5 of the resident bounce, and the cascade kernel against its plain
+    version at the window's shapes, the states carried over two windows."""
+    import numpy as np
+
+    from whitebox_tpu_torch.effects import Biquad, EffectChain
+    from whitebox_tpu_torch.ops import biquad_cuda
+    from whitebox_tpu_torch.render.bounce import bounce
+    from whitebox_tpu_torch.render.effects_pipeline import init_effect_states, prepare_effect_tables
+    from whitebox_tpu_torch.render.stream_pool import bounce_streamed
+
+    name, cap, window = "stream_takes_128trk", 256 << 20, 1 << 17
+    t0 = time.perf_counter()
+    s = takes_session()
+    data_s = time.perf_counter() - t0
+
+    def peak_of(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3, (torch.cuda.max_memory_allocated() - base) / 1e9
+
+    resident, resident_first_ms, resident_peak = peak_of(lambda: bounce(s, RATE, device="cuda", engine="xla").audio)
+    _, resident_ms, _ = peak_of(lambda: bounce(s, RATE, device="cuda", engine="xla").audio)  # the pool built
+    reset_launches()
+    st = {}
+    got, first_ms, stream_peak = peak_of(lambda: bounce_streamed(s, RATE, max_pool_bytes=cap,
+                                                                 window_frames=window, stats=st))
+    launches = mix_launches()
+    check(not any(launches.values()), f"{name}: mix launches {launches} (want none)")
+    check(got.shape == resident.shape and np.array_equal(got, resident),
+          f"{name}: streamed != bounce(engine='xla')")
+    check(stream_peak < resident_peak, f"{name}: peak {stream_peak:.3f} GB not below the resident "
+                                       f"{resident_peak:.3f} GB")
+    runs = []
+    for _ in range(3):
+        st_i = {}
+        _, ms, _ = peak_of(lambda: bounce_streamed(s, RATE, max_pool_bytes=cap, window_frames=window, stats=st_i))
+        runs.append((ms, st_i))
+    e2e_ms = statistics.median(r[0] for r in runs)
+    mid = sorted(runs, key=lambda r: r[0])[1][1]
+    busy_ms, _ = card_busy_ms(torch, lambda: bounce_streamed(s, RATE, max_pool_bytes=cap, window_frames=window))
+    pool_gb = st["pool_bytes"] / 1e9
+    takes_gb = sum(a.sample.count * a.sample.channels * 4 for a in s.sample_table.samples.values()) / 1e9
+
+    add_eq_chains(s)
+    s.master_effects = EffectChain([Biquad("highpass", 25.0)])
+    eq_ref = bounce(s, RATE, device="cuda", engine="xla").audio
+    reset_launches()
+    eq_st = {}
+    eq, eq_ms, eq_peak = peak_of(lambda: bounce_streamed(s, RATE, max_pool_bytes=cap, window_frames=window,
+                                                         stats=eq_st))
+    eq_launches, eq_casc = mix_launches(), biquad_cuda.biquad_cascade_launches
+    check(not any(eq_launches.values()) and eq_casc > 0,
+          f"{name}: EQ mix launches {eq_launches}, cascade launches {eq_casc} (want none, > 0)")
+    eq_rr = rel_rms(eq, eq_ref)
+    check(np.isfinite(eq).all() and eq_rr < 1e-5, f"{name}: EQ stream {eq_rr:.3g} off the resident bounce")
+    # the cascade kernel at this path's shapes against its plain version: the
+    # tracks' rows [T*C, window] (each track's take from frame 0, its clip's
+    # per-track buffer) and the master's [C, window] over two windows, the
+    # states carried from the first to the second
+    x = torch.from_numpy(np.stack([ch[: 2 * window] for a in s.sample_table.samples.values()
+                                   for ch in a.sample.data])).cuda()
+    (S, coeffs), (Sm, mcoeffs) = prepare_effect_tables(s, RATE, 2, device="cuda")
+    states, mstates = init_effect_states(len(s.tracks), 2, S, Sm, "cuda")
+    vs_plain = {"tracks": cascade_vs_plain("stream_tracks_two_windows", torch, x, coeffs, states, pieces=(window,)),
+                "master": cascade_vs_plain("stream_master_two_windows", torch,
+                                           x.view(len(s.tracks), 2, -1).sum(0), mcoeffs, mstates,
+                                           pieces=(window,))}
+    del x
+    stats = {"cell": name, "tracks": len(s.tracks), "frames": int(got.shape[1]), "cap_mib": cap >> 20,
+             "window_frames": window, "windows": st["windows"], "takes_gb": takes_gb,
+             "pool_gb_copied": pool_gb, "data_s": data_s, "first_ms": first_ms, "e2e_ms_median": e2e_ms,
+             "e2e_ms_all": [r[0] for r in runs], "host_build_ms": mid["host_build_s"] * 1e3,
+             "copy_ms": mid["copy_s"] * 1e3, "copy_gb_per_s": pool_gb / mid["copy_s"] if mid["copy_s"] else None,
+             "render_ms": mid["render_s"] * 1e3, "span_ms": mid["span_s"] * 1e3, "card_busy_ms": busy_ms,
+             "peak_gb": stream_peak, "resident_peak_gb": resident_peak, "resident_first_ms": resident_first_ms,
+             "resident_e2e_ms": resident_ms,
+             "mix_launches": launches, "eq_ms": eq_ms, "eq_peak_gb": eq_peak, "eq_rel_rms": eq_rr,
+             "eq_render_ms": eq_st["render_s"] * 1e3, "eq_cascade_launches": eq_casc,
+             "cascade_vs_plain_rel_rms_max_abs": vs_plain}
+    print(f"[{name}] bit-equal to bounce(engine='xla'), 0 mix-kernel launches, peak below the resident's; "
+          + json.dumps(stats))
+    return stats
+
+
 def main() -> int:
     try:
         import torch
@@ -2980,6 +3338,9 @@ def main() -> int:
     loud = phase_loudness(torch)
     phase_stretch(torch)
     phase_peaks(torch)
+    cached, cached_auto = phase_cached(torch)
+    preview = phase_preview(torch)
+    stream = phase_stream(torch)
     check("jax" not in sys.modules and "whitebox_tpu" not in sys.modules,
           "the port loaded jax or the JAX package")
     print(f"[total] chip_smoke wall time {time.perf_counter() - t_start:.1f} s (limit 1200 s)")
@@ -2989,9 +3350,14 @@ def main() -> int:
          "replaces": "whitebox_tpu/ops/mix_pallas.py:407", **linear,
          "cell_launches": {"headline_xla": headline_xla["mix"], "dense_overflow": dense["mix"],
                            "effects_eq_240s_128trk_6gib_rule": long["gather_launches"]["mix"],
-                           "loudness_headline": loud["mix_launches"]}},
+                           "loudness_headline": loud["mix_launches"],
+                           "cached_headline": cached["launches_per_render"],
+                           "preview_32trk": preview["mix_launches"]["mix"],
+                           "stream_takes_128trk": stream["mix_launches"]["mix"]}},
         {"name": "mix_automation", "route": "cuda", "source": src,
-         "replaces": "whitebox_tpu/ops/mix_pallas.py:384-460", **auto},
+         "replaces": "whitebox_tpu/ops/mix_pallas.py:384-460", **auto,
+         "cell_launches": {"cached_automation_tempo_128trk": cached_auto["launches_per_render"],
+                           "preview_32trk": preview["mix_launches"]["auto"]}},
         {"name": "mix_per_track", "route": "cuda", "source": src,
          "replaces": "whitebox_tpu/ops/mix_pallas.py:431-436,581-593,608-610", **effects["mix_per_track"],
          "cell_launches": {"generic_fx_128trk": generic["k4_launches"],
@@ -3021,7 +3387,9 @@ def main() -> int:
                            "routed_sidechain_128trk": routed["cascade_launches"],
                            "midi_synth_128trk": midi["cascade_launches"],
                            "stems_eq_128trk": stems_eq["cascade_launches"],
-                           "loudness_headline": loud["cascade_launches"]}},
+                           "loudness_headline": loud["cascade_launches"],
+                           "preview_32trk": preview["cascade_launches"],
+                           "stream_takes_eq_128trk": stream["eq_cascade_launches"]}},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["device"],
                                              "count": env["device_count"]}}))

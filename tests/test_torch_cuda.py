@@ -32,7 +32,11 @@ one K4 launch each; the export deliverables on the card against the CPU:
 stems (one K4 launch, the cascade kernel) and bus stems within relative
 RMS 1e-5, the loudness readings within 0.02 LU / 0.05 dB, the vocoder
 within 1e-5 and bit-equal across two runs, the peak pyramid bit-identical
-to the C++ scalar walk.
+to the C++ scalar walk; the render cache (one K1 / K3 launch per render,
+bit-equal to ``bounce``, the pool kept across a gain edit), the preview
+(no mix-kernel launch, the cascade kernel, within 1e-5 of the bounce and
+the CPU's preview) and the streamed bounce (bit-equal to the card's
+gather bounce; with EQ chains within 1e-5).
 """
 
 import numpy as np
@@ -486,3 +490,57 @@ def test_peaks_on_the_card_bit_identical_to_the_scalar_walk(card, fmt):
     sample = chip_smoke.peaks_sample(AudioFormat[fmt], 200_001)
     for q in ("low", "high"):
         chip_smoke.check_mipmaps(build_mipmaps(sample, q, device=card), sample, q)
+
+
+def test_render_cache_on_the_card(card):
+    """``SessionRenderCache`` on the card: one K1 launch per render (K3 for
+    an automation-only session), bit-equal to ``bounce``; the pool on the
+    card kept across a gain edit."""
+    from whitebox_tpu_torch.render.cached import SessionRenderCache
+
+    for s, kernel in ((make_demo_session(n_tracks=6, duration_seconds=3.0, seed=4), "mix"),
+                      (chip_smoke.auto_session(curves=True, fades=True), "auto")):
+        cache = SessionRenderCache(s, 48000.0)
+        chip_smoke.reset_launches()
+        out = cache.render()
+        assert chip_smoke.mix_launches() == {"mix": 0, "auto": 0, "per_track": 0, kernel: 1}
+        np.testing.assert_array_equal(out, bounce(s, 48000.0, device=card).audio)
+        pool = cache._pool_dev
+        s.tracks[0].clips[0].audio.gain *= 0.5
+        np.testing.assert_array_equal(cache.render(), bounce(s, 48000.0, device=card).audio)
+        assert cache._pool_dev is pool
+
+
+def test_preview_on_the_card(card):
+    """Config 8 in small through ``PreviewStream``: no mix-kernel launch,
+    the cascade kernel launched, within relative RMS 1e-5 of the card's
+    bounce and of the CPU's preview."""
+    from whitebox_tpu_torch.render.preview import PreviewStream
+
+    s = chip_smoke.preview_session(n_tracks=4, duration=3.0)
+    full = bounce(s, 48000.0, device=card).audio
+    chip_smoke.reset_launches()
+    got = np.concatenate(list(PreviewStream(s, 48000.0, lookahead_blocks=8)), axis=1)[:, :full.shape[1]]
+    assert not any(chip_smoke.mix_launches().values()) and biquad_cuda.biquad_cascade_launches > 0
+    assert chip_smoke.rel_rms(got, full) < 1e-5
+    cpu = np.concatenate(list(PreviewStream(s, 48000.0, lookahead_blocks=8, device="cpu")), axis=1)
+    assert chip_smoke.rel_rms(got, cpu[:, :full.shape[1]]) < 1e-5
+
+
+def test_streamed_bounce_on_the_card(card):
+    """``bounce_streamed`` of seeded takes under a cap a quarter of the
+    pool: bit-equal to ``bounce(engine="xla")`` on the card; with EQ
+    chains through the cascade kernel, within relative RMS 1e-5."""
+    from whitebox_tpu_torch.render.stream_pool import bounce_streamed
+
+    s = chip_smoke.takes_session(n_tracks=6, duration=4.0)
+    cap = 6 * 2 * int(4.0 * 48000) * 4 // 4
+    stats = {}
+    got = bounce_streamed(s, 48000.0, max_pool_bytes=cap, window_frames=1 << 14, stats=stats)
+    np.testing.assert_array_equal(got, bounce(s, 48000.0, device=card, engine="xla").audio)
+    assert stats["windows"] > 1 and stats["copy_s"] > 0.0
+    chip_smoke.add_eq_chains(s)
+    chip_smoke.reset_launches()
+    eq = bounce_streamed(s, 48000.0, max_pool_bytes=cap, window_frames=1 << 14)
+    assert not any(chip_smoke.mix_launches().values()) and biquad_cuda.biquad_cascade_launches > 0
+    assert chip_smoke.rel_rms(eq, bounce(s, 48000.0, device=card, engine="xla").audio) < 1e-5

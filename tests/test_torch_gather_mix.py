@@ -86,7 +86,16 @@ def test_render_chunk_speed1_bit_equal_to_jax_and_oracle():
     oracle = OracleRenderer(s, RATE, buffer_size=512).render()
     np.testing.assert_array_equal(got[:, :oracle.shape[1]], oracle)
     np.testing.assert_array_equal(mix.render_timeline(*carve_session(s, RATE, buffer_size=512), s,
-                                                      chunk_frames=5000), got)
+                                                      chunk_frames=5000, device="cpu"), got)
+
+
+def test_render_timeline_defaults_to_the_card(monkeypatch):
+    """``device=None`` means the CUDA card: without one it raises the
+    ``resolve_device`` error rather than rendering on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    s = from_reference(random_session(2, rate=48000, bpm=120.0, n_tracks=1, n_clips=1))
+    with pytest.raises(RuntimeError, match="CUDA device requested"):
+        mix.render_timeline(*carve_session(s, RATE, buffer_size=512), s)
 
 
 @pytest.mark.parametrize("mode", ["linear", "catmull", pytest.param("sinc", marks=pytest.mark.slow),

@@ -212,18 +212,30 @@ def test_from_reference_carries_the_session():
     assert type(s).__module__.startswith("whitebox_tpu_torch.")
 
 
+def _aiff_bytes(planar_i16) -> bytes:
+    """A big-endian 16-bit AIFF at 44.1 kHz holding ``planar_i16`` [C, N]."""
+    import struct
+
+    C, N = planar_i16.shape
+    comm = struct.pack(">hLh", C, N, 16) + bytes.fromhex("400EAC44000000000000")
+    ssnd = struct.pack(">LL", 0, 0) + np.ascontiguousarray(planar_i16.T).astype(">i2").tobytes()
+    body = b"AIFF" + b"COMM" + struct.pack(">I", len(comm)) + comm + b"SSND" + struct.pack(">I", len(ssnd)) + ssnd
+    return b"FORM" + struct.pack(">I", len(body)) + body
+
+
 def _unported_calls(tmp_path):
     from whitebox_tpu_torch.session import Session
 
     s = from_reference(make_demo_session(n_tracks=1, duration_seconds=2.0, sample_seconds=1.0, seed=1))
     aif = tmp_path / "x.aiff"
-    aif.write_bytes(b"FORM\x00\x00\x00\x04AIFF")
+    aif.write_bytes(_aiff_bytes(np.random.default_rng(5).integers(-32768, 32768, (2, 777)).astype(np.int16)))
     return {
         "stretch_preserving_pitch": lambda: s.stretch_clip(0, 0, 1.5, preserve_pitch=True, device="cpu"),
         "start_recording": lambda: s.start_recording(s.tracks[0], 48000.0),
         "set_track_input": lambda: s.set_track_input(0, "external_mono"),
         "aiff_decode": lambda: Session().sample_table.load_from_file(aif),
         "midi_file": lambda: s.midi_table.load_from_file(tmp_path / "x.mid"),
+        "session": lambda: s,
     }
 
 
@@ -236,8 +248,52 @@ def test_unported_session_methods_raise(tmp_path, call):
     if call == "stretch_preserving_pitch":
         _check_stretch_preserving_pitch(tmp_path)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item"):
-        _unported_calls(tmp_path)[call]()
+    {"start_recording": _check_start_recording, "set_track_input": _check_set_track_input,
+     "aiff_decode": _check_aiff_decode}[call](tmp_path)
+
+
+def _check_start_recording(tmp_path):
+    """Ported (session/record.py): the take lands as the JAX package's does,
+    the same span and the same samples."""
+    take = _unported_calls(tmp_path)["start_recording"]()
+    js = make_demo_session(n_tracks=1, duration_seconds=2.0, sample_seconds=1.0, seed=1)
+    jtake = js.start_recording(js.tracks[0], 48000.0)
+    blocks = [np.random.default_rng(3).standard_normal((2, n)).astype(np.float32) for n in (512, 77, 4096)]
+    for b in blocks:
+        take.append(b)
+        jtake.append(b)
+    got, want = take.finalize(), jtake.finalize()
+    assert (got.min_time, got.max_time) == (want.min_time, want.max_time)
+    np.testing.assert_array_equal(np.stack(got.audio.asset.sample.data), np.stack(want.audio.asset.sample.data))
+    assert [(c.min_time, c.max_time) for c in take.track.clips] == [(c.min_time, c.max_time) for c in js.tracks[0].clips]
+
+
+def _check_set_track_input(tmp_path):
+    """Ported (session/input.py): the assignment packs to the JAX package's
+    u32 and forms the same input groups."""
+    from whitebox_tpu.session import Session as JaxSession
+
+    calls = _unported_calls(tmp_path)
+    calls["set_track_input"]()
+    port = calls["session"]()
+    js = JaxSession(bpm=120.0)
+    js.add_track("t")
+    js.set_track_input(0, "external_mono")
+    assert port.tracks[0].input.as_packed_u32() == js.tracks[0].input.as_packed_u32()
+    for ses in (port, js):
+        ses.arm_track(0)
+    assert [(g.input.as_packed_u32(), g.track_indices) for g in port.input_groups()] == \
+        [(g.input.as_packed_u32(), g.track_indices) for g in js.input_groups()]
+
+
+def _check_aiff_decode(tmp_path):
+    """Ported (io/aiff.py): the sample decodes as the JAX package's does."""
+    from whitebox_tpu.session.sample import Sample as JaxSample
+
+    asset = _unported_calls(tmp_path)["aiff_decode"]()
+    want = JaxSample.load_file(tmp_path / "x.aiff")
+    assert (asset.sample.sample_rate, asset.sample.format.name) == (want.sample_rate, want.format.name)
+    np.testing.assert_array_equal(np.stack(asset.sample.data), np.stack(want.data))
 
 
 def _check_stretch_preserving_pitch(tmp_path):

@@ -220,10 +220,24 @@ def test_cli_bus_stems_match_jax_cli(tmp_path, capsys, jax_exports):
 
 
 def test_cli_stems_compressed_ext_raises_naming_item_14(tmp_path, capsys):
+    """Item 14 ported the codec: ``--ext flac`` writes each stem through it,
+    the JAX CLI's file byte for byte (speed 1, no chain); without the libav
+    libraries to build it against, the error names them."""
+    from whitebox_tpu import cli as jax_cli
+    from whitebox_tpu_torch.io import codec
+
     write_project(_plain(), tmp_path / "p.wb")
-    assert cli.main(["stems", str(tmp_path / "p.wb"), str(tmp_path / "o"), "--ext", "flac",
-                     "--device", "cpu"]) == 2
-    assert "item 14" in capsys.readouterr().err
+    flags = ["--ext", "flac", "--flac-level", "5", "--tag-title", "stems"]
+    rc = cli.main(["stems", str(tmp_path / "p.wb"), str(tmp_path / "o"), *flags, "--device", "cpu"])
+    if codec.load() is None:
+        assert rc == 2 and "libavformat" in capsys.readouterr().err
+        return
+    assert rc == 0
+    assert jax_cli.main(["stems", str(tmp_path / "p.wb"), str(tmp_path / "j"), *flags]) == 0
+    names = sorted(p.name for p in (tmp_path / "j").iterdir())
+    assert names == sorted(p.name for p in (tmp_path / "o").iterdir()) and len(names) == 3
+    for n in names:
+        assert (tmp_path / "o" / n).read_bytes() == (tmp_path / "j" / n).read_bytes()
 
 
 def test_stems_default_to_the_card(monkeypatch):

@@ -1,11 +1,12 @@
 """Content-keyed builds of the port's native sources.
 
-The port has two native libraries, both compiled at first use and bound
+The port has three native libraries, all compiled at first use and bound
 with ctypes (no PyTorch headers, no ninja):
 
 - the CUDA kernels, ``csrc/*.cu`` with ``nvcc`` (``ops/cuda_build.py``);
-- the host carve walk and plan expansion, ``csrc/host/*.cpp`` with ``g++``
-  (``io/native.py``).
+- the host carve walk, plan expansion and peak walk, ``csrc/host/*.cpp``
+  with ``g++`` (``io/native.py``), and the codec ``csrc/host/codec/wb_codec.cpp``
+  on its own, linked against the system's libav libraries (``io/codec.py``).
 
 Each lands in ``build/<kind>/<hash of the flags and sources>/`` beside the
 package (``build/`` is git-ignored), so an edited source builds anew and an
@@ -44,13 +45,14 @@ def _run(cmd: list[str]) -> None:
 
 
 def build_shared(compiler: str, flags, sources, kind: str, lib_name: str,
-                 headers=()) -> tuple[Path, float]:
+                 headers=(), libs=()) -> tuple[Path, float]:
     """Compile ``sources`` into a shared library unless this exact set is
     built already -> (path, seconds spent compiling, 0.0 on reuse).
     ``flags`` hold ``-shared`` for the link; each source compiles with the
     others (``-c``), one process each, in parallel. ``headers`` enter the
-    hash but not the command line."""
-    out_dir = content_dir(kind, flags, [*sources, *headers])
+    hash but not the command line; ``libs`` (``-l...``) follow the objects
+    on the link line."""
+    out_dir = content_dir(kind, [*flags, *libs], [*sources, *headers])
     so = out_dir / lib_name
     if so.is_file():
         return so, 0.0
@@ -65,7 +67,7 @@ def build_shared(compiler: str, flags, sources, kind: str, lib_name: str,
             for f in [ex.submit(_run, [compiler, *compile_flags, "-c", "-o", str(o), str(src)])
                       for src, o in zip(sources, objs)]:
                 f.result()
-        _run([compiler, *flags, "-o", str(tmp), *[str(o) for o in objs]])
+        _run([compiler, *flags, "-o", str(tmp), *[str(o) for o in objs], *libs])
         os.replace(tmp, so)  # atomic: a concurrent build never sees a partial library
     finally:
         tmp.unlink(missing_ok=True)

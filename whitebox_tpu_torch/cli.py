@@ -1,20 +1,31 @@
-"""Command-line interface of the port: offline render, stems, loudness,
-clip stretch, track freeze, peak mipmaps, inspection and tempo edits.
+"""Command-line interface of the port: offline render, stems, container
+conversion, loudness, clip stretch, track freeze, peak mipmaps, inspection
+and tempo edits.
 
-Counterpart of ``whitebox_tpu/cli.py`` (every command but ``convert``,
-ROADMAP.md queue 1, item 14), on the surface the port covers; each
-command that renders or measures takes ``--device`` (default: the CUDA
-card):
+Counterpart of ``whitebox_tpu/cli.py``, every command; each command that
+renders or measures takes ``--device`` (default: the CUDA card). Outputs
+ending in .mp3/.ogg/.flac go through the codec runtime (``io/codec.py``)
+with the encode flags (``--bitrate-mode``, ``--bitrate``,
+``--min-bitrate``, ``--max-bitrate``, ``--vbr-quality``, ``--flac-level``,
+``--no-tags``, ``--tag-title``, ``--tag-artist``, ``--tag-comment``).
+The settings file (``config.py::Settings``, ``settings.json`` under
+``$XDG_CONFIG_HOME/whitebox_tpu_torch/``) gives the defaults of
+``--rate``, ``--buffer-size``, ``--engine``, ``--interpolation``,
+``--chunk-frames`` and ``--fast-sum``; a flag on the command line wins:
 
-    python -m whitebox_tpu_torch.cli render project.wb out.wav \\
+    python -m whitebox_tpu_torch.cli [-v] render project.wb out.wav \\
         [--rate 48000] [--buffer-size 512] [--format f32] [--device cuda]
         [--effects-mode scan|fir] [--engine auto|pallas|xla] [--chunk-frames N]
         [--fast-sum] [--pdc] [--interpolation linear|catmull|sinc]
         [--no-prerender] [--meters] [--dither none|tpdf|tpdf-hp]
         [--tail SECONDS] [--from-beat B | --from-bar B] [--to-beat B | --to-bar B]
-        [--loudness] [--normalize-lufs LUFS | --normalize-peak DBTP] [--json]
+        [--loudness] [--normalize-lufs LUFS | --normalize-peak DBTP]
+        [ENCODE FLAGS] [--profile DIR] [--json]
     python -m whitebox_tpu_torch.cli stems project.wb outdir [--buses] [--rate 48000]
-        [--buffer-size 512] [--format f32] [--ext wav] [--interpolation linear|catmull|sinc]
+        [--buffer-size 512] [--format f32] [--ext wav|flac|mp3|ogg]
+        [--interpolation linear|catmull|sinc] [ENCODE FLAGS]
+    python -m whitebox_tpu_torch.cli convert in.aiff out.flac [--rate R] [--format f32]
+        [ENCODE FLAGS]
     python -m whitebox_tpu_torch.cli loudness audio.wav [--host] [--json]
     python -m whitebox_tpu_torch.cli stretch project.wb --track T --clip C --ratio R
         [--resample] [--out other.wb]
@@ -30,10 +41,75 @@ card):
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import sys
 
 import numpy as np
+
+from whitebox_tpu_torch.config import Settings
+
+
+def _add_encode_flags(p) -> None:
+    """Compressed-export properties (export_prop.h:8-45 parity) for
+    .mp3/.ogg/.flac outputs; ignored for WAV (``whitebox_tpu/cli.py:20-43``)."""
+    p.add_argument("--bitrate-mode", choices=["cbr", "abr", "vbr"], default="cbr",
+                   help="compressed-codec rate control (ExportBitrateMode)")
+    p.add_argument("--bitrate", type=int, default=192, metavar="KBPS",
+                   help="CBR/ABR target bitrate (mp3_bitrate/vorbis_bitrate)")
+    p.add_argument("--min-bitrate", type=int, default=0, metavar="KBPS",
+                   help="ABR floor (vorbis managed mode; FFmpeg's libmp3lame "
+                        "wrapper doesn't expose LAME's ABR bounds)")
+    p.add_argument("--max-bitrate", type=int, default=0, metavar="KBPS",
+                   help="ABR ceiling (vorbis managed mode; best-effort for mp3)")
+    p.add_argument("--vbr-quality", type=float, default=100.0, metavar="Q",
+                   help="VBR quality 0..100, 100 = best (mp3_vbr_quality)")
+    p.add_argument("--flac-level", type=int, default=-1, metavar="N",
+                   help="FLAC compression level 0..12 (flac_compression_level)")
+    p.add_argument("--no-tags", action="store_true",
+                   help="skip container metadata tags (export_metadata=false)")
+    p.add_argument("--tag-title", default=None)
+    p.add_argument("--tag-artist", default=None)
+    p.add_argument("--tag-comment", default=None)
+
+
+def _encode_opts(args, session=None):
+    """``EncodeOptions`` from the flags; the session's project info fills
+    the tags not given (the reference's export_metadata writes project
+    info; ``whitebox_tpu/cli.py:46-70``)."""
+    from whitebox_tpu_torch.io.codec import EncodeOptions
+
+    info = getattr(session, "project_info", None)
+    title, artist, comment = args.tag_title, args.tag_artist, args.tag_comment
+    if not args.no_tags and info is not None:
+        title = title if title is not None else (info.title or None)
+        artist = artist if artist is not None else (info.author or None)
+        comment = comment if comment is not None else (info.description or None)
+    return EncodeOptions(
+        bitrate_mode=args.bitrate_mode, bitrate=args.bitrate, min_bitrate=args.min_bitrate,
+        max_bitrate=args.max_bitrate, vbr_quality=args.vbr_quality,
+        flac_compression_level=args.flac_level,
+        bit_depth={"i16": 16, "i24": 24, "i32": 32}.get(args.format, 0),
+        title=None if args.no_tags else title,
+        artist=None if args.no_tags else artist,
+        comment=None if args.no_tags else comment,
+    )
+
+
+def _profiler(trace_dir):
+    """``--profile DIR``: a ``torch.profiler`` trace of the render (the
+    card's kernels where there is one), written to DIR as Chrome trace JSON
+    (the JAX package writes an xprof trace there)."""
+    if not trace_dir:
+        return contextlib.nullcontext()
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(trace_dir, exist_ok=True)
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
+    return profile(activities=acts, on_trace_ready=lambda p: p.export_chrome_trace(
+        os.path.join(trace_dir, "render.pt.trace.json")))
 
 
 def _range(session, args):
@@ -86,23 +162,30 @@ def _print_meters(session, stats) -> None:
 
 
 def _cmd_render(args) -> int:
+    from whitebox_tpu_torch.log import get_logger
     from whitebox_tpu_torch.render.bounce import bounce
     from whitebox_tpu_torch.session.project import read_project
 
+    log = get_logger("cli")
     session = read_project(args.project)
+    log.info("loaded %s: %d tracks, %d clips", args.project, len(session.tracks), session.num_clips())
     fmt = _fmt(args.format)
     num_blocks, trim_frames = _range(session, args)
     normalize = (("lufs", args.normalize_lufs) if args.normalize_lufs is not None
                  else ("peak", args.normalize_peak) if args.normalize_peak is not None else None)
-    result = bounce(session, sample_rate=args.rate, device=args.device,
-                    buffer_size=args.buffer_size, num_blocks=num_blocks, trim_frames=trim_frames,
-                    tail_seconds=args.tail, effects_mode=args.effects_mode, engine=args.engine,
-                    chunk_frames=args.chunk_frames, strict_order=not args.fast_sum, pdc=args.pdc,
-                    interpolation=args.interpolation,
-                    prerender=False if args.no_prerender else None, meters=args.meters,
-                    loudness=args.loudness, normalize=normalize,
-                    out_path=args.out, out_format=fmt,
-                    out_dither=None if args.dither == "none" else args.dither)
+    if args.profile:
+        log.info("profiling to %s", args.profile)
+    with _profiler(args.profile):
+        result = bounce(session, sample_rate=args.rate, device=args.device,
+                        buffer_size=args.buffer_size, num_blocks=num_blocks, trim_frames=trim_frames,
+                        tail_seconds=args.tail, effects_mode=args.effects_mode, engine=args.engine,
+                        chunk_frames=args.chunk_frames, strict_order=not args.fast_sum, pdc=args.pdc,
+                        interpolation=args.interpolation,
+                        prerender=False if args.no_prerender else None, meters=args.meters,
+                        loudness=args.loudness, normalize=normalize,
+                        out_path=args.out, out_format=fmt,
+                        out_dither=None if args.dither == "none" else args.dither,
+                        out_encode=_encode_opts(args, session))
     print(result.stats.summary())
     if args.loudness and result.stats.loudness is not None:
         _print_loudness("  loudness:", result.stats.loudness, result.frames, result.stats.sample_rate)
@@ -141,17 +224,14 @@ def _fmt(name: str):
 
 
 def _cmd_stems(args) -> int:
-    import os
-
-    from whitebox_tpu_torch.io.wav import _CODEC_TODO, write_wav
+    from whitebox_tpu_torch.render.bounce import write_audio
     from whitebox_tpu_torch.render.stems import render_bus_stems, render_stems
     from whitebox_tpu_torch.session.project import read_project
 
-    if args.ext != "wav":
-        raise NotImplementedError(f"--ext {args.ext}: {_CODEC_TODO}")
     session = read_project(args.project)
     os.makedirs(args.outdir, exist_ok=True)
     fmt, rate = _fmt(args.format), int(args.rate)
+    enc = _encode_opts(args, session)
 
     def sanitize(n, fallback):
         return "".join(c if c.isalnum() or c in "-_" else "_" for c in n) or fallback
@@ -159,19 +239,44 @@ def _cmd_stems(args) -> int:
     if args.buses:
         direct, bus, names = render_bus_stems(session, sample_rate=args.rate, buffer_size=args.buffer_size,
                                               interpolation=args.interpolation, device=args.device)
-        write_wav(os.path.join(args.outdir, f"00_direct.{args.ext}"), direct, rate, fmt)
+        write_audio(os.path.join(args.outdir, f"00_direct.{args.ext}"), direct, rate, fmt, encode=enc)
         for i, name in enumerate(names):
-            write_wav(os.path.join(args.outdir, f"{i + 1:02d}_{sanitize(name, 'bus')}.{args.ext}"),
-                      bus[i], rate, fmt)
+            write_audio(os.path.join(args.outdir, f"{i + 1:02d}_{sanitize(name, 'bus')}.{args.ext}"),
+                        bus[i], rate, fmt, encode=enc)
         print(f"wrote direct + {len(names)} bus stems ({direct.shape[1]} frames) -> {args.outdir}")
         return 0
 
     stems, names = render_stems(session, sample_rate=args.rate, buffer_size=args.buffer_size,
                                 interpolation=args.interpolation, device=args.device)
     for i, name in enumerate(names):
-        write_wav(os.path.join(args.outdir, f"{i:02d}_{sanitize(name, 'track')}.{args.ext}"),
-                  stems[i], rate, fmt)
+        write_audio(os.path.join(args.outdir, f"{i:02d}_{sanitize(name, 'track')}.{args.ext}"),
+                    stems[i], rate, fmt, encode=enc)
     print(f"wrote {len(names)} stems ({stems.shape[2]} frames) -> {args.outdir}")
+    return 0
+
+
+def _load_f32(path):
+    """Decode any supported container and normalize to f32 planar."""
+    from whitebox_tpu_torch.core.formats import normalize_unclamped
+    from whitebox_tpu_torch.io.wav import load_audio_file
+
+    planar, info = load_audio_file(path)
+    return np.asarray(normalize_unclamped(np.asarray(planar), info.format), dtype=np.float32), info
+
+
+def _cmd_convert(args) -> int:
+    """Container conversion, with a windowed-sinc rate change on the
+    device when ``--rate`` differs (``whitebox_tpu/cli.py:227-241``)."""
+    from whitebox_tpu_torch.render.bounce import write_audio
+
+    f32, info = _load_f32(args.src)
+    rate = int(args.rate) if args.rate else info.sample_rate
+    if rate != info.sample_rate:
+        from whitebox_tpu_torch.ops.resample import resample_audio
+
+        f32 = resample_audio(f32, info.sample_rate, rate, device=args.device)
+    write_audio(args.out, f32, rate, _fmt(args.format), encode=_encode_opts(args))
+    print(f"{args.src} [{info.format.name} {info.channels}ch {info.sample_rate}Hz {info.count}f] -> {args.out}")
     return 0
 
 
@@ -192,12 +297,9 @@ def _cmd_stretch(args) -> int:
 def _cmd_loudness(args) -> int:
     """EBU R128 measurement of an audio FILE (the render-side measurement
     is ``render --loudness``)."""
-    from whitebox_tpu_torch.core.formats import normalize_unclamped
-    from whitebox_tpu_torch.io.wav import load_audio_file
     from whitebox_tpu_torch.ops.loudness import measure_loudness, measure_loudness_reference
 
-    planar, info = load_audio_file(args.src)
-    f32 = np.asarray(normalize_unclamped(np.asarray(planar), info.format), dtype=np.float32)
+    f32, info = _load_f32(args.src)
     if args.host:
         st = measure_loudness_reference(f32, float(info.sample_rate))
     else:
@@ -336,6 +438,8 @@ def _cmd_tempo(args) -> int:
 
 
 def main(argv=None) -> int:
+    cfg = Settings.load()  # the defaults of the render flags
+    rate = float(cfg.sample_rate)
     parser = argparse.ArgumentParser(prog="whitebox-tpu-torch", description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -343,21 +447,23 @@ def main(argv=None) -> int:
     p = sub.add_parser("render", help="offline-bounce a .wb project to WAV")
     p.add_argument("project")
     p.add_argument("out")
-    p.add_argument("--rate", type=float, default=48000.0)
-    p.add_argument("--buffer-size", type=int, default=512, help="emulated engine block size (event semantics)")
-    p.add_argument("--chunk-frames", type=int, default=1 << 17,
+    p.add_argument("--rate", type=float, default=rate)
+    p.add_argument("--buffer-size", type=int, default=cfg.buffer_size,
+                   help="emulated engine block size (event semantics)")
+    p.add_argument("--chunk-frames", type=int, default=cfg.chunk_frames,
                    help="frames per chunk of the gather path (engine xla, or auto's fallback)")
     p.add_argument("--format", choices=_FORMATS, default="f32")
-    p.add_argument("--fast-sum", action="store_true",
-                   help="gather path: sum the tracks in one torch.sum (order not fixed, not bit-parity)")
-    p.add_argument("--engine", choices=["auto", "pallas", "xla"], default="auto",
+    p.add_argument("--fast-sum", action="store_true", default=not cfg.strict_order,
+                   help="gather path: sum the tracks in one torch.sum (order not fixed, not bit-parity; "
+                        "the default where the settings' strict_order is false)")
+    p.add_argument("--engine", choices=["auto", "pallas", "xla"], default=cfg.engine,
                    help="auto: the CUDA mix kernel, the gather mix where the slot plan cannot hold "
                         "the session; pallas: the kernel only; xla: the gather mix")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; 'cpu' renders with the plain PyTorch mix)")
     p.add_argument("--effects-mode", choices=["scan", "fir"], default="scan",
                    help="effect-chain finisher: biquad scan (default) or FFT-FIR")
-    p.add_argument("--interpolation", choices=["linear", "catmull", "sinc"], default="linear",
+    p.add_argument("--interpolation", choices=["linear", "catmull", "sinc"], default=cfg.interpolation,
                    help="resampled clips: linear (reference parity), catmull (4-point cubic) "
                         "or sinc (polyphase prerender; see --no-prerender)")
     p.add_argument("--no-prerender", action="store_true",
@@ -390,6 +496,9 @@ def main(argv=None) -> int:
     p.add_argument("--normalize-peak", type=float, default=None, metavar="DBTP",
                    help="scale the output so the oversampled TRUE peak hits "
                         "the target (e.g. -1.0)")
+    _add_encode_flags(p)
+    p.add_argument("--profile", metavar="DIR", default=None,
+                   help="write a torch.profiler trace of the render (Chrome trace JSON) into DIR")
     p.add_argument("--json", action="store_true")
     p.set_defaults(fn=_cmd_render)
 
@@ -397,17 +506,27 @@ def main(argv=None) -> int:
     p = sub.add_parser("stems", help="render each track to its own post-fader file")
     p.add_argument("project")
     p.add_argument("outdir")
-    p.add_argument("--rate", type=float, default=48000.0)
-    p.add_argument("--buffer-size", type=int, default=512)
+    p.add_argument("--rate", type=float, default=rate)
+    p.add_argument("--buffer-size", type=int, default=cfg.buffer_size)
     p.add_argument("--format", choices=_FORMATS, default="f32")
-    p.add_argument("--ext", choices=["wav", "flac", "mp3", "ogg"], default="wav",
-                   help="container (compressed ones are not ported yet and raise)")
-    p.add_argument("--interpolation", choices=["linear", "catmull", "sinc"], default="linear")
+    p.add_argument("--ext", choices=["wav", "flac", "mp3", "ogg"], default="wav")
+    p.add_argument("--interpolation", choices=["linear", "catmull", "sinc"], default=cfg.interpolation)
+    _add_encode_flags(p)
     p.add_argument("--buses", action="store_true",
                    help="export bus stems (pre-master routed components: "
                         "direct track sum + each bus post-chain/post-fader)")
     p.add_argument("--device", default=None, help=device_help)
     p.set_defaults(fn=_cmd_stems)
+
+    p = sub.add_parser("convert", help="convert between audio containers (wav/aiff/mp3/ogg/flac)")
+    p.add_argument("src")
+    p.add_argument("out")
+    p.add_argument("--rate", type=int, default=None, help="resample to this rate (windowed-sinc)")
+    _add_encode_flags(p)
+    p.add_argument("--format", choices=_FORMATS, default="f32",
+                   help="WAV PCM format (compressed outputs pick their own)")
+    p.add_argument("--device", default=None, help=device_help)
+    p.set_defaults(fn=_cmd_convert)
 
     p = sub.add_parser("stretch", help="time-stretch a clip (phase vocoder or resample)")
     p.add_argument("project")
@@ -434,7 +553,7 @@ def main(argv=None) -> int:
     p.add_argument("--track", type=int, action="append", required=True,
                    help="track slot to (un)freeze; repeatable")
     p.add_argument("--unfreeze", action="store_true")
-    p.add_argument("--rate", type=float, default=48000.0)
+    p.add_argument("--rate", type=float, default=rate)
     p.add_argument("--out", default=None, help="output .wb (default: in place)")
     p.add_argument("--device", default=None, help=device_help)
     p.set_defaults(fn=_cmd_freeze)
@@ -468,7 +587,11 @@ def main(argv=None) -> int:
                    help="import tempo + time-signature maps from an SMF")
     p.set_defaults(fn=_cmd_tempo)
 
+    parser.add_argument("-v", "--verbose", action="store_true", help="debug logging")
     args = parser.parse_args(argv)
+    from whitebox_tpu_torch.log import configure
+
+    configure(verbose=args.verbose)
     try:
         return args.fn(args)
     except FileNotFoundError as e:

@@ -38,11 +38,10 @@ keeps it as an ``UnportedEffect`` and ``bounce`` names it.
 
 from __future__ import annotations
 
-import logging
-
 from whitebox_tpu_torch.effects.base import Effect
+from whitebox_tpu_torch.log import get_logger
 
-_log = logging.getLogger("whitebox_tpu_torch.effects.registry")
+_log = get_logger("effects.registry")
 
 #: .wb type tags owned by the built-in family; registrations may not shadow them
 BUILTIN_TYPES = frozenset({

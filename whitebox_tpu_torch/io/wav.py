@@ -21,8 +21,6 @@ from whitebox_tpu_torch.core.formats import AudioFormat
 _WAVE_FORMAT_PCM = 0x0001
 _WAVE_FORMAT_IEEE_FLOAT = 0x0003
 _WAVE_FORMAT_EXTENSIBLE = 0xFFFE
-_CODEC_TODO = ("whitebox_tpu_torch decodes WAV only (io/aiff.py, io/codec.py are not "
-               "copied yet): ROADMAP.md queue 1, item 14")
 
 
 @dataclass
@@ -178,9 +176,11 @@ def write_wav(path, planar: np.ndarray, sample_rate: int, fmt: AudioFormat = Aud
 def load_audio_file(path) -> tuple[np.ndarray, WavInfo]:
     """Load an audio file by container sniffing.
 
-    Mirrors Sample::load_file's format dispatch (sample.cpp:112). WAV
-    decodes here; AIFF/AIFC and the compressed containers (``io/aiff.py``,
-    ``io/codec.py`` of the JAX package) are not copied yet and raise.
+    Mirrors Sample::load_file's format dispatch (sample.cpp:112): WAV and
+    AIFF/AIFC decode in Python (``io/aiff.py``); MP3, Ogg Vorbis and FLAC
+    through the codec runtime (``io/codec.py``; the reference decodes MP3
+    and Vorbis with dr_mp3 and stb_vorbis, sample.cpp:207-320, and stubs
+    FLAC, sample.cpp:263).
     """
     p = str(path)
     with open(p, "rb") as f:
@@ -189,12 +189,16 @@ def load_audio_file(path) -> tuple[np.ndarray, WavInfo]:
     if low.endswith((".wav", ".wave")) or (head[:4] == b"RIFF" and head[8:12] == b"WAVE"):
         return read_wav(p)
     if low.endswith((".aif", ".aiff", ".aifc")) or (head[:4] == b"FORM" and head[8:12] in (b"AIFF", b"AIFC")):
-        raise NotImplementedError(f"{p}: {_CODEC_TODO}")
+        from whitebox_tpu_torch.io.aiff import read_aiff
+
+        return read_aiff(p)
     if (
         low.endswith((".mp3", ".ogg", ".oga", ".flac", ".m4a", ".opus"))
         or head[:3] == b"ID3"
         or head[:4] in (b"OggS", b"fLaC")
         or (len(head) >= 2 and head[0] == 0xFF and (head[1] & 0xE0) == 0xE0)
     ):
-        raise NotImplementedError(f"{p}: {_CODEC_TODO}")
+        from whitebox_tpu_torch.io.codec import read_compressed
+
+        return read_compressed(p)
     raise ValueError(f"unsupported audio container: {p}")

@@ -28,6 +28,7 @@ from dataclasses import dataclass, fields
 import numpy as np
 import torch
 
+from whitebox_tpu_torch.device import resolve_device
 from whitebox_tpu_torch.ops.dsarith import phase_eval, split_f64
 from whitebox_tpu_torch.render.effects_pipeline import _ordered_sum
 
@@ -252,8 +253,10 @@ def render_chunk_per_track(pool: torch.Tensor, tables: dict, chunk_start: int, f
 
 
 def render_timeline(table, pool, session, channels: int = 2, chunk_frames: int = 1 << 16,
-                    strict_order: bool = True, device="cpu") -> np.ndarray:
-    """Render the whole carved timeline chunk by chunk -> [C, total] f32."""
+                    strict_order: bool = True, device=None) -> np.ndarray:
+    """Render the whole carved timeline chunk by chunk on ``device``
+    (default: the CUDA card; ``"cpu"`` by name) -> [C, total] f32."""
+    device = resolve_device(device)
     dev = pack_device_tables(table, pool, session, channels=channels)
     jt = dev.as_torch(device)
     pool_dev = torch.from_numpy(pool.data).to(device)

@@ -43,8 +43,7 @@ interpolation modes of resampled clips (``"linear"``, ``"catmull"``,
 ``stats.mix_path`` says which mix rendered. ``normalize`` scales the
 output to a true-peak or integrated-loudness target and ``loudness``
 measures the final audio (``ops/loudness.py``, on the bounce's device);
-codecs raise ``NotImplementedError`` naming the ROADMAP.md item that
-ports them.
+``out_path`` writes WAV, or MP3/Ogg/FLAC through ``io/codec.py``.
 """
 
 from __future__ import annotations
@@ -58,7 +57,9 @@ from torch.profiler import record_function
 from whitebox_tpu_torch.core.formats import AudioFormat
 from whitebox_tpu_torch.device import resolve_device
 from whitebox_tpu_torch.effects.base import UNPORTED_EFFECT_TODO, EffectChain, UnportedEffect
+from whitebox_tpu_torch.io.codec import write_compressed
 from whitebox_tpu_torch.io.wav import write_wav
+from whitebox_tpu_torch.log import get_logger
 from whitebox_tpu_torch.midi.synth import (
     build_slot_segments, pack_slot_tables, render_synth_chunk, synth_device_tables,
 )
@@ -92,6 +93,8 @@ from whitebox_tpu_torch.timeline.carve import carve_session
 from whitebox_tpu_torch.timeline.oversample import device_pool_cached, resolve_interpolation
 from whitebox_tpu_torch.timeline.prerender import resolve_sinc_device
 from whitebox_tpu_torch.timeline.transport import BlockTransport
+
+_log = get_logger("bounce")
 
 #: off the card, per-track buffers above this many bytes take the gather
 #: path: the JAX package's figure (``whitebox_tpu/render/bounce.py:314``),
@@ -160,27 +163,77 @@ def _add_synth(per_track, synth: dict, chunk_start: int, frames: int):
         return per_track.index_add(0, idx, sy[:, None, :].expand(-1, per_track.shape[1], -1))
 
 
-#: keywords of the reference's ``bounce`` that the port takes at their
-#: defaults only: name -> (default, the ROADMAP.md queue 1 item that ports
-#: the feature); any other value raises ``NotImplementedError`` naming it
-DEFAULT_ONLY = {
-    "out_encode": (None, "item 14 (codecs)"),
-}
+def window_finisher(session, sample_rate, buffer_size, channels, T, F, window_frames, dev, chunk=None):
+    """The finisher of one window's per-track buffers ``[T, C, window]`` ->
+    ``step(pt, start, track_gain) -> [C, window]``, for the renders that
+    pull a timeline window by window (``render/preview.py``,
+    ``render/stream_pool.py``): the MIDI synth added, then the routed, the
+    packable (the cascade kernel on the card) or the generic step, its
+    states carried from window to window
+    (``whitebox_tpu/render/stream_pool.py:196-245,268-299``). The routed
+    and generic steps run ``chunk`` frames at a time (default: their
+    ``*_auto_chunk_frames`` choice, capped at the window), which must
+    divide ``window_frames``."""
+    routed = session_has_routing(session)
+    auto = prepare_automation_tables(session, sample_rate, device=dev)
+    synth = (_prepare_synth_tables(session, sample_rate, buffer_size, max(F // buffer_size, 1), dev)
+             if session_has_midi(session) else {})
+    if routed:
+        rfx = prepare_routed_fx(session, sample_rate, channels, device=dev)
+        wchunk = chunk or min(routed_auto_chunk_frames(rfx, window_frames, device=dev), window_frames)
+        rstep = make_routed_chunk_fn(rfx, T, channels, chunk=wchunk, device=dev)
+        states = [init_routed_states(rfx, channels, dev)]
+
+        def finish(pt, w0, tg):
+            pieces = []
+            for off in range(0, window_frames, wchunk):
+                piece, states[0] = rstep(pt[:, :, off:off + wchunk], states[0], w0 + off, tg, auto)
+                pieces.append(piece)
+            return torch.cat(pieces, dim=-1)
+    elif session_fx_packable(session):
+        (S, coeffs), (Sm, mcoeffs) = prepare_effect_tables(session, sample_rate, channels, device=dev)
+        states = list(init_effect_states(T, channels, S, Sm, dev))
+        wchunk = window_frames
+
+        def finish(pt, w0, tg):
+            total, states[0], states[1] = finish_mix_chunk(pt, coeffs, mcoeffs, tg, *states, w0, auto,
+                                                           T=T, C=channels, S=S, Sm=Sm)
+            return total
+    else:
+        gfx = prepare_generic_fx(session, sample_rate, channels)
+        wchunk = chunk or min(auto_chunk_frames(gfx, window_frames, device=dev), window_frames)
+        gstep = make_generic_chunk_fn(gfx, T, channels, chunk=wchunk, device=dev)
+        states = list(init_generic_states(gfx, channels, dev))
+
+        def finish(pt, w0, tg):
+            pieces = []
+            for off in range(0, window_frames, wchunk):
+                piece, states[0], states[1] = gstep(pt[:, :, off:off + wchunk], *states, w0 + off, tg, auto)
+                pieces.append(piece)
+            return torch.cat(pieces, dim=-1)
+    if window_frames % wchunk:
+        raise ValueError(f"window_frames {window_frames} must be a multiple of the finisher's "
+                         f"chunk ({wchunk})")
+
+    return lambda pt, w0, tg: finish(_add_synth(pt, synth, w0, window_frames), w0, tg)
 
 
-def _check_keywords(engine: str, **given) -> None:
-    """The reference's other keywords: defaults pass, anything else raises
-    by name."""
+def write_audio(out_path, out: np.ndarray, sample_rate: int, out_format: AudioFormat,
+                dither: str | None = None, encode=None) -> None:
+    """WAV by default; .mp3/.ogg/.flac go through the codec runtime
+    (``io/codec.py``; ``whitebox_tpu/render/bounce.py::_write_audio``).
+    ``encode`` is an ``io.codec.EncodeOptions`` with the reference's export
+    properties (bitrate modes, VBR quality, FLAC level, tags); ignored for
+    WAV."""
+    if str(out_path).lower().endswith((".mp3", ".ogg", ".oga", ".flac")):
+        write_compressed(out_path, out, int(sample_rate), options=encode)
+        return
+    write_wav(out_path, out, int(sample_rate), out_format, dither=dither)
+
+
+def _check_supported(session: Session, engine: str, interpolation: str, effects_mode: str) -> None:
     if engine not in ("auto", "pallas", "xla"):
         raise ValueError(f"engine must be 'auto', 'pallas' or 'xla', got {engine!r}")
-    for name, value in given.items():
-        default, item = DEFAULT_ONLY[name]
-        if value != default:
-            raise NotImplementedError(f"whitebox_tpu_torch bounce does not take {name}={value!r} "
-                                      f"yet: ROADMAP.md queue 1, {item}")
-
-
-def _check_supported(session: Session, interpolation: str, effects_mode: str) -> None:
     chains, master = _chains_of(session)
     buses = [b.effects if isinstance(b.effects, EffectChain) else EffectChain(list(b.effects))
              for b in session.buses if b.effects]
@@ -489,14 +542,13 @@ def bounce(
     audio. ``normalize``: ("peak", dBTP) or ("lufs", LUFS) scales the
     output to the target, then clips to ±1; ``loudness`` fills
     ``stats.loudness`` from the final audio (:func:`_finalize_output`).
-    ``out_encode`` is taken at its default; another value raises
-    ``NotImplementedError`` naming the ROADMAP.md item
-    (:data:`DEFAULT_ONLY`). ``stats.cost`` holds the roofline estimate,
-    ``stats.roofline_fraction`` its share of the card's peaks.
+    ``out_path`` ending in .mp3/.ogg/.flac encodes with ``out_encode``
+    (an ``io.codec.EncodeOptions``; :func:`write_audio`). ``stats.cost``
+    holds the roofline estimate, ``stats.roofline_fraction`` its share of
+    the card's peaks.
     """
-    _check_keywords(engine, out_encode=out_encode)
     dev = resolve_device(device)
-    _check_supported(session, interpolation, effects_mode)
+    _check_supported(session, engine, interpolation, effects_mode)
     if meters:
         effects_mode = "scan"  # the spectral FIR sum never holds per-track audio
     has_midi, has_routing = session_has_midi(session), session_has_routing(session)
@@ -517,6 +569,8 @@ def bounce(
     # path the per-block rows that mirror the sampler's f64 accumulation
     table, pool = carve_session(session, sample_rate, buffer_size=buffer_size, num_blocks=num_blocks,
                                 out_channels=channels, slow_emit="blocks" if engine == "xla" else "runs")
+    _log.debug("carved %d segment rows, %d frames, %d tracks",
+               len(table), table.total_frames, table.num_tracks)
 
     interp, pre_pool_dev, pplan, sinc_bank = "linear", None, None, None
     slow_rows = bool(len(table)) and not table.fast.all()
@@ -575,5 +629,5 @@ def bounce(
     stats.wall_seconds = stats.carve_seconds + stats.device_seconds
     out = _finalize_output(out, stats, sample_rate, loudness, normalize, dev)
     if out_path is not None:
-        write_wav(out_path, out, int(sample_rate), out_format, dither=out_dither)
+        write_audio(out_path, out, int(sample_rate), out_format, dither=out_dither, encode=out_encode)
     return BounceResult(audio=out, stats=stats)

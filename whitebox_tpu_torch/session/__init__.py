@@ -2,8 +2,7 @@
 
 Copies of the JAX package's ``whitebox_tpu/session`` modules (they hold no
 JAX) with imports pointed at this package; ``convert.from_reference``
-carries a JAX-package session across. Methods whose targets are not
-ported yet raise ``NotImplementedError`` naming their ROADMAP.md item.
+carries a JAX-package session across.
 
 This layer replaces the reference's ``src/engine`` *editing* half (clip.h,
 clip_edit.h, track.h CRUD, engine.h edit API, assets_table, project.cpp) as
@@ -15,3 +14,4 @@ from whitebox_tpu_torch.session.clip import AudioClipData, Clip, ClipMode, ClipT
 from whitebox_tpu_torch.session.sample import Sample  # noqa: F401
 from whitebox_tpu_torch.session.track import Track  # noqa: F401
 from whitebox_tpu_torch.session.session import Session  # noqa: F401
+from whitebox_tpu_torch.session.record import RecordingTake  # noqa: F401

@@ -32,6 +32,7 @@ from whitebox_tpu_torch.ops.automation import (
 from whitebox_tpu_torch.session.assets import MidiAsset, SampleAsset
 from whitebox_tpu_torch.session.bus import Bus, Send
 from whitebox_tpu_torch.session.clip import AudioClipData, Clip, ClipMode, ClipType, MidiClipData
+from whitebox_tpu_torch.session.input import TrackInput, TrackInputType
 from whitebox_tpu_torch.session.sample import Sample
 from whitebox_tpu_torch.session.session import Session
 from whitebox_tpu_torch.session.track import Track
@@ -198,9 +199,8 @@ def from_reference(ref) -> Session:
     effect chains rebuilt as port effects (every built-in type; a user
     effect through the port's registry, or as an ``UnportedEffect``, which
     ``bounce`` refuses by name, when only the JAX package registers it).
-    No object of the
-    reference survives in the result. A recording input
-    (``session/input.py``, not copied yet) raises ``NotImplementedError``.
+    Recording inputs and arm flags carry across as well. No object of the
+    reference survives in the result.
     """
     s = Session(bpm=ref.bpm, ppq=ref.ppq)
     s.beat_duration = ref.beat_duration
@@ -226,10 +226,6 @@ def from_reference(ref) -> Session:
                for b in ref.buses]
 
     for t in ref.tracks:
-        if t.input is not None:
-            raise NotImplementedError(
-                f"track {t.name!r} has a recording input: whitebox_tpu_torch has no "
-                "session/input.py yet, ROADMAP.md queue 1, item 14")
         frozen = None
         if t.frozen is not None:
             frozen = {"clips": [carry.clip(c) for c in t.frozen["clips"]],
@@ -243,5 +239,7 @@ def from_reference(ref) -> Session:
             automation=_automation(t.automation), output_bus=t.output_bus,
             sends=[Send(bus=x.bus, gain_db=x.gain_db, pre_fader=x.pre_fader,
                         sidechain=x.sidechain) for x in t.sends],
-            frozen=frozen, armed=t.armed))
+            frozen=frozen, armed=t.armed,
+            input=None if t.input is None else TrackInput(TrackInputType(int(t.input.type)),
+                                                          int(t.input.index))))
     return s

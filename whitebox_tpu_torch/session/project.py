@@ -25,23 +25,21 @@ files are searched for recursively next to the project file
 from __future__ import annotations
 
 import base64
-import logging
 import os
 from pathlib import Path
 
 import numpy as np
 
+from whitebox_tpu_torch.log import get_logger
 from whitebox_tpu_torch.midi.notes import MidiNote, MidiNoteBuffer
 from whitebox_tpu_torch.session.clip import AudioClipData, Clip, ClipMode, ClipType, MidiClipData
+from whitebox_tpu_torch.session.input import TrackInput, TrackInputType
 from whitebox_tpu_torch.session.session import Session
 from whitebox_tpu_torch.session.track import Track
 
 PROJECT_VERSION = 1
 
-_log = logging.getLogger("whitebox_tpu_torch.project")
-
-_INPUT_TODO = ("whitebox_tpu_torch has no recording inputs yet (session/input.py): "
-               "ROADMAP.md queue 1, item 14")
+_log = get_logger("project")
 
 
 def find_file_recursive(root, filename: str, max_depth: int = 8):
@@ -348,10 +346,9 @@ def write_project(session: Session, path, timeline_view=(0.0, 1.0)) -> None:
             extras["out_bus"] = int(track.output_bus)  # extension key (routing)
         if getattr(track, "input", None) is not None or getattr(track, "armed", False):
             # recording input assignment, stored as the reference's packed
-            # u32 (track_input.h:20-22) + the arm flag; 0 packs type NONE
-            if track.input is not None:
-                raise NotImplementedError(_INPUT_TODO)
-            extras["input"] = 0
+            # u32 (track_input.h:20-22) + the arm flag
+            inp = track.input if track.input is not None else TrackInput()
+            extras["input"] = int(inp.as_packed_u32())
             if track.armed:
                 extras["armed"] = True
         if track.sends:
@@ -592,8 +589,8 @@ def read_project(path, search_dirs: list | None = None) -> Session:
         if t.get("out_bus") is not None:
             track.output_bus = int(t["out_bus"])
         if t.get("input") is not None:
-            if (int(t["input"]) >> 24) & 0xFF:  # a type other than NONE
-                raise NotImplementedError(_INPUT_TODO)
+            inp = TrackInput.from_packed_u32(int(t["input"]))
+            track.input = None if inp.type == TrackInputType.NONE else inp
             track.armed = bool(t.get("armed", False))
         if t.get("sends"):
             from whitebox_tpu_torch.session.bus import Send

@@ -23,9 +23,6 @@ from whitebox_tpu_torch.session.clip import (
 )
 from whitebox_tpu_torch.session.track import Track
 
-_RECORDING_TODO = ("whitebox_tpu_torch does not record yet (session/record.py, "
-                   "session/input.py): ROADMAP.md queue 1, item 14")
-
 
 @dataclass
 class TrackEditResult:
@@ -1022,26 +1019,59 @@ class Session:
     def start_recording(self, track: Track, sample_rate: float,
                         at_beat: float | None = None, channels: int = 2,
                         name: str = ""):
-        """Streaming record takes (``session/record.py``) are not copied yet."""
-        raise NotImplementedError(_RECORDING_TODO)
+        """Begin a streaming take on ``track`` (the record-arm +
+        start_record flow, engine.cpp:84-105): returns a
+        ``session.record.RecordingTake`` that ingests ``[C, n]`` blocks
+        incrementally under the reference's 256 KiB chunked-growth
+        contract; ``take.finalize()`` truncates, registers the asset, and
+        places the clip at ``at_beat`` (default: the playhead)."""
+        from whitebox_tpu_torch.session.record import RecordingTake
+
+        beat = self.playhead_start if at_beat is None else float(at_beat)
+        return RecordingTake(self, track, sample_rate, beat,
+                             channels=channels, name=name)
 
     def set_track_input(self, track_index: int, input_type, index: int = 0,
                         armed: bool | None = None) -> None:
-        """Recording inputs (``session/input.py``) are not copied yet."""
-        raise NotImplementedError(_RECORDING_TODO)
+        """Assign a recording input to a track (Engine::set_track_input,
+        engine.cpp:147-199): ``input_type`` is a
+        ``session.input.TrackInputType`` (or its name, e.g. "external_mono"),
+        ``index`` the capture-stream index (stereo i -> channels
+        [2i, 2i+1], mono i -> channel [i]). ``armed`` optionally flips the
+        record-arm flag in the same call."""
+        from whitebox_tpu_torch.session.input import TrackInput, TrackInputType
+
+        if isinstance(input_type, str):
+            input_type = TrackInputType[input_type.upper()]
+        tr = self.tracks[track_index]
+        tr.input = (None if input_type == TrackInputType.NONE
+                    else TrackInput(TrackInputType(input_type), int(index)))
+        if armed is not None:
+            tr.armed = bool(armed)
 
     def arm_track(self, track_index: int, armed: bool = True) -> None:
         """Engine::arm_track_recording (engine.cpp:142-145)."""
         self.tracks[track_index].armed = bool(armed)
 
     def input_groups(self):
-        """Recording inputs (``session/input.py``) are not copied yet."""
-        raise NotImplementedError(_RECORDING_TODO)
+        """Armed tracks grouped by packed input (track_input.h:40-44);
+        see session.input.build_input_groups."""
+        from whitebox_tpu_torch.session.input import build_input_groups
+
+        return build_input_groups(self)
 
     def record_armed(self, sample_rate: float, at_beat: float | None = None,
                      name_prefix: str = ""):
-        """Multi-track recording (``session/input.py``) is not copied yet."""
-        raise NotImplementedError(_RECORDING_TODO)
+        """Begin a multi-track recording pass over every armed track
+        (Engine::record, engine.cpp:96-105): returns a
+        ``session.input.MultiTrackRecording`` whose ``record_block`` fans
+        one [N_capture, n] block out to all armed tracks through their
+        input groups; ``finalize()`` places one clip per take."""
+        from whitebox_tpu_torch.session.input import MultiTrackRecording
+
+        beat = self.playhead_start if at_beat is None else float(at_beat)
+        return MultiTrackRecording(self, sample_rate, beat,
+                                   name_prefix=name_prefix)
 
     def add_recorded_take(self, track: Track, audio, sample_rate: int, at_beat: float, name: str = "") -> "Clip":
         """Register recorded planar f32 audio [C, N] and place it as a clip
