@@ -19,7 +19,9 @@ then the export deliverables: stems and bus stems (K4 and the cascade
 kernel), EBU R128 loudness and normalize, the phase-vocoder stretch and
 the waveform peak pyramid; then the render cache over K1 and K3, the
 block-pull preview and the streamed bounce of a pool past its cap (the
-gather mix and the cascade kernel). It checks the results by the repo's
+gather mix and the cascade kernel); then the sharded render
+(``whitebox_tpu_torch.parallel``) on a world of one rank over NCCL and on
+four ranks that share the card over gloo. It checks the results by the repo's
 own references. It imports nothing of JAX or of the JAX package and reads
 no ``.wb`` project. Phases, one or more lines each:
 
@@ -170,7 +172,19 @@ no ``.wb`` project. Phases, one or more lines each:
     1e-5 of the resident bounce, and the cascade kernel against its plain
     version on a window's 256 track rows and master over two windows, the
     states carried;
-18. the script's wall time, one JSON line of kernels (each entry's
+18. the sharded render (``parallel/``, :func:`phase_sharded`): a world of
+    one rank over NCCL (``make_render_mesh()``, a 1x1 mesh): the headline
+    bit-equal to ``bounce(engine="xla")`` on the card, ``generic_fx_128trk``
+    and ``routed_sidechain_128trk`` within atol 3e-6 / rtol 1e-4 of it, no
+    mix-kernel launch, the cascade kernel launched; four ranks sharing the
+    card over gloo with host staging (``parallel/launch.py::run_world``),
+    1x4 and 2x2: the headline bit-equal on 1x4 and within atol 2e-6 /
+    rtol 1e-5 on 2x2, ``generic_fx_128trk`` within the bar above, the
+    ranks' audio identical, each rank's wall, staged bytes and copy time,
+    peak memory (below a quarter of the card) and cascade launches; the
+    two-pass cascade at the 1x4 shard's shape (256 rows) with the incoming
+    state folded, against its plain version (relative RMS 5e-6 a row);
+19. the script's wall time, one JSON line of kernels (each entry's
     ``cell_launches`` the counts read in those cells), then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -180,6 +194,7 @@ port is not beside it, or when any phase fails.
 
 from __future__ import annotations
 
+import importlib
 import importlib.util
 import json
 import os
@@ -2226,7 +2241,7 @@ def phase_long(torch) -> dict:
     import numpy as np
 
     from whitebox_tpu_torch.ops import biquad_cuda
-    from whitebox_tpu_torch.render import bounce as bounce_mod
+    bounce_mod = importlib.import_module("whitebox_tpu_torch.render.bounce")
 
     name, duration = "effects_eq_240s_128trk", 240.0
     session = effects_eq_128trk(duration)
@@ -3301,6 +3316,246 @@ def phase_stream(torch) -> dict:
           + json.dumps(stats))
     return stats
 
+# ---------------------------------------------------------------- sharded render
+
+#: the sharded render's bars, the JAX package's (tests/test_sharded.py:40,
+#: tests/test_mesh_smoke.py:48): a 2-D mesh's plain mix, and chained or
+#: routed sessions on any mesh, against the single-device gather bounce
+SHARD_PLAIN_ATOL, SHARD_PLAIN_RTOL = 2e-6, 1e-5
+SHARD_FX_ATOL, SHARD_FX_RTOL = 3e-6, 1e-4
+#: ranks of the world that shares the card (gloo, host staging), its meshes
+#: and the sessions each renders
+SHARED_WORLD = 4
+SHARED_CELLS = {(1, 4): ("headline", "generic_fx_128trk"), (2, 2): ("headline", "generic_fx_128trk")}
+
+
+def headline_session():
+    from whitebox_tpu_torch.render.demo import make_demo_session
+
+    return make_demo_session(n_tracks=128, duration_seconds=60.0, sample_rate=int(RATE), seed=7)
+
+
+SHARDED_SESSIONS = {"headline": headline_session, "generic_fx_128trk": generic_fx_128trk,
+                    "routed_sidechain_128trk": routed_sidechain_128trk}
+
+
+def _sharded_run(torch, mesh, name, session, keep_audio=True) -> dict:
+    """``bounce_sharded`` of ``session`` on ``mesh`` with the cascade count
+    and the staging counters reset just before -> a record: wall seconds,
+    staged copies/bytes/seconds, peak memory, cascade launches, the audio's
+    digest (and the audio)."""
+    import hashlib
+
+    from whitebox_tpu_torch.ops import biquad_cuda
+    from whitebox_tpu_torch.parallel import bounce_sharded, collectives
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    collectives.reset_staging()
+    t0 = time.perf_counter()
+    audio = bounce_sharded(session, RATE, mesh)
+    torch.cuda.synchronize()
+    rec = {"mesh": f"{mesh.shape['tracks']}x{mesh.shape['frames']}", "name": name, "rank": mesh.rank,
+           "backend": mesh.backend, "staged_host": mesh.staged, "wall_s": time.perf_counter() - t0,
+           "staged_copies": collectives.staging["copies"], "staged_bytes": collectives.staging["bytes"],
+           "staged_copy_s": collectives.staging["seconds"],
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "cascade_launches": biquad_cuda.biquad_cascade_launches, "mix_launches": mix_launches(),
+           "sha256": hashlib.sha256(audio.tobytes()).hexdigest()}
+    if keep_audio:
+        rec["audio"] = audio
+    return rec
+
+
+def sharded_rank(rank: int, cells: dict) -> list:
+    """One rank of the world that shares the card: every mesh of ``cells``
+    in turn, each session built here from its seed; rank 0 keeps the audio."""
+    import torch
+
+    from whitebox_tpu_torch.parallel import make_render_mesh
+
+    sessions = {}
+    out = []
+    for (tp, fp), names in cells.items():
+        mesh = make_render_mesh(tp, fp)
+        for name in names:
+            if name not in sessions:
+                sessions[name] = SHARDED_SESSIONS[name]()
+            out.append(_sharded_run(torch, mesh, name, sessions[name], keep_audio=rank == 0))
+    return out
+
+
+def _check_sharded(rec: dict, ref, plain_bar) -> str:
+    """Hold one sharded render against the single-device bounce: bit-equal
+    (``plain_bar`` None) or within its bar -> a note."""
+    import numpy as np
+
+    name = f"{rec['name']} {rec['mesh']}"
+    got = rec["audio"]
+    check(got.shape == ref.shape and np.isfinite(got).all(), f"{name}: shape {got.shape} != {ref.shape}")
+    err = float(np.abs(got.astype(np.float64) - ref).max())
+    if plain_bar is None:
+        check(np.array_equal(got, ref), f"{name}: not bit-equal to bounce(engine='xla') (max abs {err:.3g})")
+        return "bit-equal to bounce(engine='xla')"
+    atol, rtol = plain_bar
+    check(np.allclose(got, ref, atol=atol, rtol=rtol),
+          f"{name}: max abs {err:.3g} off bounce(engine='xla') (atol {atol}, rtol {rtol})")
+    return f"within atol {atol} / rtol {rtol} of bounce(engine='xla') (max abs {err:.3g})"
+
+
+def _sharded_bar(name: str, mesh: str):
+    if name == "headline":
+        return None if mesh.startswith("1x") else (SHARD_PLAIN_ATOL, SHARD_PLAIN_RTOL)
+    return (SHARD_FX_ATOL, SHARD_FX_RTOL)
+
+
+def sharded_cascade_vs_plain(torch, L: int) -> dict:
+    """The frame-sharded cascade at a shard's shape: 256 rows (config 5's
+    three EQ sections on 128 stereo tracks) by ``L`` frames, shard 2 of
+    three: the kernel from zero on shards 0 and 1, the f64 fold of their end
+    states through ``Phi_L`` (``parallel/biquad_sharded.py``), the kernel
+    again on shard 2 from the folded state; the same steps with the plain
+    cascade; max row relative RMS within 5e-6 (``cascade_vs_plain``'s bar).
+    Times both (CUDA events) and bounds the kernel's two passes."""
+    import numpy as np
+
+    from whitebox_tpu_torch.ops import biquad_cuda
+    from whitebox_tpu_torch.ops.biquad import design_biquad
+    from whitebox_tpu_torch.parallel.biquad_sharded import shard_transition
+
+    dev = torch.device("cuda")
+    chains = []
+    for t in range(128):
+        secs = [design_biquad("lowshelf", 100.0, RATE, 0.707, 2.0),
+                design_biquad("peak", 1000.0 + 37.0 * t, RATE, 1.0, -1.5),
+                design_biquad("highshelf", 8000.0, RATE, 0.707, 1.0)]
+        chains += [secs, secs]
+    coeffs = torch.from_numpy(cascade_rows(chains)).to(dev)
+    B, S = coeffs.shape[2], coeffs.shape[1]
+    gen = torch.Generator(device=dev).manual_seed(21)
+    x = torch.randn((3, B, L), generator=gen, device=dev) * 0.3
+    zeros = [torch.zeros((B, 2), device=dev) for _ in range(S)]
+    phi = shard_transition(coeffs, L)
+
+    def shard2(cascade):
+        ends = [torch.stack(cascade(x[j], coeffs, zeros)[1], dim=1).reshape(B, 2 * S) for j in (0, 1)]
+        z = torch.zeros((B, 2 * S), dtype=torch.float64, device=dev)
+        for e in ends:
+            z = torch.einsum("bij,bj->bi", phi, z) + e.double()
+        z_in = z.float().reshape(B, S, 2)
+        return cascade(x[2], coeffs, [z_in[:, s].contiguous() for s in range(S)])[0]
+
+    before = biquad_cuda.biquad_cascade_launches
+    got = shard2(biquad_cuda.biquad_cascade)
+    check(biquad_cuda.biquad_cascade_launches == before + 3, "sharded cascade: the kernel did not launch")
+    ref = shard2(biquad_cuda.biquad_cascade_reference)
+    torch.cuda.synchronize()
+    rr = row_rel_rms(got, ref)
+    max_abs = float((got - ref).abs().max())
+    check(bool((rr <= CASCADE_REL_RMS).all()), f"sharded cascade: rows {rr.max():.3g} relative RMS off the "
+          f"plain version (bar {CASCADE_REL_RMS})")
+
+    def two_pass():  # one shard's work: from zero, then from its incoming state
+        biquad_cuda.biquad_cascade(x[2], coeffs, zeros)
+        biquad_cuda.biquad_cascade(x[2], coeffs, zeros)
+
+    def two_pass_plain():
+        biquad_cuda.biquad_cascade_reference(x[2], coeffs, zeros)
+        biquad_cuda.biquad_cascade_reference(x[2], coeffs, zeros)
+
+    ms, _ = _event_ms(torch, two_pass, 10)
+    plain_ms, _ = _event_ms(torch, two_pass_plain, 1)
+    n = B * L
+    res = {"rows": B, "frames": L, "sections": S, "max_row_rel_rms": float(rr.max()), "max_abs_err": max_abs,
+           "two_pass_ms": ms, "two_pass_plain_ms": plain_ms,
+           **least_ms(2 * (2 * n * 4 + coeffs.numel() * 4), 2 * 15 * S * n)}
+    print(f"[cascade-vs-plain] sharded_shard2_of_3: rows={B} frames={L} sections={S} max row relative RMS "
+          f"{rr.max():.3g} (<= {CASCADE_REL_RMS}), max abs {max_abs:.3g}; " + json.dumps(res))
+    del x, got, ref
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_sharded(torch) -> dict:
+    """The sharded render (``whitebox_tpu_torch/parallel``) on the card:
+
+    1. a world of one rank over NCCL (``make_render_mesh()`` with no process
+       group: a 1x1 mesh), the headline bit-equal to ``bounce(engine="xla")``
+       on the card, ``generic_fx_128trk`` and ``routed_sidechain_128trk``
+       within atol 3e-6 / rtol 1e-4 of it, the cascade kernel launched;
+    2. a world of four ranks sharing the card over gloo with host staging
+       (``parallel/launch.py::run_world``), 1x4 and 2x2: the headline
+       bit-equal on 1x4 and within atol 2e-6 / rtol 1e-5 on 2x2,
+       ``generic_fx_128trk`` within the bar of 1 on both, every rank the
+       same audio; wall time, staged bytes and their copy time, and peak
+       memory per rank (below a quarter of the card);
+    3. the two-pass cascade at the 1x4 shard's shape against its plain
+       version (:func:`sharded_cascade_vs_plain`)."""
+    import torch.distributed as dist
+
+    from whitebox_tpu_torch.parallel import make_render_mesh
+    from whitebox_tpu_torch.parallel.launch import run_world
+    from whitebox_tpu_torch.render.bounce import bounce
+
+    smi = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]).splitlines()[0]
+    t_phase = time.perf_counter()
+    refs, launches, out = {}, {}, {}
+    check(not dist.is_initialized(), "a process group is already initialised")
+    mesh = make_render_mesh()
+    check(mesh.backend == "nccl" and mesh.shape == {"tracks": 1, "frames": 1} and not mesh.staged,
+          f"world of one: {mesh}")
+    try:
+        for name, build in SHARDED_SESSIONS.items():
+            session = build()
+            refs[name] = bounce(session, RATE, device="cuda", engine="xla").audio
+            rec = _sharded_run(torch, mesh, name, session)
+            note = _check_sharded(rec, refs[name], _sharded_bar(name, "1x1"))
+            check(not any(rec["mix_launches"].values()), f"{name} 1x1: the sharded mix launched a mix kernel")
+            if name != "headline":
+                check(rec["cascade_launches"] > 0, f"{name} 1x1: the cascade kernel never launched")
+            launches[f"sharded_1x1_{name}"] = rec["cascade_launches"]
+            rec.pop("audio")
+            out[f"1x1:{name}"] = rec
+            print(f"[sharded_1x1_{name}] {smi}: bounce_sharded on a world of one (NCCL, 1x1) {note}; "
+                  + json.dumps(rec))
+    finally:
+        dist.destroy_process_group()
+
+    total_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    torch.cuda.empty_cache()  # the card's memory to the four ranks
+    t0 = time.perf_counter()
+    ranks = run_world(sharded_rank, SHARED_WORLD, device="cuda", timeout=600, args=(SHARED_CELLS,))
+    world_s = time.perf_counter() - t0
+    for i, rec in enumerate(ranks[0]):
+        cell = f"sharded_{rec['mesh']}_{rec['name']}"
+        per_rank = [r[i] for r in ranks]
+        check(all(r["sha256"] == rec["sha256"] for r in per_rank), f"{cell}: the ranks' audio differs")
+        check(all(r["backend"] == "gloo" and r["staged_host"] for r in per_rank),
+              f"{cell}: not gloo with host staging")
+        check(not any(v for r in per_rank for v in r["mix_launches"].values()), f"{cell}: a mix kernel launched")
+        if rec["name"] != "headline":
+            check(all(r["cascade_launches"] > 0 for r in per_rank), f"{cell}: the cascade kernel never launched")
+        peak = max(r["peak_gb"] for r in per_rank)
+        check(peak < total_gb / SHARED_WORLD, f"{cell}: peak {peak:.2f} GB a rank, above a quarter of the card")
+        note = _check_sharded(rec, refs[rec["name"]], _sharded_bar(rec["name"], rec["mesh"]))
+        launches[cell] = rec["cascade_launches"]
+        stats = {"ranks": [{k: r[k] for k in ("rank", "wall_s", "staged_copies", "staged_bytes",
+                                              "staged_copy_s", "peak_gb", "cascade_launches")}
+                           for r in per_rank],
+                 "wall_s_max": max(r["wall_s"] for r in per_rank), "peak_gb_max": peak,
+                 "card_gb": total_gb}
+        out[f"{rec['mesh']}:{rec['name']}"] = stats
+        print(f"[{cell}] {smi}: {SHARED_WORLD} ranks share the card (gloo, host staging), every rank the "
+              f"same audio, {note}; " + json.dumps(stats))
+    print(f"[sharded_world] {smi}: the four-rank world took {world_s:.1f} s (spawn, CUDA init, "
+          "session builds and both meshes)")
+
+    L = -(-int(refs["headline"].shape[1]) // (SHARED_WORLD * 512)) * 512  # the 1x4 shard
+    out["cascade"] = sharded_cascade_vs_plain(torch, L)
+    print(f"[sharded] phase {time.perf_counter() - t_phase:.1f} s")
+    return {"cell_launches": launches, **out}
+
 
 def main() -> int:
     try:
@@ -3341,6 +3596,7 @@ def main() -> int:
     cached, cached_auto = phase_cached(torch)
     preview = phase_preview(torch)
     stream = phase_stream(torch)
+    sharded = phase_sharded(torch)
     check("jax" not in sys.modules and "whitebox_tpu" not in sys.modules,
           "the port loaded jax or the JAX package")
     print(f"[total] chip_smoke wall time {time.perf_counter() - t_start:.1f} s (limit 1200 s)")
@@ -3389,7 +3645,8 @@ def main() -> int:
                            "stems_eq_128trk": stems_eq["cascade_launches"],
                            "loudness_headline": loud["cascade_launches"],
                            "preview_32trk": preview["cascade_launches"],
-                           "stream_takes_eq_128trk": stream["eq_cascade_launches"]}},
+                           "stream_takes_eq_128trk": stream["eq_cascade_launches"],
+                           **sharded["cell_launches"]}},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["device"],
                                              "count": env["device_count"]}}))

@@ -10,6 +10,7 @@ made with the JAX package's session functions and carried to the port by
 ``from_reference``.
 """
 
+import importlib
 import json
 
 import numpy as np
@@ -32,7 +33,7 @@ from whitebox_tpu_torch import cli
 from whitebox_tpu_torch.device import resolve_device
 from whitebox_tpu_torch.ops import mix_cuda
 from whitebox_tpu_torch.ops.mix_plan import SlotOverflow
-from whitebox_tpu_torch.render import bounce as bounce_mod
+bounce_mod = importlib.import_module("whitebox_tpu_torch.render.bounce")
 from whitebox_tpu_torch.render.bounce import bounce as port_bounce
 from whitebox_tpu_torch.render.demo import make_demo_session
 from whitebox_tpu_torch.session.convert import from_reference
@@ -413,7 +414,7 @@ def test_per_track_guard_raises_naming_item_1(monkeypatch, eq_case, eq_jax_bounc
     """Per-track buffers above the guard take the gather path with the
     streaming scan finisher: within relative RMS 1e-5 of the JAX package's
     bounce of the session and 5e-5 of the f64 reference."""
-    from whitebox_tpu_torch.render import bounce as bounce_mod
+    bounce_mod = importlib.import_module("whitebox_tpu_torch.render.bounce")
 
     js, ref = eq_case
     monkeypatch.setattr(bounce_mod, "PER_TRACK_LIMIT_BYTES", 1 << 10)

@@ -12,6 +12,7 @@ the JAX CLI's file byte for byte; ``render --profile DIR`` leaves a
 the codec runtime cannot be built (``io/codec.py``).
 """
 
+import importlib
 import json
 import logging
 
@@ -75,7 +76,7 @@ def test_loggers_and_configure():
     assert log.get_logger().name == "whitebox_tpu_torch"
     assert log.get_logger("bounce").name == "whitebox_tpu_torch.bounce"
     from whitebox_tpu_torch.effects import registry
-    from whitebox_tpu_torch.render import bounce
+    bounce = importlib.import_module("whitebox_tpu_torch.render.bounce")
     from whitebox_tpu_torch.session import project
 
     assert {m._log.name for m in (registry, bounce, project)} == {

@@ -36,8 +36,12 @@ to the C++ scalar walk; the render cache (one K1 / K3 launch per render,
 bit-equal to ``bounce``, the pool kept across a gain edit), the preview
 (no mix-kernel launch, the cascade kernel, within 1e-5 of the bounce and
 the CPU's preview) and the streamed bounce (bit-equal to the card's
-gather bounce; with EQ chains within 1e-5).
+gather bounce; with EQ chains within 1e-5); the sharded render on a world
+of one over NCCL (bit-equal plain, chains within atol 3e-6 / rtol 1e-4,
+the cascade kernel launched) and on two ranks sharing the card over gloo.
 """
+
+import importlib
 
 import numpy as np
 import pytest
@@ -374,7 +378,7 @@ def test_long_session_fallback_matches_the_per_track_path(card, monkeypatch):
     """Per-track buffers over the card's limit (its share forced to 0): the
     gather path with the streaming cascade finisher, no mix-kernel launch,
     within relative RMS 1e-5 of the K4 path."""
-    from whitebox_tpu_torch.render import bounce as bounce_mod
+    bounce_mod = importlib.import_module("whitebox_tpu_torch.render.bounce")
 
     s = _eq_session()
     k4 = bounce(s, 48000.0, device=card)
@@ -390,7 +394,7 @@ def test_per_track_limit_follows_the_cards_memory(card):
     """On the card the per-track limit is a share of the memory the process
     can still allocate, not the JAX package's 6 GiB: a 240 s 128-track
     stereo session (11.8 GB of buffers) rides K4 on an 80 GB card."""
-    from whitebox_tpu_torch.render import bounce as bounce_mod
+    bounce_mod = importlib.import_module("whitebox_tpu_torch.render.bounce")
 
     dev = torch.device(card)
     free, _ = torch.cuda.mem_get_info(dev)
@@ -544,3 +548,64 @@ def test_streamed_bounce_on_the_card(card):
     eq = bounce_streamed(s, 48000.0, max_pool_bytes=cap, window_frames=1 << 14)
     assert not any(chip_smoke.mix_launches().values()) and biquad_cuda.biquad_cascade_launches > 0
     assert chip_smoke.rel_rms(eq, bounce(s, 48000.0, device=card, engine="xla").audio) < 1e-5
+
+
+def _sharded_session(chained: bool):
+    """Six tracks of 3 s; chained: config 6's chain kinds (EQ groups, a
+    compressor, a master highpass and lookahead limiter)."""
+    from whitebox_tpu_torch.effects import Biquad, Compressor, EffectChain, Limiter, ParametricEQ
+
+    s = make_demo_session(n_tracks=6, duration_seconds=3.0, seed=3)
+    if chained:
+        for t, tr in enumerate(s.tracks):
+            tr.effects = EffectChain([Compressor(-24.0, 4.0)] if t % 2 else
+                                     [ParametricEQ([("lowshelf", 90.0, 0.707, 1.5), ("peak", 900.0, 1.0, -2.0)])])
+        s.master_effects = EffectChain([Biquad("highpass", 25.0), Limiter(-0.5)])
+    return s
+
+
+@pytest.mark.parametrize("chained", [False, True], ids=["plain", "chained"])
+def test_sharded_world_of_one_over_nccl(card, chained):
+    """``make_render_mesh()`` with no process group starts a world of one
+    over NCCL (a 1x1 mesh); ``bounce_sharded`` there is the gather bounce on
+    the card: bit-equal for a plain mix, within atol 3e-6 / rtol 1e-4 with
+    chains, the static sections through the cascade kernel."""
+    import torch.distributed as dist
+
+    from whitebox_tpu_torch.parallel import bounce_sharded, make_render_mesh
+
+    s = _sharded_session(chained)
+    ref = bounce(s, 48000.0, device=card, engine="xla").audio
+    chip_smoke.reset_launches()
+    mesh = make_render_mesh()
+    try:
+        assert mesh.backend == "nccl" and mesh.shape == {"tracks": 1, "frames": 1} and not mesh.staged
+        got = bounce_sharded(s, 48000.0, mesh)
+    finally:
+        dist.destroy_process_group()
+    assert not any(chip_smoke.mix_launches().values())
+    if chained:
+        assert biquad_cuda.biquad_cascade_launches > 0
+        np.testing.assert_allclose(got, ref, atol=3e-6, rtol=1e-4)
+    else:
+        np.testing.assert_array_equal(got, ref)
+
+
+def test_sharded_two_ranks_share_the_card(card):
+    """Two ranks on one card over gloo, the collectives staged through
+    page-locked host memory: a plain mix on 1x2 bit-equal to the card's
+    gather bounce, chains on 1x2 and 2x1 within atol 3e-6 / rtol 1e-4."""
+    # by its own name (pytest puts tests/ on the path): an installed
+    # package named ``tests`` shadows the repo's ``tests`` namespace
+    from torch_parallel_worlds import run_jobs, same_on_every_rank
+    from whitebox_tpu_torch.parallel.launch import run_world
+
+    plain, chained = _sharded_session(False), _sharded_session(True)
+    jobs = [("bounce", {"session": plain, "tp": 1, "fp": 2}), ("bounce", {"session": chained, "tp": 1, "fp": 2}),
+            ("bounce", {"session": chained, "tp": 2, "fp": 1})]
+    res = same_on_every_rank(run_world(run_jobs, 2, device="cuda", timeout=300, args=(jobs, "cuda")))
+    assert all(r[0] == "ok" for r in res), res
+    np.testing.assert_array_equal(res[0][1], bounce(plain, 48000.0, device=card, engine="xla").audio)
+    ref = bounce(chained, 48000.0, device=card, engine="xla").audio
+    for r in res[1:]:
+        np.testing.assert_allclose(r[1], ref, atol=3e-6, rtol=1e-4)

@@ -15,6 +15,8 @@ The same sessions, carved the same way, go through the JAX package's
   against the JAX package's bounce of the same session.
 """
 
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -180,7 +182,7 @@ def test_gather_path_with_meters_and_lanes_matches_jax(monkeypatch):
     the JAX package's gather path (relative RMS 1e-5, meters rtol 1e-5)."""
     from tests.test_torch_effects import _add_chains
     from whitebox_tpu.ops.automation import AutomationLane, TrackAutomation
-    from whitebox_tpu_torch.render import bounce as bounce_mod
+    bounce_mod = importlib.import_module("whitebox_tpu_torch.render.bounce")
 
     js = _add_chains(random_session(8, rate=48000, bpm=480.0, n_tracks=3, n_clips=1))
     js.tracks[2].automation = TrackAutomation(volume=AutomationLane().add(0.0, 1.0).add(1.0, 0.2),
@@ -217,6 +219,6 @@ def test_per_track_limit_off_the_card_is_the_jax_figure():
     (``whitebox_tpu/render/bounce.py:314``), so both packages choose the
     same mix on the CPU; on the card it follows the card's free memory
     (``tests/test_torch_cuda.py``)."""
-    from whitebox_tpu_torch.render import bounce as bounce_mod
+    bounce_mod = importlib.import_module("whitebox_tpu_torch.render.bounce")
 
     assert bounce_mod.per_track_limit_bytes(torch.device("cpu")) == 6 << 30

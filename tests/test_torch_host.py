@@ -399,3 +399,53 @@ def test_port_import_guard(case):
                        timeout=300)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip().splitlines()[-1] == "loaded: []", r.stdout
+
+
+_SURFACE = {  # the names the reference's package __init__s import (``whitebox_tpu/*/__init__.py``)
+    "whitebox_tpu": ("formats", "math", "panning"),
+    "whitebox_tpu.core": ("buffers", "formats", "math", "panning"),
+    "whitebox_tpu.io": ("wav",),
+    "whitebox_tpu.render": ("bounce", "RenderStats"),
+}
+
+
+@pytest.mark.parametrize("pkg", sorted(_SURFACE))
+def test_package_surface_matches_reference(pkg):
+    """Every name a reference package's ``__init__`` imports is an
+    attribute of the port's package of the same sub-path, of the same kind
+    (a module where the reference has a module)."""
+    import importlib
+
+    ref = importlib.import_module(pkg)
+    port = importlib.import_module(pkg.replace("whitebox_tpu", "whitebox_tpu_torch", 1))
+    for name in _SURFACE[pkg]:
+        assert hasattr(port, name), f"{port.__name__} lacks {name}"
+        assert isinstance(getattr(port, name), type(sys)) == isinstance(getattr(ref, name), type(sys)), name
+
+
+def test_render_package_bounce_is_the_function():
+    """``from whitebox_tpu_torch.render import bounce`` is the bounce function
+    (it shadows its module, as in the reference) and renders bit-equal to
+    the module's ``bounce``; ``RenderStats`` comes with it."""
+    import importlib
+
+    from whitebox_tpu_torch.render import RenderStats, bounce
+
+    mod = importlib.import_module("whitebox_tpu_torch.render.bounce")
+    assert callable(bounce) and bounce is mod.bounce and RenderStats is mod.RenderStats
+    s = from_reference(make_demo_session(n_tracks=3, duration_seconds=1.0, seed=5))
+    np.testing.assert_array_equal(bounce(s, RATE, device="cpu").audio, mod.bounce(s, RATE, device="cpu").audio)
+
+
+def test_duty_cycle_matches_reference():
+    """``RenderStats.duty_cycle`` (``whitebox_tpu/render/metrics.py:55-58``,
+    the PerformanceMeasurer's share of the realtime budget): ``1 / rtf``,
+    equal to the JAX package's for one render's stats."""
+    from whitebox_tpu.render.metrics import RenderStats as JaxStats
+    from whitebox_tpu_torch.render import bounce
+
+    s = from_reference(make_demo_session(n_tracks=3, duration_seconds=1.0, seed=5))
+    st = bounce(s, RATE, device="cpu").stats
+    js = JaxStats(frames=st.frames, channels=st.channels, tracks=st.tracks, sample_rate=st.sample_rate,
+                  wall_seconds=st.wall_seconds)
+    assert st.wall_seconds > 0 and st.duty_cycle == js.duty_cycle == 1.0 / st.rtf

@@ -11,6 +11,8 @@ The JAX exports run once each, in a module fixture (the Pallas
 interpret-mode mix and the JAX finishers compile per session shape).
 """
 
+import importlib
+
 import numpy as np
 import pytest
 
@@ -27,7 +29,7 @@ from whitebox_tpu.render.stems import render_stems as jax_stems
 from whitebox_tpu.session.project import write_project
 from whitebox_tpu_torch import cli
 from whitebox_tpu_torch.ops.mix_plan import SlotOverflow
-from whitebox_tpu_torch.render import bounce as bounce_mod
+bounce_mod = importlib.import_module("whitebox_tpu_torch.render.bounce")
 from whitebox_tpu_torch.render import stems as stems_mod
 from whitebox_tpu_torch.render.bounce import bounce
 from whitebox_tpu_torch.render.effects_generic import reference_run_chain

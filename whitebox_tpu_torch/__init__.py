@@ -30,13 +30,20 @@ built with the JAX package across.
                  twins.
 - ``render``   : the offline bounce, the effect finishers (biquad scan,
                  FFT-FIR, generic, routed over buses and sends) with their
-                 f64 references, the roofline cost model, render metrics,
+                 f64 references, stems, the render cache, preview and the
+                 streamed bounce, the roofline cost model, render metrics,
                  the demo sessions.
+- ``parallel`` : the render over a ('tracks', 'frames') mesh of ranks on
+                 ``torch.distributed``: the sharded mix with an ordered
+                 track sum, frame-sharded chains with exact state handoff.
 - ``cli``      : ``python -m whitebox_tpu_torch.cli render in.wb out.wav``,
-                 ``inspect`` and ``tempo``.
+                 ``stems``, ``convert``, ``stretch``, ``loudness``,
+                 ``freeze``, ``peaks``, ``inspect`` and ``tempo``.
 - ``buildlib`` : content-keyed builds of the native sources into ``build/``.
 - ``csrc``     : CUDA C++ sources (``nvcc``) and ``csrc/host`` C++ (``g++``),
                  built at first use.
 """
 
 __version__ = "0.1.0"
+
+from whitebox_tpu_torch.core import formats, math, panning  # noqa: F401

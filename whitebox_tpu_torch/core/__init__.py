@@ -5,3 +5,5 @@ Copies of the JAX package's ``whitebox_tpu/core`` modules of the same names
 (they hold no JAX), with imports pointed at this package, so the port
 stands alone.
 """
+
+from whitebox_tpu_torch.core import buffers, formats, math, panning  # noqa: F401

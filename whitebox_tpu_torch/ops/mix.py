@@ -30,7 +30,6 @@ import torch
 
 from whitebox_tpu_torch.device import resolve_device
 from whitebox_tpu_torch.ops.dsarith import phase_eval, split_f64
-from whitebox_tpu_torch.render.effects_pipeline import _ordered_sum
 
 _I32_SENTINEL = np.int32(2**31 - 1)
 
@@ -227,6 +226,15 @@ def _track_contrib(pool: torch.Tensor, tables: dict, g: torch.Tensor, sinc_bank=
             s = torch.where(row_fast, a_eff, acc)
         outs.append(torch.where(valid, (s * row_gain) * env, 0.0))
     return torch.stack(outs, dim=1)  # [T, C, F]
+
+
+def _ordered_sum(y: torch.Tensor) -> torch.Tensor:
+    """``y[0] + y[1] + ...`` from zeros, in track order (``[T, ...]`` ->
+    ``[...]``)."""
+    total = torch.zeros(y.shape[1:], dtype=y.dtype, device=y.device)
+    for t in range(y.shape[0]):
+        total = total + y[t]
+    return total
 
 
 def _frames(chunk_start: int, frames: int, device) -> torch.Tensor:

@@ -38,6 +38,7 @@ from whitebox_tpu_torch.ops.automation import (
 )
 from whitebox_tpu_torch.ops.biquad import biquad_sequential, pack_chain_sections
 from whitebox_tpu_torch.ops.biquad_cuda import biquad_cascade
+from whitebox_tpu_torch.ops.mix import _ordered_sum  # noqa: F401 - the finishers import it from here
 
 #: frames per finisher chunk on the card and on the CPU (finish_mix's
 #: default): on the card the cascade kernel takes any length and each
@@ -92,15 +93,6 @@ def _frame_gains(auto, track_gain: torch.Tensor, g: torch.Tensor, T: int, C: int
         const = torch.broadcast_to(track_gain[:, ch:ch + 1], gain_ch.shape)
         chans.append(torch.where(use_auto[:, None], gain_ch, const))
     return torch.stack(chans, dim=1)
-
-
-def _ordered_sum(y: torch.Tensor) -> torch.Tensor:
-    """``y[0] + y[1] + ...`` from zeros, in track order (``[T, ...]`` ->
-    ``[...]``)."""
-    total = torch.zeros(y.shape[1:], dtype=y.dtype, device=y.device)
-    for t in range(y.shape[0]):
-        total = total + y[t]
-    return total
 
 
 def _finish_chunk(xc, coeffs, mcoeffs, track_gain, states, mstates, g, auto, T, C, S, Sm,

@@ -87,6 +87,11 @@ class RenderStats:
         return self.audio_seconds / self.wall_seconds if self.wall_seconds > 0 else float("inf")
 
     @property
+    def duty_cycle(self) -> float:
+        """PerformanceMeasurer-equivalent: fraction of the realtime budget used."""
+        return 1.0 / self.rtf if self.rtf > 0 else float("inf")
+
+    @property
     def msamples_per_sec(self) -> float:
         """Track-samples processed per second (tracks x channels x frames)."""
         total = self.frames * self.channels * max(self.tracks, 1)

@@ -85,7 +85,6 @@ from whitebox_tpu_torch.ops.mix_plan import _merge_slow_runs_soa
 from whitebox_tpu_torch.ops.resample import (
     _design_rows, _design_rows_d012, design_poly_interp, full_f32_matmul,
 )
-from whitebox_tpu_torch.render.metrics import DeviceTimer
 from whitebox_tpu_torch.timeline.carve import SegmentTable
 from whitebox_tpu_torch.timeline.oversample import (
     OVERSAMPLE_FACTOR, oversample_slow_rows, resolve_interpolation,
@@ -951,6 +950,8 @@ def apply_prerender_device(table: SegmentTable, pool: SamplePool, plan: Prerende
     C = pool.channel_base.shape[1]
     table2, pool2 = prerender_tables(table, pool, plan, pool_device)  # refuses >= 2**31 elements
     groups = _device_group_args(plan, pool, pool_device.device)
+    from whitebox_tpu_torch.render.metrics import DeviceTimer  # render imports this module
+
     with DeviceTimer(pool_device.device) as timer:
         full = _render_ext_body(pool_device, groups, C, plan.ext_len, plan.taps)
     plan.ext_seconds = timer.seconds
