@@ -13,15 +13,19 @@ hand kernel, the biquad cascade), and 128-track sessions of resampled
 clips in the export-quality interpolation modes: Catmull-Rom and six
 polynomial taps in the kernel (K2-catmull, K2-poly) and the sinc
 prerender, which extends the sample pool on the card and mixes speed-1
-rows over it with the same kernel, a routed session on group buses with a
-sidechain duck, and an arrangement with MIDI tracks through the synth;
+rows over it with the same kernel, the bench suite's 8-track session and
+config 3's session in linear interpolation, forward and bidirectional, a
+routed session on group buses with a sidechain duck, and an arrangement
+with MIDI tracks through the synth;
 then the export deliverables: stems and bus stems (K4 and the cascade
 kernel), EBU R128 loudness and normalize, the phase-vocoder stretch and
-the waveform peak pyramid; then the render cache over K1 and K3, the
-block-pull preview and the streamed bounce of a pool past its cap (the
-gather mix and the cascade kernel); then the sharded render
-(``whitebox_tpu_torch.parallel``) on a world of one rank over NCCL and on
-four ranks that share the card over gloo. It checks the results by the repo's
+the waveform peak pyramid (of 10 minutes, and of an hour's codes); then
+the render cache over K1 and K3, the block-pull preview and the streamed
+bounce of a pool past its cap (the gather mix and the cascade kernel);
+then the feature checks of ``whitebox_tpu_torch/tools/verify.py`` and the
+port's examples; then the sharded render (``whitebox_tpu_torch.parallel``)
+on a world of one rank over NCCL and on four ranks that share the card
+over gloo. It checks the results by the repo's
 own references. It imports nothing of JAX or of the JAX package and reads
 no ``.wb`` project. Phases, one or more lines each:
 
@@ -94,7 +98,17 @@ no ``.wb`` project. Phases, one or more lines each:
    iterations with the host legs, the extension's build and the kernel
    by CUDA events, the plain version, the bounds, peak memory, and a
    sweep of the extension's slab size;
-8. the gather mix (``ops/mix.py``, torch ops) on small sessions with the
+8. config1_8trk, config3_linear_128trk and reverse_bidir_128trk (the JAX
+   package's ``benchmarks/run_all.py`` config 1, config 3's session under
+   linear interpolation and its extra of ``LOOP_BIDIRECTIONAL`` clips):
+   ``bounce(device="cuda")`` with the launch counts reset just before (one
+   summing-kernel launch, linear), the whole render against
+   ``render_segments_numpy`` (bit-equal at speed 1, the resampling contract
+   otherwise), then :func:`measure_cell`; and peaks_1h (config 4): the peak
+   pyramid over one hour of seeded int32 codes on the card, by CUDA events
+   (median and best of 5) in Gsamples/s, every level bit-identical to the
+   C++ scalar walk;
+9. the gather mix (``ops/mix.py``, torch ops) on small sessions with the
    launch counts reset just before each bounce: no mix-kernel launch,
    bit-equal to the same bounce on the CPU, bit-equal to
    ``render_segments_numpy`` at speed 1 and within the resampling
@@ -102,35 +116,35 @@ no ``.wb`` project. Phases, one or more lines each:
    ``engine="auto"``; each generic effect stage kind on the card within
    relative RMS 1e-5 of the same finisher on the CPU and 5e-5 (2e-4 with
    lanes) of the f64 ``reference_generic_finish``;
-9. generic_fx_128trk (config 6's chains on the flat mix): one K4 launch,
-   the cascade kernel for the static EQ stages; the finisher's first 10 s
-   against the CPU's, one track per signature and the master over 2 s
-   against the f64 chains; 5 warm iterations, the device time per stage
-   kind from a ``torch.profiler`` trace of the shipped finisher (its
-   ``wb.*`` ranges), and the chunk sweep;
-10. effects_eq_240s_128trk (config 5's chains, 240 s): one K4 launch
+10. generic_fx_128trk (config 6's chains on the flat mix): one K4 launch,
+    the cascade kernel for the static EQ stages; the finisher's first 10 s
+    against the CPU's, one track per signature and the master over 2 s
+    against the f64 chains; 5 warm iterations, the device time per stage
+    kind from a ``torch.profiler`` trace of the shipped finisher (its
+    ``wb.*`` ranges), and the chunk sweep;
+11. effects_eq_240s_128trk (config 5's chains, 240 s): one K4 launch
     within the card's per-track limit, and the same bounce under the JAX
     package's 6 GiB rule through the gather path (no mix-kernel launch),
     held to each other (relative RMS 1e-5); 3 warm iterations of each;
     the headline through ``engine="xla"`` is checked and timed in phase 4;
-11. the routed finisher on a small session with every routing feature
+12. the routed finisher on a small session with every routing feature
     (groups, post/pre/sidechain sends, a ducking bus, a generic bus with a
     fader lane, PDC): on the card within relative RMS 1e-5 of the CPU's
     and 5e-5 of the f64 ``reference_routed_finish``; its bounce one K4
     launch, the gather path none;
-12. routed_sidechain_128trk (the JAX package's config 6 exactly: 8 group
+13. routed_sidechain_128trk (the JAX package's config 6 exactly: 8 group
     buses, a sidechain duck, sends, a master limiter): one K4 launch,
     then the routed finisher; its first 10 s against the CPU's (1e-5),
     its first 2 s against the f64 reference (5e-5), ``engine="xla"`` (no
     mix-kernel launch, within 1e-6 of the K4 path at equal chunks); 5
     warm iterations, the stages by ``torch.profiler`` (``wb.route.matmul``,
     ``wb.bus.<kind>``, ...) and the chunk sweep (2^15-2^20);
-13. midi_synth_128trk (112 audio tracks and 16 MIDI tracks of 960 notes):
+14. midi_synth_128trk (112 audio tracks and 16 MIDI tracks of 960 notes):
     one K4 launch, the synth on the card bit-equal to
     ``render_synth_numpy``, the first 10 s bit-equal to the CPU bounce,
     ``engine="xla"`` (no mix-kernel launch) bit-equal to the K4 path; 5
     warm iterations, the synth's and the finisher's device times;
-14. the export deliverables, each 128 tracks x 60 s at 48 kHz with the
+15. the export deliverables, each 128 tracks x 60 s at 48 kHz with the
     launch counts reset just before: stems_eq_128trk and
     stems_generic_128trk (``render_stems``: one K4 launch, then the stems
     finisher, the EQ cell's through the cascade kernel; the stems' sum
@@ -148,7 +162,7 @@ no ``.wb`` project. Phases, one or more lines each:
     F32 and I16, both qualities, bit-identical to the C++ scalar walk);
     e2e, the kernels and finishers by CUDA events, the readback, peak
     memory;
-15. cached_headline and cached_automation_tempo_128trk
+16. cached_headline and cached_automation_tempo_128trk
     (``render/cached.py::SessionRenderCache`` on the headline and config
     7, launch counts reset just before each render): every render one K1
     (K3) launch and bit-equal to ``bounce`` on the card; the first render,
@@ -156,14 +170,14 @@ no ``.wb`` project. Phases, one or more lines each:
     ``render`` with its readback, medians of 20), a re-render after a
     clip-gain edit (the pool on the card kept) and after an edit that adds
     an asset (rebuilt), the edit stamp alone;
-16. preview_32trk (the JAX package's config 8: ``PreviewStream`` with
+17. preview_32trk (the JAX package's config 8: ``PreviewStream`` with
     512-frame blocks and 64 of lookahead): no mix-kernel launch, the
     cascade kernel launched, the first 10 s within relative RMS 1e-5 of
     ``bounce`` on the card; the cascade kernel against its plain version
     on the window's track rows and master over two windows, the states
     carried; the duty of a pulled block and of the card's window against
     the 10.67 ms block budget, a seek and an edit;
-17. stream_takes_128trk (``render/stream_pool.py::bounce_streamed`` of
+18. stream_takes_128trk (``render/stream_pool.py::bounce_streamed`` of
     128 seeded 60 s takes, a 2.95 GB pool, under a 256 MiB cap in windows
     of 2^17 frames): bit-equal to ``bounce(engine="xla")``, no mix-kernel
     launch, peak memory below the resident bounce's; e2e, the host's
@@ -172,7 +186,15 @@ no ``.wb`` project. Phases, one or more lines each:
     1e-5 of the resident bounce, and the cascade kernel against its plain
     version on a window's 256 track rows and master over two windows, the
     states carried;
-18. the sharded render (``parallel/``, :func:`phase_sharded`): a world of
+19. the feature checks of ``whitebox_tpu_torch/tools/verify.py`` (the JAX
+    package's ``tools/tpu_verify.py``) with ``device="cuda"``: one line each
+    with its value, its bar and the kernels it launched (each check that
+    renders requires a mix-kernel launch, and a cascade launch where a
+    cascade stage sits in its path); any miss or exception fails;
+20. the port's examples (``examples/torch_{mixdown,tempo_ramp,extending}.py``)
+    on the card in this process, each with its launches; any assertion they
+    make fails;
+21. the sharded render (``parallel/``, :func:`phase_sharded`): a world of
     one rank over NCCL (``make_render_mesh()``, a 1x1 mesh): the headline
     bit-equal to ``bounce(engine="xla")`` on the card, ``generic_fx_128trk``
     and ``routed_sidechain_128trk`` within atol 3e-6 / rtol 1e-4 of it, no
@@ -184,8 +206,9 @@ no ``.wb`` project. Phases, one or more lines each:
     peak memory (below a quarter of the card) and cascade launches; the
     two-pass cascade at the 1x4 shard's shape (256 rows) with the incoming
     state folded, against its plain version (relative RMS 5e-6 a row);
-19. the script's wall time, one JSON line of kernels (each entry's
-    ``cell_launches`` the counts read in those cells), then the last line
+22. each phase's seconds, the script's wall time, one JSON line of
+    kernels (each entry's ``cell_launches`` the counts read in those
+    cells), then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Exits non-zero, printing no result, when CUDA is unavailable, when the
@@ -3316,6 +3339,172 @@ def phase_stream(torch) -> dict:
           + json.dumps(stats))
     return stats
 
+
+# ---------------------------------------------------------------- the bench suite's other configs
+
+#: frames of the peaks_1h cell: one hour at 48 kHz (``run_all.py::config4``)
+PEAKS_1H_FRAMES = 48000 * 3600
+
+
+def run_all_cell(torch, name: str, session, exact: bool) -> tuple[dict, int]:
+    """One of the JAX package's ``benchmarks/run_all.py`` configs through
+    ``bounce(device="cuda")`` with the launch counts reset just before (one
+    summing-kernel launch, linear), held to ``render_segments_numpy`` over
+    the whole render (bit-equal when ``exact``, else the resampling
+    contract), then timed by :func:`measure_cell`."""
+    import numpy as np
+
+    from whitebox_tpu_torch.ops import mix_cuda
+    from whitebox_tpu_torch.render.bounce import bounce
+    from whitebox_tpu_torch.timeline.carve import carve_session, render_segments_numpy
+
+    reset_launches()
+    res = bounce(session, RATE, device="cuda")
+    launches = mix_launches()
+    check(launches == {"mix": 1, "auto": 0, "per_track": 0} and mix_cuda.interp_launches["linear"] == 1,
+          f"{name}: bounce must launch the summing kernel once (linear), got {launches} "
+          f"{mix_cuda.interp_launches}")
+    t0 = time.perf_counter()
+    table, pool = carve_session(session, RATE, buffer_size=512, slow_emit="runs")
+    ref = render_segments_numpy(table, pool, session)
+    ref_s = time.perf_counter() - t0
+    check(res.audio.shape == ref.shape and np.isfinite(res.audio).all(), f"{name}: shape/finite")
+    if exact:
+        check(np.array_equal(res.audio, ref), f"{name}: bounce != render_segments_numpy")
+        verdict = "bit-equal to"
+    else:
+        ok, ku, ka = ulp_contract(res.audio, ref)
+        check(ok, f"{name}: {ku} ulp / {ka:.3g} abs off render_segments_numpy (contract {ULP_MAX} ulp "
+                  f"or {ABS_TOL})")
+        verdict = f"within {ULP_MAX} ulp or {ABS_TOL} abs (max {ku} ulp, {ka:.3g} abs) of"
+    reverse = int((table.speed < 0).sum())
+    print(f"[{name}] bounce(device='cuda'): {res.stats.summary()}; mix kernel launches={launches['mix']} "
+          f"(linear); audio {res.audio.shape} {verdict} render_segments_numpy ({ref_s:.1f} s on the host; "
+          f"{int((~table.fast).sum())} resampled rows, {reverse} reverse)")
+    return measure_cell(torch, name, session, 60.0), launches["mix"]
+
+
+def peaks_1h(torch) -> dict:
+    """``peaks_1h`` (``run_all.py::config4``): the peak pyramid
+    (``ops/peaks.py::_pyramid``, torch ops) over one hour of seeded int32
+    codes already on the card, by CUDA events (median and best of 5), in
+    Gsamples/s; every level bit-identical to the copied C++ walk
+    (``io/native.py::peaks_level``, the levels walked in parallel)."""
+    import numpy as np
+
+    from whitebox_tpu_torch.io import native
+    from whitebox_tpu_torch.ops import peaks
+
+    name, n = "peaks_1h", PEAKS_1H_FRAMES
+    codes_np = np.random.default_rng(0).integers(-32768, 32768, n).astype(np.int32)
+    codes = torch.from_numpy(codes_np).cuda()[None]
+    mips = peaks.mip_levels_for(n)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    outs = peaks._pyramid(codes, n, mips)  # warm
+    torch.cuda.synchronize()
+    ms, ms_all = _event_ms(torch, lambda: peaks._pyramid(codes, n, mips), 5)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    levels = [lv[0].cpu().numpy() for lv in outs]
+    readback_ms = (time.perf_counter() - t0) * 1e3
+    del outs
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as ex:
+        walks = list(ex.map(lambda m: native.peaks_level(codes_np, m, peaks.level_out_count(n, m)), mips))
+    walk_s = time.perf_counter() - t0
+    for mip, lv, walk in zip(mips, levels, walks):
+        check(walk is not None, "peaks_1h: no native host library (no g++) for the scalar walk")
+        check(np.array_equal(walk, lv), f"{name}: mip {mip} != the C++ walk")
+    stats = {"cell": name, "frames": n, "channels": 1, "codes_mb": codes_np.nbytes / 1e6, "levels": len(mips),
+             "pyramid_ms_median": ms, "pyramid_ms_best": min(ms_all), "pyramid_ms_all": ms_all,
+             "gsamples_per_s_median": n / (ms * 1e-3) / 1e9, "gsamples_per_s_best": n / (min(ms_all) * 1e-3) / 1e9,
+             "readback_ms": readback_ms, "readback_mb": sum(lv.nbytes for lv in levels) / 1e6,
+             "peak_mem_gb": peak_gb, "cpp_walk_s": walk_s,
+             # the codes read once, every level written once
+             **least_ms(codes_np.nbytes + sum(lv.nbytes for lv in levels), 0)}
+    print(f"[{name}] every level bit-identical to the C++ walk; " + json.dumps(stats))
+    del codes
+    torch.cuda.empty_cache()
+    return stats
+
+
+def phase_run_all(torch) -> dict:
+    """The bench suite's configs the card had not run: config1_8trk (K1),
+    config3_linear_128trk and reverse_bidir_128trk (K2-linear, the second
+    with every clip ``LOOP_BIDIRECTIONAL``: reverse rows), peaks_1h."""
+    from whitebox_tpu_torch.render.demo import make_demo_session
+    from whitebox_tpu_torch.session.clip import ClipMode
+
+    duration, out = 60.0, {}
+    config1 = make_demo_session(n_tracks=8, duration_seconds=duration, sample_rate=48000, seed=1)
+    out["config1_8trk"] = run_all_cell(torch, "config1_8trk", config1, exact=True)
+    config3 = make_demo_session(n_tracks=128, duration_seconds=duration, sample_rate=44100, seed=7,
+                                clip_speeds=CONFIG3_SPEEDS)
+    out["config3_linear_128trk"] = run_all_cell(torch, "config3_linear_128trk", config3, exact=False)
+    for t in config3.tracks:
+        for c in t.clips:
+            if c.is_audio() and c.audio is not None:
+                c.audio.mode = ClipMode.LOOP_BIDIRECTIONAL
+    out["reverse_bidir_128trk"] = run_all_cell(torch, "reverse_bidir_128trk", config3, exact=False)
+    out["peaks_1h"] = peaks_1h(torch)
+    print("[run_all] " + sh(["nvidia-smi", "--query-gpu=name,power.limit,power.draw,clocks.sm,"
+                             "temperature.gpu", "--format=csv,noheader"]))
+    return out
+
+
+# ---------------------------------------------------------------- feature checks and examples
+
+
+def phase_verify(torch) -> dict:
+    """The eleven feature checks of ``whitebox_tpu_torch/tools/verify.py``
+    (the JAX package's ``tools/tpu_verify.py``) with ``device="cuda"``: one
+    line each with its value, its bar and the kernels it launched; a miss
+    or an exception fails the phase. -> the launches of each check."""
+    from whitebox_tpu_torch.tools import verify
+
+    out, failed = {}, []
+    for name, _ in verify.CHECKS:
+        res = verify.run_check(name, "cuda")
+        print(f"[verify] {verify.format_line(name, res)}", flush=True)
+        if not res["ok"]:
+            failed.append(name)
+            if "traceback" in res:
+                print(res["traceback"], file=sys.stderr)
+        out[name] = res.get("kernels", {})
+    check(not failed, f"verify: {len(failed)} of {len(verify.CHECKS)} checks failed: {failed}")
+    print(f"[verify] {len(verify.CHECKS)}/{len(verify.CHECKS)} checks passed on the card")
+    return out
+
+
+EXAMPLES = ("torch_mixdown", "torch_tempo_ramp", "torch_extending")
+
+
+def phase_examples(torch) -> dict:
+    """The port's examples (``examples/torch_*.py``) run on the card in this
+    process; any assertion they make fails the phase. -> the launches of
+    each (which mix kernel the lanes and chains went through)."""
+    import tempfile
+
+    from whitebox_tpu_torch.tools.verify import Launches
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="wb_examples_") as tmp:
+        for name in EXAMPLES:
+            spec = importlib.util.spec_from_file_location(f"_example_{name}", ROOT / "examples" / f"{name}.py")
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            args = () if name == "torch_extending" else (os.path.join(tmp, f"{name}.wav"),)
+            t0 = time.perf_counter()
+            with Launches() as n:
+                mod.main(*args, device="cuda")
+            check(n.mix(), f"{name}: no mix-kernel launch on the card: {n.delta}")
+            out[name] = n.delta
+            print(f"[examples] {name} ran to its end on the card in {time.perf_counter() - t0:.2f} s; "
+                  f"kernels={n.delta}", flush=True)
+    return out
+
+
 # ---------------------------------------------------------------- sharded render
 
 #: the sharded render's bars, the JAX package's (tests/test_sharded.py:40,
@@ -3574,29 +3763,44 @@ def main() -> int:
     os.chdir(ROOT)
 
     t_start = time.perf_counter()
-    env = phase_environment(torch)
-    phase_build()
-    phase_kernel_vs_plain()
-    phase_cascade_small(torch)
-    linear, headline_xla = phase_headline(torch)
-    auto = phase_automation(torch)
-    effects = phase_effects(torch)
-    interp = phase_interpolation(torch)
-    dense = phase_gather_small(torch)
-    generic = phase_generic(torch)
-    long = phase_long(torch)
-    phase_routed_small(torch)
-    routed = phase_routed(torch)
-    midi = phase_midi(torch)
-    stems_eq, stems_generic = phase_stems(torch)
-    bus_stems = phase_bus_stems(torch)
-    loud = phase_loudness(torch)
-    phase_stretch(torch)
-    phase_peaks(torch)
-    cached, cached_auto = phase_cached(torch)
-    preview = phase_preview(torch)
-    stream = phase_stream(torch)
-    sharded = phase_sharded(torch)
+
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"[phase] {fn.__name__.removeprefix('phase_')} {time.perf_counter() - t0:.1f} s", flush=True)
+        return out
+
+    env = timed(phase_environment, torch)
+    timed(phase_build)
+    timed(phase_kernel_vs_plain)
+    timed(phase_cascade_small, torch)
+    linear, headline_xla = timed(phase_headline, torch)
+    auto = timed(phase_automation, torch)
+    effects = timed(phase_effects, torch)
+    interp = timed(phase_interpolation, torch)
+    run_all = timed(phase_run_all, torch)
+    dense = timed(phase_gather_small, torch)
+    generic = timed(phase_generic, torch)
+    long = timed(phase_long, torch)
+    timed(phase_routed_small, torch)
+    routed = timed(phase_routed, torch)
+    midi = timed(phase_midi, torch)
+    stems_eq, stems_generic = timed(phase_stems, torch)
+    bus_stems = timed(phase_bus_stems, torch)
+    loud = timed(phase_loudness, torch)
+    timed(phase_stretch, torch)
+    timed(phase_peaks, torch)
+    cached, cached_auto = timed(phase_cached, torch)
+    preview = timed(phase_preview, torch)
+    stream = timed(phase_stream, torch)
+    checks = timed(phase_verify, torch)
+    examples = timed(phase_examples, torch)
+    sharded = timed(phase_sharded, torch)
+    # launches of each verify check and example, by counter
+    fx_launches = {**{f"verify_{k}": v for k, v in checks.items()}, **examples}
+
+    def launched(counter):
+        return {k: v[counter] for k, v in fx_launches.items() if v.get(counter)}
     check("jax" not in sys.modules and "whitebox_tpu" not in sys.modules,
           "the port loaded jax or the JAX package")
     print(f"[total] chip_smoke wall time {time.perf_counter() - t_start:.1f} s (limit 1200 s)")
@@ -3609,11 +3813,14 @@ def main() -> int:
                            "loudness_headline": loud["mix_launches"],
                            "cached_headline": cached["launches_per_render"],
                            "preview_32trk": preview["mix_launches"]["mix"],
-                           "stream_takes_128trk": stream["mix_launches"]["mix"]}},
+                           "stream_takes_128trk": stream["mix_launches"]["mix"],
+                           **{k: run_all[k][1] for k in ("config1_8trk", "config3_linear_128trk",
+                                                         "reverse_bidir_128trk")},
+                           **launched("mix")}},
         {"name": "mix_automation", "route": "cuda", "source": src,
          "replaces": "whitebox_tpu/ops/mix_pallas.py:384-460", **auto,
          "cell_launches": {"cached_automation_tempo_128trk": cached_auto["launches_per_render"],
-                           "preview_32trk": preview["mix_launches"]["auto"]}},
+                           "preview_32trk": preview["mix_launches"]["auto"], **launched("mix_auto")}},
         {"name": "mix_per_track", "route": "cuda", "source": src,
          "replaces": "whitebox_tpu/ops/mix_pallas.py:431-436,581-593,608-610", **effects["mix_per_track"],
          "cell_launches": {"generic_fx_128trk": generic["k4_launches"],
@@ -3626,13 +3833,16 @@ def main() -> int:
                            "midi_synth_128trk_xla": midi["xla_launches"]["per_track"],
                            "stems_eq_128trk": stems_eq["k4_launches"],
                            "stems_generic_128trk": stems_generic["k4_launches"],
-                           "bus_stems_routed_128trk": bus_stems["k4_launches"]}},
+                           "bus_stems_routed_128trk": bus_stems["k4_launches"], **launched("mix_per_track")}},
         {"name": "mix_catmull", "route": "cuda", "source": src,
          "replaces": "whitebox_tpu/ops/mix_pallas.py:518-519,557-563", **interp["mix_catmull"]},
         {"name": "mix_poly", "route": "cuda", "source": src,
-         "replaces": "whitebox_tpu/ops/mix_pallas.py:515-517,549-556", **interp["mix_poly"]},
+         "replaces": "whitebox_tpu/ops/mix_pallas.py:515-517,549-556", **interp["mix_poly"],
+         "cell_launches": launched("interp_poly")},
         {"name": "mix_prerendered", "route": "cuda", "source": src,
-         "replaces": "whitebox_tpu/timeline/prerender.py:737-752,818-828", **interp["mix_prerendered"]},
+         "replaces": "whitebox_tpu/timeline/prerender.py:737-752,818-828", **interp["mix_prerendered"],
+         # the sinc checks mix over a prerendered pool extension
+         "cell_launches": {k: v for k, v in launched("mix").items() if k.startswith("verify_sinc")}},
         {"name": "biquad_cascade", "route": "cuda", "source": "whitebox_tpu_torch/csrc/biquad_cascade.cu",
          "replaces": "whitebox_tpu/render/effects_pipeline.py:104-120 (finish_mix's scan cascade; "
                      "an XLA scan there and torch ops in the port, not a TPU kernel)",
@@ -3646,7 +3856,7 @@ def main() -> int:
                            "loudness_headline": loud["cascade_launches"],
                            "preview_32trk": preview["cascade_launches"],
                            "stream_takes_eq_128trk": stream["eq_cascade_launches"],
-                           **sharded["cell_launches"]}},
+                           **sharded["cell_launches"], **launched("biquad_cascade")}},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["device"],
                                              "count": env["device_count"]}}))

@@ -38,7 +38,8 @@ bit-equal to ``bounce``, the pool kept across a gain edit), the preview
 the CPU's preview) and the streamed bounce (bit-equal to the card's
 gather bounce; with EQ chains within 1e-5); the sharded render on a world
 of one over NCCL (bit-equal plain, chains within atol 3e-6 / rtol 1e-4,
-the cascade kernel launched) and on two ranks sharing the card over gloo.
+the cascade kernel launched) and on two ranks sharing the card over gloo;
+the eleven feature checks of ``whitebox_tpu_torch/tools/verify.py``.
 """
 
 import importlib
@@ -609,3 +610,11 @@ def test_sharded_two_ranks_share_the_card(card):
     ref = bounce(chained, 48000.0, device=card, engine="xla").audio
     for r in res[1:]:
         np.testing.assert_allclose(r[1], ref, atol=3e-6, rtol=1e-4)
+
+
+def test_verify_checks_pass_on_the_card(card):
+    """The eleven feature checks (``tools/verify.py``) on the card at the
+    JAX package's bars, each requiring its mix-kernel and cascade launches."""
+    from whitebox_tpu_torch.tools import verify
+
+    assert verify.main(["--device", "cuda"]) == 0

@@ -331,7 +331,8 @@ def _imports_of(path: Path):
             yield node.module
 
 
-_PORT_FILES = sorted((REPO / "whitebox_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+_PORT_FILES = (sorted((REPO / "whitebox_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+               + sorted((REPO / "examples").glob("torch_*.py")))
 _IMPORT_ALL = ("import importlib, pkgutil, sys, whitebox_tpu_torch\n"
                "for m in pkgutil.walk_packages(whitebox_tpu_torch.__path__, 'whitebox_tpu_torch.'):\n"
                "    importlib.import_module(m.name)\n"
@@ -372,15 +373,16 @@ _BOUNCE_SINC = (
     "    assert (res.stats.prerender_seconds > 0) == (kw == {'interpolation': 'sinc'})\n")
 
 
-_BANNED = {"jax": ("jax", "jaxlib"), "whitebox_tpu": ("whitebox_tpu",)}
+_BANNED = {"jax": ("jax", "jaxlib"), "whitebox_tpu": ("whitebox_tpu",), "tests": ("tests",)}
 
 
-@pytest.mark.parametrize("case", ["sources_jax", "sources_whitebox_tpu", "modules_import",
+@pytest.mark.parametrize("case", ["sources_jax", "sources_whitebox_tpu", "sources_tests", "modules_import",
                                   "modules_after_automated_bounce", "modules_after_eq_bounce",
                                   "modules_after_sinc_bounce"])
 def test_port_import_guard(case):
-    """The port stands alone: no source of ``whitebox_tpu_torch/`` or
-    ``chip_smoke.py`` imports JAX or the JAX package (by AST), and neither
+    """The port stands alone: no source of ``whitebox_tpu_torch/``,
+    ``chip_smoke.py`` or ``examples/torch_*.py`` imports JAX, the JAX
+    package or a module of the test suite (by AST), and neither
     is loaded after importing every module or after a CPU bounce of an
     automated session, of an EQ session in both effects modes, or of a
     resampled session in the sinc (prerendered and oversampled) and

@@ -136,6 +136,30 @@ def test_default_device_is_the_card():
         pl.measure_loudness(program(), RATE)
 
 
+@pytest.mark.parametrize("name", ["program_stereo", "sine_997_-23"])
+def test_device_false_is_the_jax_host_path(name):
+    """The JAX package's ``device=False`` means the host f64 path on the
+    port too: each reading within 1e-6 LU / dB of the JAX package's."""
+    got = pl.measure_loudness(SIGNALS[name](), RATE, device=False).as_dict()
+    want = jax_reference(name).as_dict()  # the JAX package's device=False
+    assert got.keys() == want.keys()
+    for k in got:
+        assert (got[k] is None) == (want[k] is None), k
+        if got[k] is not None:
+            assert abs(got[k] - want[k]) <= 1e-6, (k, got[k], want[k])
+
+
+def test_device_true_is_the_card():
+    """``device=True`` (the JAX package's device path) is the card: without
+    CUDA it raises, as ``None`` does; it never runs on the CPU."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("this checks the refusal off the card")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pl.measure_loudness(program(), RATE, device=True)
+
+
 # ------------------------------------------------------------------ bounce
 
 

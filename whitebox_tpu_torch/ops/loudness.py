@@ -159,12 +159,18 @@ def measure_loudness(audio: np.ndarray, sample_rate: float, *, device=None) -> L
     ``device`` (default: the CUDA card; ``"cpu"`` runs the same torch ops
     with the cascade's plain version).
 
+    The JAX package's booleans mean what they mean there: ``device=False``
+    is the host f64 path (:func:`measure_loudness_reference`), and
+    ``device=True`` the card, as ``None`` (it raises without CUDA).
+
     The whole ``[C, F]`` goes through the cascade in one call (a short
     batch is launch-bound, so it is not cut into chunks); the per-hop power
     sums of the K-weighted signal come back in f64; the true peak is the
     largest magnitude of the four interpolator phases (one rFFT of the
     signal, four spectral products), floored at the sample peak."""
-    dev = resolve_device(device)
+    if device is False:
+        return measure_loudness_reference(audio, sample_rate)
+    dev = resolve_device(None if device is True else device)
     audio = np.atleast_2d(np.asarray(audio))
     C, F = audio.shape
     fs = float(sample_rate)
