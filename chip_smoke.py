@@ -63,8 +63,14 @@ no ``.wb`` project. Phases, one or more lines each:
    ``T*K`` of its tile (the host model ``mix_plan.block_slot_mask``); then
    the biquad cascade kernel on small rows (EQ bands, the 25 Hz highpass,
    FIR, gain and identity rows, a state handed over between two calls, a
-   six-section chain, a row shorter than a block) within relative RMS 5e-6
-   per row of its plain version, identity rows exact;
+   six-section chain, a row shorter than a block, an unaligned row view,
+   40 rows of 25 tiles each) within relative RMS 5e-6 per row of its plain
+   version, identity rows exact, each call's time printed; then the
+   dynamics kernel (the compressor's, limiter's and gate's release and
+   attack, the RMS detector's one-pole) on 1, 2, 7 and 256 rows, frames
+   fewer than a block and not a multiple of one, per-frame coefficients,
+   states over two calls, the gate's floor, within relative RMS 5e-6 per
+   row of its plain version (the Hillis scans) and the host model;
 4. headline and headline_resampled: ``bounce(device="cuda")`` of the
    128-track session with the launch counts reset just before, bit-equal
    to the NumPy segment reference; then 5 warm carve+plan+upload+kernel
@@ -117,7 +123,9 @@ no ``.wb`` project. Phases, one or more lines each:
    relative RMS 1e-5 of the same finisher on the CPU and 5e-5 (2e-4 with
    lanes) of the f64 ``reference_generic_finish``;
 10. generic_fx_128trk (config 6's chains on the flat mix): one K4 launch,
-    the cascade kernel for the static EQ stages; the finisher's first 10 s
+    the cascade kernel for the static EQ stages, the dynamics kernel for
+    the compressors (held to its plain version at the first compressor
+    group's full width, timed with its bound); the finisher's first 10 s
     against the CPU's, one track per signature and the master over 2 s
     against the f64 chains; 5 warm iterations, the device time per stage
     kind from a ``torch.profiler`` trace of the shipped finisher (its
@@ -134,7 +142,7 @@ no ``.wb`` project. Phases, one or more lines each:
     launch, the gather path none;
 13. routed_sidechain_128trk (the JAX package's config 6 exactly: 8 group
     buses, a sidechain duck, sends, a master limiter): one K4 launch,
-    then the routed finisher; its first 10 s against the CPU's (1e-5),
+    then the routed finisher (the cascade and dynamics kernels launched); its first 10 s against the CPU's (1e-5),
     its first 2 s against the f64 reference (5e-5), ``engine="xla"`` (no
     mix-kernel launch, within 1e-6 of the K4 path at equal chunks); 5
     warm iterations, the stages by ``torch.profiler`` (``wb.route.matmul``,
@@ -356,9 +364,10 @@ def slow_frames(table, n):
 
 
 def reset_launches() -> None:
-    from whitebox_tpu_torch.ops import biquad_cuda, mix_cuda
+    from whitebox_tpu_torch.ops import biquad_cuda, dynamics_cuda, mix_cuda
 
     biquad_cuda.biquad_cascade_launches = 0
+    dynamics_cuda.dynamics_scan_launches = 0
     mix_cuda.mix_kernel_launches = 0
     mix_cuda.mix_auto_launches = 0
     mix_cuda.mix_per_track_launches = 0
@@ -1335,18 +1344,24 @@ def cascade_vs_plain(name, torch, x, coeffs, states, pieces=(None,), host_model=
     ``pieces`` splits it at, each handing its states to the next) against
     the plain version in one call: relative RMS per row, states out; with
     ``host_model``, also against the torch model of the blocked recurrence
-    (the same f32 operations in the same order). -> (max row rel RMS, max abs)"""
+    (the same f32 operations in the same order). Prints the kernel's time
+    for the calls (CUDA events, median of 5). -> (max row rel RMS, max abs)"""
     from whitebox_tpu_torch.ops import biquad_cuda
 
     before = biquad_cuda.biquad_cascade_launches
     edges = [0, *[p for p in pieces if p is not None], x.shape[1]]
-    ys, st = [], states
-    for a, b in zip(edges, edges[1:]):
-        y, st = biquad_cuda.biquad_cascade(x[:, a:b], coeffs, st)
-        ys.append(y)
+
+    def calls():
+        ys, st = [], states
+        for a, b in zip(edges, edges[1:]):
+            y, st = biquad_cuda.biquad_cascade(x[:, a:b], coeffs, st)
+            ys.append(y)
+        return ys, st
+    ys, st = calls()
     got = torch.cat(ys, dim=1)
     check(biquad_cuda.biquad_cascade_launches == before + len(edges) - 1,
           f"{name}: the cascade kernel did not launch")
+    ms, _ = _event_ms(torch, calls, 5)
     ref, ref_st = biquad_cuda.biquad_cascade_reference(x, coeffs, states)
     torch.cuda.synchronize()
     rr = row_rel_rms(got, ref)
@@ -1358,12 +1373,12 @@ def cascade_vs_plain(name, torch, x, coeffs, states, pieces=(None,), host_model=
     check(st_err <= 1e-4 * scale + 1e-6, f"{name}: states out {st_err:.3g} off the plain scan's")
     note = ""
     if host_model:
-        model, _ = biquad_cuda.biquad_cascade_blocked(x.cpu(), coeffs.cpu(), [q.cpu() for q in states],
-                                                      biquad_cuda.BLOCK_FRAMES)
+        model, _ = biquad_cuda.biquad_cascade_blocked(x.cpu(), coeffs.cpu(), [q.cpu() for q in states])
         note = f"; vs the host model of the blocked recurrence max abs {float((got.cpu() - model).abs().max()):.3g}"
+    l = biquad_cuda.block_frames(*x.shape)
     print(f"[cascade-vs-plain] {name}: rows={x.shape[0]} frames={x.shape[1]} sections={coeffs.shape[1]} "
-          f"calls={len(edges) - 1} max row relative RMS {rr.max():.3g} (< {CASCADE_REL_RMS}), max abs "
-          f"{max_abs:.3g}, states out {st_err:.3g}{note}")
+          f"calls={len(edges) - 1} sub-block {l} max row relative RMS {rr.max():.3g} (< {CASCADE_REL_RMS}), "
+          f"max abs {max_abs:.3g}, states out {st_err:.3g}{note}; kernel {ms:.4f} ms")
     return float(rr.max()), max_abs
 
 
@@ -1398,6 +1413,166 @@ def phase_cascade_small(torch) -> None:
     six = torch.from_numpy(cascade_rows([c + c[::-1] for c in chains])).cuda()
     cascade_vs_plain("six_sections_two_groups", torch, x, six, zero * 2)
     cascade_vs_plain("shorter_than_a_block", torch, x[:, :700].contiguous(), coeffs, carried)
+    # an unaligned row-strided view (4-byte copies in, 4-byte stores out: 49,999 frames)
+    cascade_vs_plain("unaligned_view", torch, x[:, 1:], coeffs, carried, host_model=True)
+    # 40 rows take 128-frame sub-blocks: 25 tiles a row, the look-back over them
+    many = torch.from_numpy(cascade_rows(chains * 8)).cuda()
+    x40 = torch.from_numpy((rng.standard_normal((40, 100000)) * 0.3).astype(np.float32)).cuda()
+    st40 = [torch.from_numpy(rng.standard_normal((40, 2)).astype(np.float32) * 0.1).cuda() for _ in range(3)]
+    cascade_vs_plain("forty_rows_many_tiles", torch, x40, many, st40, pieces=(61440,), host_model=True)
+
+
+#: the dynamics kernel against the f64 oracle (``dynamics_cuda.ballistics_f64``:
+#: the plain scans in f64), relative RMS per row (the cascade's bar); against
+#: its plain version (the f32 Hillis scans) this plus the plain version's own
+#: distance from the oracle, which reaches ~6e-6 over a 2^18-frame chunk
+DYNAMICS_REL_RMS = 5e-6
+
+
+def dynamics_bound(B: int, F: int, framewise: int, max_decay: bool = True) -> dict:
+    """The dynamics kernel's least time on ``[B, F]``: v read and y written
+    once (4 B a frame each, 4 B more per frame-wise coefficient row), its
+    f32 operations (``OPS_PER_FRAME`` a frame; the one-pole alone 4)."""
+    from whitebox_tpu_torch.ops.dynamics_cuda import OPS_PER_FRAME
+
+    return least_ms(B * F * 4 * (2 + framewise), B * F * (OPS_PER_FRAME if max_decay else 4))
+
+
+def dynamics_vs_plain(name, torch, v, rho, a, e0, y0, floor=None, pieces=(None,), onepole=False,
+                      host_model=False, time_it=True) -> dict:
+    """The dynamics kernel on ``v`` [B, F] (in calls over the frame ranges
+    ``pieces`` splits it at, each handing its states to the next) against
+    the f64 oracle (the plain scans in f64, one call) within
+    :data:`DYNAMICS_REL_RMS` relative RMS per row, its states out within
+    5e-6 of the oracle's scale; against the plain version (the f32 Hillis
+    scans, one call) within that bar plus the plain version's own distance
+    from the oracle, row by row (all three printed); with ``host_model``,
+    the largest difference from the torch model of the kernel's blocks and
+    carries on the host; the kernel's time (CUDA events, median of 20), its
+    plain version's and its bound. ``onepole``: the RMS detector's one-pole
+    alone over v."""
+    from whitebox_tpu_torch.ops import dynamics_cuda as dc
+
+    def coef_frames(c, F):
+        return F if (torch.is_tensor(c) and c.dim() and c.shape[-1] == F and F > 1) else None
+
+    before = dc.dynamics_scan_launches
+    F = v.shape[-1]
+    edges = [0, *[p for p in pieces if p is not None], F]
+
+    def part(c, a0, b0):
+        return c[..., a0:b0] if coef_frames(c, F) else c
+
+    def calls():
+        ys, es, yl = [], e0, y0
+        for a0, b0 in zip(edges, edges[1:]):
+            if onepole:
+                y, yl = dc.onepole(v[..., a0:b0], part(a, a0, b0), yl)
+            else:
+                fl = None if floor is None else part(floor, a0, b0)
+                y, es, yl = dc.ballistics(v[..., a0:b0], part(rho, a0, b0), part(a, a0, b0), es, yl, fl)
+            ys.append(y)
+        return torch.cat(ys, dim=-1), es, yl
+    got, e_last, y_last = calls()
+    check(dc.dynamics_scan_launches == before + len(edges) - 1, f"{name}: the dynamics kernel did not launch")
+    plain = dc.onepole_reference(v, a, y0)[0] if onepole else dc.ballistics_reference(v, rho, a, e0, y0, floor)[0]
+    ref, ref_e, ref_y = dc.ballistics_f64(v, rho, a, 0.0 if onepole else e0, y0, floor, max_decay=not onepole)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()) and got.shape == v.shape, f"{name}: output {tuple(got.shape)}")
+    rows2 = (-1, F)
+    rr = row_rel_rms(got.reshape(rows2), ref.reshape(rows2))
+    rr_plain = row_rel_rms(got.reshape(rows2), plain.reshape(rows2))
+    rr_plain_f64 = row_rel_rms(plain.reshape(rows2), ref.reshape(rows2))
+    max_abs = float((got - plain).abs().max())
+    check(bool((rr < DYNAMICS_REL_RMS).all()), f"{name}: dynamics kernel rows {rr.max():.3g} relative RMS off "
+          f"the f64 oracle (bar {DYNAMICS_REL_RMS})")
+    check(bool((rr_plain <= rr_plain_f64 + DYNAMICS_REL_RMS).all()),
+          f"{name}: dynamics kernel rows {rr_plain.max():.3g} relative RMS off the plain scans, which are "
+          f"{rr_plain_f64.max():.3g} off the f64 oracle (bar {DYNAMICS_REL_RMS} + that)")
+    pairs = [(y_last, ref_y)] + ([] if onepole else [(e_last, ref_e)])
+    st_err = max(float((g.double() - r).abs().max()) for g, r in pairs)
+    scale = max(float(r.abs().max()) for _, r in pairs)
+    check(st_err <= DYNAMICS_REL_RMS * scale + 1e-6, f"{name}: states out {st_err:.3g} off the f64 oracle's")
+    out = {"rows": int(v.numel() // F), "frames": F, "calls": len(edges) - 1,
+           "max_row_rel_rms_vs_f64": float(rr.max()), "max_row_rel_rms_vs_plain": float(rr_plain.max()),
+           "plain_max_row_rel_rms_vs_f64": float(rr_plain_f64.max()), "max_abs_err": max_abs,
+           "states_err_vs_f64": st_err}
+    if host_model:
+        v2 = v.reshape(-1, F).cpu()
+
+        def rows(c):
+            t = torch.as_tensor(c, dtype=torch.float32, device=v.device)
+            return torch.broadcast_to(t, v.shape[:-1] + (t.shape[-1] if coef_frames(c, F) else 1,)) \
+                .reshape(v2.shape[0], -1).cpu()
+        def state(c):
+            return torch.as_tensor(c, dtype=torch.float32, device=v.device).reshape(-1).cpu()
+        model = dc.ballistics_blocked(v2, None if onepole else rows(rho), rows(a), state(0.0 if onepole else e0),
+                                      state(y0), None if floor is None else rows(floor), dc.BLOCK_FRAMES,
+                                      max_decay=not onepole)[0]
+        out["vs_host_model_max_abs"] = float((got.reshape(-1, F).cpu() - model).abs().max())
+    if time_it:
+        framewise = sum(1 for c in ((a,) if onepole else (rho, a, floor)) if c is not None and coef_frames(c, F))
+        out["ms"], _ = _event_ms(torch, calls, 20)
+        # the kernels' own device time (the events above hold the wrapper's host work too)
+        out["device_ms"] = card_busy_ms(torch, calls)[0]
+        plain = (lambda: dc.onepole_reference(v, a, y0)) if onepole else \
+            (lambda: dc.ballistics_reference(v, rho, a, e0, y0, floor))
+        out["plain_ms"], _ = _event_ms(torch, plain, 3)
+        out.update(dynamics_bound(out["rows"], F, framewise, not onepole))
+    print(f"[dynamics-vs-plain] {name}: " + json.dumps(out))
+    return out
+
+
+def phase_dynamics_small(torch) -> None:
+    """The dynamics kernel against its plain version (the Hillis scans) on
+    1, 2, 7 and 256 rows: frames fewer than a block and not a multiple of
+    one, per-row and per-frame coefficients (automation lanes), states
+    handed over between two calls, the gate's floor, the RMS detector's
+    one-pole; relative RMS 5e-6 per row, the states out, and on the small
+    cases the host model of the kernel's blocks and carries."""
+    import numpy as np
+
+    from whitebox_tpu_torch.ops import dynamics_cuda as dc
+
+    rng = np.random.default_rng(41)
+    dev = torch.device("cuda")
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    def target(B, F):  # gain reductions in dB: runs of over-threshold levels, zeros between
+        env = np.abs(rng.standard_normal((B, F))) * 6.0 * (rng.random((B, F)) < 0.3)
+        return t(env)
+
+    def coefs(B, lo, hi):
+        return t(rng.uniform(lo, hi, (B, 1)))
+
+    L = dc.BLOCK_FRAMES
+    cases = [("one_row_short", 1, 700), ("two_rows_ragged", 2, 5 * L + 333), ("seven_rows", 7, 3 * L),
+             ("rows_256", 256, 1 << 18)]
+    for name, B, F in cases:
+        v = target(B, F)
+        e0, y0 = t(rng.uniform(0, 3, B)), t(rng.uniform(0, 3, B))
+        dynamics_vs_plain(name, torch, v, coefs(B, 0.99, 0.99999), coefs(B, 0.9, 0.9999), e0, y0,
+                          host_model=B <= 7, time_it=B == 256)
+    B, F = 7, 4 * L + 77
+    v = target(B, F)
+    lanes = (t(rng.uniform(0.995, 0.99999, (B, F))), t(rng.uniform(0.95, 0.9999, (B, F))))
+    zeros = torch.zeros(B, device=dev)
+    dynamics_vs_plain("per_frame_coefficients", torch, v, *lanes, zeros, zeros, host_model=True, time_it=False)
+    dynamics_vs_plain("states_over_two_calls", torch, v, *lanes, t(rng.uniform(0, 3, B)), t(rng.uniform(0, 3, B)),
+                      pieces=(L + 500,), host_model=True, time_it=False)
+    gate = t(np.clip(rng.random((B, F)) * 1.3, 0.05, 1.0))
+    floor = coefs(B, 0.05, 0.3)
+    dynamics_vs_plain("gate_floor", torch, gate, coefs(B, 0.999, 0.9999), coefs(B, 0.9, 0.999), zeros, zeros,
+                      floor=floor, pieces=(2 * L,), host_model=True, time_it=False)
+    dynamics_vs_plain("gate_floor_per_frame", torch, gate, coefs(B, 0.999, 0.9999), lanes[1], zeros, zeros,
+                      floor=t(rng.uniform(0.05, 0.3, (B, F))), host_model=True, time_it=False)
+    power = t(rng.standard_normal((B, F)) ** 2)
+    dynamics_vs_plain("rms_detector_onepole", torch, power, None, coefs(B, 0.99, 0.9999), None,
+                      t(rng.uniform(0, 1, B)), pieces=(3000,), onepole=True, host_model=True, time_it=False)
+    # leading batch dims as the generic finisher passes them (rows of a group), and a 1-D row
+    dynamics_vs_plain("one_dimensional_row", torch, v[0], 0.9995, 0.99, 0.5, 0.25, time_it=False)
 
 
 def phase_effects(torch) -> dict:
@@ -2030,7 +2205,7 @@ def generic_kind_vs_cpu_and_f64(torch, name, chain, lanes, frames=16 * 512, chun
     import numpy as np
 
     from whitebox_tpu_torch.effects import EffectChain
-    from whitebox_tpu_torch.ops import biquad_cuda
+    from whitebox_tpu_torch.ops import biquad_cuda, dynamics_cuda
     from whitebox_tpu_torch.ops.automation import TrackAutomation
     from whitebox_tpu_torch.render import effects_generic as gen
     from whitebox_tpu_torch.render.effects_pipeline import prepare_automation_tables
@@ -2048,13 +2223,14 @@ def generic_kind_vs_cpu_and_f64(torch, name, chain, lanes, frames=16 * 512, chun
     tg = np.array([[np.float32(t.volume_linear * np.float32(t.pan_coeffs[c])) for c in range(2)]
                    for t in s.tracks], np.float32)
     outs = {}
-    before = biquad_cuda.biquad_cascade_launches
+    before, dyn_before = biquad_cuda.biquad_cascade_launches, dynamics_cuda.dynamics_scan_launches
     for dev in ("cuda", "cpu"):
         fx = gen.prepare_generic_fx(s, RATE)
         fin = gen.make_generic_finisher(fx, 3, 2, chunk=chunk, device=dev)
         outs[dev] = fin(torch.from_numpy(pt).to(dev), torch.from_numpy(tg).to(dev),
                         prepare_automation_tables(s, RATE, device=dev)).cpu().numpy()
     cascades = biquad_cuda.biquad_cascade_launches - before
+    dynamics = dynamics_cuda.dynamics_scan_launches - dyn_before
     ref = gen.reference_generic_finish(pt, s, RATE)
     rr_cpu, rr_f64 = rel_rms(outs["cuda"], outs["cpu"]), rel_rms(outs["cuda"], ref)
     bar = LANES_F64_REL_RMS if lanes else GENERIC_F64_REL_RMS
@@ -2064,9 +2240,12 @@ def generic_kind_vs_cpu_and_f64(torch, name, chain, lanes, frames=16 * 512, chun
     static_iir = any(type(e).__name__ in ("Biquad", "ParametricEQ") for e in chain) and not lanes
     check(cascades > 0 if static_iir else cascades == 0,
           f"{name}: {cascades} cascade launches for its static biquad stages")
+    has_dynamics = any(type(e).__name__ in ("Compressor", "Limiter", "NoiseGate") for e in chain)
+    check(dynamics > 0 if has_dynamics else dynamics == 0,
+          f"{name}: {dynamics} dynamics kernel launches for its dynamics stages")
     print(f"[generic-small] {name}: finisher on the card vs CPU relative RMS {rr_cpu:.3g} "
           f"(< {GENERIC_REL_RMS}), vs f64 reference {rr_f64:.3g} (< {bar}); cascade kernel launches "
-          f"{cascades}")
+          f"{cascades}, dynamics kernel launches {dynamics}")
     return float(np.abs(outs["cuda"] - outs["cpu"]).max())
 
 
@@ -2149,7 +2328,8 @@ def phase_generic(torch) -> dict:
     sweep."""
     import numpy as np
 
-    from whitebox_tpu_torch.ops import biquad_cuda, mix_cuda
+    from whitebox_tpu_torch.ops import biquad_cuda, dynamics_cuda, mix_cuda
+    from whitebox_tpu_torch.ops import dynamics as dyn
     from whitebox_tpu_torch.render import effects_generic as gen
     from whitebox_tpu_torch.render.bounce import _effects_finisher, bounce
     from whitebox_tpu_torch.render.effects_pipeline import _chains_of
@@ -2165,14 +2345,16 @@ def phase_generic(torch) -> dict:
     res = bounce(session, RATE, device="cuda")
     bounce_peak = torch.cuda.max_memory_allocated() / 1e9
     k4, casc = mix_cuda.mix_per_track_launches, biquad_cuda.biquad_cascade_launches
+    dyn_launches = dynamics_cuda.dynamics_scan_launches
     check(k4 == 1 and mix_cuda.mix_kernel_launches == 0 and mix_cuda.mix_auto_launches == 0,
           f"{name}: mix launches {mix_launches()} (want one K4)")
     check(casc > 0, f"{name}: the static EQ and highpass stages never ran the cascade kernel")
+    check(dyn_launches > 0, f"{name}: the compressor stages never ran the dynamics kernel")
     check(res.stats.mix_path == "kernel" and np.isfinite(res.audio).all()
           and float(np.abs(res.audio).max()) > 0.01, f"{name}: output")
     print(f"[{name}] bounce(device='cuda'): {res.stats.summary()}; finisher "
           f"{res.stats.finish_seconds * 1e3:.3f} ms; K4 launches={k4}; cascade kernel launches={casc}; "
-          f"peak memory {bounce_peak:.2f} GB")
+          f"dynamics kernel launches={dyn_launches}; peak memory {bounce_peak:.2f} GB")
 
     table, pool = carve_session(session, RATE, buffer_size=512, slow_emit="runs")
     warm = mix_cuda.CudaMixRenderer(table, pool, session, device="cuda")
@@ -2183,6 +2365,18 @@ def phase_generic(torch) -> dict:
     fx = gen.prepare_generic_fx(session, RATE, C)
     chunk = gen.auto_chunk_frames(fx, device=dev)
     f10, f2 = int(10 * RATE), int(2 * RATE)
+    # the dynamics kernel at full width: the first compressor group's gain
+    # reductions over the finisher's first chunk, against the plain scans
+    gp, _ = gen.device_params(fx, dev)
+    group, prm = next((g, prm) for g, plist in zip(fx.groups, gp)
+                      for (kind, _, _), prm in zip(g.stages, plist) if kind == "compressor")
+    col = {k: v[:, None] for k, v in prm.items() if k != "auto"}
+    lvl = pt[torch.as_tensor(np.asarray(group.track_idx), device=dev), :, :chunk].abs().amax(dim=-2)
+    r_db = dyn.compressor_reduction_db(dyn._level_db(lvl), col["threshold_db"], col["ratio"], col["knee_db"])
+    zrow = torch.zeros(r_db.shape[0], device=dev)
+    dyn_full = dynamics_vs_plain(f"{name}_compressor_full_width", torch, r_db, col["release"], col["attack"],
+                                 zrow, zrow)
+    del lvl, r_db
     t0 = time.perf_counter()
     on_card = gen.make_generic_finisher(fx, T, C, chunk=chunk, device=dev, valid_frames=f10)(
         pt[:, :, :f10], tg).cpu().numpy()
@@ -2244,7 +2438,8 @@ def phase_generic(torch) -> dict:
         "finish_bound_ms": least_ms(fcost.hbm_bytes, fcost.mxu_flops)["bound_ms"],
         "finish_bound_bytes": fcost.hbm_bytes,
         "bounce_peak_mem_gb": bounce_peak, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "k4_launches": k4, "cascade_launches": casc,
+        "k4_launches": k4, "cascade_launches": casc, "dynamics_launches": dyn_launches,
+        "dynamics_full_width": dyn_full,
     }
     print(f"[{name}] " + json.dumps(stats))
     print(f"[{name}] " + sh(["nvidia-smi", "--query-gpu=name,power.limit,power.draw,clocks.sm,"
@@ -2426,7 +2621,7 @@ def phase_routed(torch) -> dict:
     the chunk sweep that chose the card's default."""
     import numpy as np
 
-    from whitebox_tpu_torch.ops import biquad_cuda, mix_cuda
+    from whitebox_tpu_torch.ops import biquad_cuda, dynamics_cuda, mix_cuda
     from whitebox_tpu_torch.render import routing as rt
     from whitebox_tpu_torch.render.bounce import _effects_finisher, bounce
     from whitebox_tpu_torch.render.effects_pipeline import prepare_automation_tables
@@ -2442,13 +2637,16 @@ def phase_routed(torch) -> dict:
     res = bounce(session, RATE, device="cuda")
     bounce_peak = torch.cuda.max_memory_allocated() / 1e9
     k4_launches, casc = mix_launches(), biquad_cuda.biquad_cascade_launches
+    dyn_launches = dynamics_cuda.dynamics_scan_launches
     check(res.stats.mix_path == "kernel" and k4_launches == {"mix": 0, "auto": 0, "per_track": 1},
           f"{name}: path {res.stats.mix_path}, mix launches {k4_launches} (want one K4)")
     check(casc > 0, f"{name}: the EQ buses and the master highpass never ran the cascade kernel")
+    check(dyn_launches > 0, f"{name}: the ducking bus and the master limiter never ran the dynamics kernel")
     check(np.isfinite(res.audio).all() and float(np.abs(res.audio).max()) > 0.01, f"{name}: output")
     print(f"[{name}] bounce(device='cuda'): {res.stats.summary()}; finisher "
           f"{res.stats.finish_seconds * 1e3:.3f} ms; K4 launches={k4_launches['per_track']}; "
-          f"cascade kernel launches={casc}; peak memory {bounce_peak:.2f} GB")
+          f"cascade kernel launches={casc}; dynamics kernel launches={dyn_launches}; "
+          f"peak memory {bounce_peak:.2f} GB")
 
     table, pool = carve_session(session, RATE, buffer_size=512, slow_emit="runs")
     warm = mix_cuda.CudaMixRenderer(table, pool, session, device="cuda")
@@ -2525,7 +2723,7 @@ def phase_routed(torch) -> dict:
         "finish_bound_bytes": cost.hbm_bytes, "chunk_sweep": {str(c): v for c, v in sweep.items()},
         "xla_device_ms": xla.stats.device_seconds * 1e3, "xla_wall_ms": xla.stats.wall_seconds * 1e3,
         "bounce_peak_mem_gb": bounce_peak, "peak_mem_gb": peak,
-        "k4_launches": k4_launches["per_track"], "cascade_launches": casc,
+        "k4_launches": k4_launches["per_track"], "cascade_launches": casc, "dynamics_launches": dyn_launches,
         "xla_launches": xla_launches,
     }
     print(f"[{name}] " + json.dumps(stats))
@@ -2766,7 +2964,7 @@ def stems_cell(torch, name: str, session, kind: str, rows: list) -> dict:
 
     import numpy as np
 
-    from whitebox_tpu_torch.ops import biquad_cuda
+    from whitebox_tpu_torch.ops import biquad_cuda, dynamics_cuda
     from whitebox_tpu_torch.render.bounce import bounce
     from whitebox_tpu_torch.render.effects_pipeline import prepare_automation_tables
     from whitebox_tpu_torch.render.stems import _track_gains, render_stems
@@ -2777,8 +2975,11 @@ def stems_cell(torch, name: str, session, kind: str, rows: list) -> dict:
     stems, names = render_stems(session, RATE, device="cuda")
     peak = torch.cuda.max_memory_allocated() / 1e9
     launches, casc = mix_launches(), biquad_cuda.biquad_cascade_launches
+    dyn_launches = dynamics_cuda.dynamics_scan_launches
     check(launches == {"mix": 0, "auto": 0, "per_track": 1}, f"{name}: mix launches {launches} (want one K4)")
     check(casc > 0, f"{name}: the stems finisher never ran the cascade kernel")
+    check(dyn_launches > 0 if kind == "generic" else dyn_launches == 0,
+          f"{name}: {dyn_launches} dynamics kernel launches (the generic stems' compressors run it)")
     T, C, F = stems.shape
     check(T == len(session.tracks) == len(names) and np.isfinite(stems).all(), f"{name}: stems {stems.shape}")
 
@@ -2799,7 +3000,7 @@ def stems_cell(torch, name: str, session, kind: str, rows: list) -> dict:
     rr = max(rel_rms(stems[t, :, :f10], on_cpu[i]) for i, t in enumerate(rows))
     check(rr < GENERIC_REL_RMS, f"{name}: the stems' first 10 s {rr:.3g} off the CPU's")
     print(f"[{name}] render_stems(device='cuda'): {T} stems x {F} frames; K4 launches=1, cascade kernel "
-          f"launches={casc}, peak memory {peak:.2f} GB; the stems' sum max abs {sum_err:.3g} off the "
+          f"launches={casc}, dynamics kernel launches={dyn_launches}, peak memory {peak:.2f} GB; the stems' sum max abs {sum_err:.3g} off the "
           f"pre-master bounce (<= 5e-5); first 10 s of stems {rows} vs the CPU relative RMS max {rr:.3g} "
           f"(< {GENERIC_REL_RMS}; CPU {cpu_s:.1f} s)")
     del stems, on_cpu
@@ -2816,7 +3017,8 @@ def stems_cell(torch, name: str, session, kind: str, rows: list) -> dict:
              "k4_ms": k4_ms, "stems_finish_ms": fin_ms, "stems_finish_ms_all": fin_all,
              "readback_ms": read_ms, "stems_gb": out.numel() * 4 / 1e9,
              "readback_gb_per_s": out.numel() * 4 / 1e9 / (read_ms / 1e3), **pinned, "peak_mem_gb": peak,
-             "sum_max_abs": sum_err, "cpu_rel_rms_max": rr, "k4_launches": 1, "cascade_launches": casc}
+             "sum_max_abs": sum_err, "cpu_rel_rms_max": rr, "k4_launches": 1, "cascade_launches": casc,
+             "dynamics_launches": dyn_launches}
     print(f"[{name}] " + json.dumps(stats))
     del pt, out
     return stats
@@ -3535,7 +3737,7 @@ def _sharded_run(torch, mesh, name, session, keep_audio=True) -> dict:
     digest (and the audio)."""
     import hashlib
 
-    from whitebox_tpu_torch.ops import biquad_cuda
+    from whitebox_tpu_torch.ops import biquad_cuda, dynamics_cuda
     from whitebox_tpu_torch.parallel import bounce_sharded, collectives
 
     torch.cuda.synchronize()
@@ -3550,7 +3752,8 @@ def _sharded_run(torch, mesh, name, session, keep_audio=True) -> dict:
            "staged_copies": collectives.staging["copies"], "staged_bytes": collectives.staging["bytes"],
            "staged_copy_s": collectives.staging["seconds"],
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-           "cascade_launches": biquad_cuda.biquad_cascade_launches, "mix_launches": mix_launches(),
+           "cascade_launches": biquad_cuda.biquad_cascade_launches,
+           "dynamics_launches": dynamics_cuda.dynamics_scan_launches, "mix_launches": mix_launches(),
            "sha256": hashlib.sha256(audio.tobytes()).hexdigest()}
     if keep_audio:
         rec["audio"] = audio
@@ -3689,7 +3892,7 @@ def phase_sharded(torch) -> dict:
 
     smi = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]).splitlines()[0]
     t_phase = time.perf_counter()
-    refs, launches, out = {}, {}, {}
+    refs, launches, dyn_launches, out = {}, {}, {}, {}
     check(not dist.is_initialized(), "a process group is already initialised")
     mesh = make_render_mesh()
     check(mesh.backend == "nccl" and mesh.shape == {"tracks": 1, "frames": 1} and not mesh.staged,
@@ -3703,7 +3906,9 @@ def phase_sharded(torch) -> dict:
             check(not any(rec["mix_launches"].values()), f"{name} 1x1: the sharded mix launched a mix kernel")
             if name != "headline":
                 check(rec["cascade_launches"] > 0, f"{name} 1x1: the cascade kernel never launched")
+                check(rec["dynamics_launches"] > 0, f"{name} 1x1: the dynamics kernel never launched")
             launches[f"sharded_1x1_{name}"] = rec["cascade_launches"]
+            dyn_launches[f"sharded_1x1_{name}"] = rec["dynamics_launches"]
             rec.pop("audio")
             out[f"1x1:{name}"] = rec
             print(f"[sharded_1x1_{name}] {smi}: bounce_sharded on a world of one (NCCL, 1x1) {note}; "
@@ -3725,12 +3930,15 @@ def phase_sharded(torch) -> dict:
         check(not any(v for r in per_rank for v in r["mix_launches"].values()), f"{cell}: a mix kernel launched")
         if rec["name"] != "headline":
             check(all(r["cascade_launches"] > 0 for r in per_rank), f"{cell}: the cascade kernel never launched")
+            check(all(r["dynamics_launches"] > 0 for r in per_rank), f"{cell}: the dynamics kernel never launched")
         peak = max(r["peak_gb"] for r in per_rank)
         check(peak < total_gb / SHARED_WORLD, f"{cell}: peak {peak:.2f} GB a rank, above a quarter of the card")
         note = _check_sharded(rec, refs[rec["name"]], _sharded_bar(rec["name"], rec["mesh"]))
         launches[cell] = rec["cascade_launches"]
+        dyn_launches[cell] = rec["dynamics_launches"]
         stats = {"ranks": [{k: r[k] for k in ("rank", "wall_s", "staged_copies", "staged_bytes",
-                                              "staged_copy_s", "peak_gb", "cascade_launches")}
+                                              "staged_copy_s", "peak_gb", "cascade_launches",
+                                              "dynamics_launches")}
                            for r in per_rank],
                  "wall_s_max": max(r["wall_s"] for r in per_rank), "peak_gb_max": peak,
                  "card_gb": total_gb}
@@ -3743,7 +3951,7 @@ def phase_sharded(torch) -> dict:
     L = -(-int(refs["headline"].shape[1]) // (SHARED_WORLD * 512)) * 512  # the 1x4 shard
     out["cascade"] = sharded_cascade_vs_plain(torch, L)
     print(f"[sharded] phase {time.perf_counter() - t_phase:.1f} s")
-    return {"cell_launches": launches, **out}
+    return {"cell_launches": launches, "dynamics_cell_launches": dyn_launches, **out}
 
 
 def main() -> int:
@@ -3774,6 +3982,7 @@ def main() -> int:
     timed(phase_build)
     timed(phase_kernel_vs_plain)
     timed(phase_cascade_small, torch)
+    timed(phase_dynamics_small, torch)
     linear, headline_xla = timed(phase_headline, torch)
     auto = timed(phase_automation, torch)
     effects = timed(phase_effects, torch)
@@ -3857,6 +4066,17 @@ def main() -> int:
                            "preview_32trk": preview["cascade_launches"],
                            "stream_takes_eq_128trk": stream["eq_cascade_launches"],
                            **sharded["cell_launches"], **launched("biquad_cascade")}},
+        {"name": "dynamics_scan", "route": "cuda", "source": "whitebox_tpu_torch/csrc/dynamics_scan.cu",
+         "replaces": "whitebox_tpu/ops/dynamics.py:53,79 (onepole_scan_t, maxdecay_scan_t: XLA Hillis scans "
+                     "there, torch ops in the port, not a TPU kernel)",
+         "launches": generic["dynamics_launches"],
+         **{k: generic["dynamics_full_width"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+         # no PyTorch call runs a max-decay or one-pole recurrence
+         "library_ms": None,
+         "cell_launches": {"generic_fx_128trk": generic["dynamics_launches"],
+                           "routed_sidechain_128trk": routed["dynamics_launches"],
+                           "stems_generic_128trk": stems_generic["dynamics_launches"],
+                           **sharded["dynamics_cell_launches"], **launched("dynamics_scan")}},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["device"],
                                              "count": env["device_count"]}}))

@@ -1,16 +1,20 @@
-"""The biquad cascade's blocked recurrence, modelled on the host (CPU).
+"""The biquad cascade's single-pass blocked recurrence, modelled on the host (CPU).
 
 The CUDA kernel ``whitebox_tpu_torch/csrc/biquad_cascade.cu`` runs the
-finisher's section cascade in three phases: blocks of ``L`` frames from a
-zero state (end states ``e_b``), the carry ``s_{b+1} = Phi_L s_b + e_b`` in
-f64, the blocks again from their true starts. ``ops/biquad_cuda.py::
-biquad_cascade_blocked`` is that algorithm in torch. Here, on small rows of
-identity, FIR, real-pole, complex-pole and near-unit-circle sections, with
-ragged last blocks and states carried in and out:
+finisher's section cascade in one pass: sub-blocks of ``l`` frames walked
+from a zero state, a Kogge-Stone scan over each tile's 32 sub-blocks in
+f64 with the powers ``Phi_l^(2^i)``, the tiles' prefixes ``s_{k+1} = Phi_W
+s_k + E_k`` in f64 (the decoupled look-back computes exactly these), each
+sub-block's output corrected by the zero-input response to its start.
+``ops/biquad_cuda.py::biquad_cascade_blocked`` is that algorithm in torch.
+Here, on small rows of identity, FIR, real-pole, complex-pole and
+near-unit-circle sections, with ragged last sub-blocks, many tiles a row
+and states carried in and out:
 
 - the f64 model equals the sequential cascade in f64 on the same
-  parameters to 1e-12 relative, and ``Phi_L`` (one step, then squaring)
-  equals ``L`` single steps;
+  parameters to 1e-12 relative, ``Phi_L`` (one step, then squaring)
+  equals ``L`` single steps, and the kernel's tables (the powers and the
+  zero-input response) equal single steps;
 - the f32 model is within relative RMS 5e-6 per row of the plain version
   ``biquad_cascade_reference`` (the per-section Hillis scan), the bar the
   kernel is held to on the card: both round in f32, in different orders;
@@ -86,8 +90,12 @@ def row_rel_rms(a, b):
     return np.sqrt(((a - b) ** 2).mean(axis=1)) / np.maximum(np.sqrt((b ** 2).mean(axis=1)), 1e-30)
 
 
-@pytest.mark.parametrize("F,L,seed", [(2000, 256, None), (1500, 128, 3), (96, 32, 4)],
-                         ids=["ragged_zero_states", "ragged_carried_states", "three_blocks"])
+# the sub-block lengths here are short, so that a row spans several tiles
+# of 32 sub-blocks: 2000 frames of 8 are 8 tiles, 1500 of 4 twelve, 96 of 1
+# three, 4096 of 16 eight (the last sub-block full)
+@pytest.mark.parametrize("F,L,seed", [(2000, 8, None), (1500, 4, 3), (96, 1, 4), (4096, 16, 5), (33, 64, 6)],
+                         ids=["ragged_zero_states", "ragged_carried_states", "three_blocks", "whole_last_block",
+                              "one_short_block"])
 def test_f64_model_equals_the_sequential_cascade(F, L, seed):
     coeffs = _coeffs()
     x = _x(F).double()
@@ -117,7 +125,7 @@ def test_transition_equals_single_steps():
         bc.cascade_transition(coeffs, 100)
 
 
-@pytest.mark.parametrize("F,L,seed", [(3000, 256, None), (2100, 512, 7)],
+@pytest.mark.parametrize("F,L,seed", [(3000, 16, None), (2100, 32, 7)],
                          ids=["ragged_zero_states", "carried_states"])
 def test_f32_model_is_within_the_kernel_bar_of_the_plain_scan(F, L, seed):
     coeffs = _coeffs()
@@ -139,9 +147,9 @@ def test_states_hand_over_between_model_and_plain_scan():
     coeffs = _coeffs()
     x = _x(4096, seed=8)
     whole, whole_st = bc.biquad_cascade_reference(x, coeffs, _states(3, len(CHAINS)))
-    y1, st = bc.biquad_cascade_blocked(x[:, :1500], coeffs, _states(3, len(CHAINS)), 256)
+    y1, st = bc.biquad_cascade_blocked(x[:, :1500], coeffs, _states(3, len(CHAINS)), 16)
     y2, st = bc.biquad_cascade_reference(x[:, 1500:3000], coeffs, st)
-    y3, st = bc.biquad_cascade_blocked(x[:, 3000:], coeffs, st, 128)
+    y3, st = bc.biquad_cascade_blocked(x[:, 3000:], coeffs, st, 8)
     assert (row_rel_rms(torch.cat([y1, y2, y3], dim=1), whole) < REL_RMS).all()
     for a, b in zip(st, whole_st):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4, atol=1e-6)
@@ -175,6 +183,58 @@ def test_cpu_cascade_is_the_plain_version_and_refuses_bad_arguments():
 def test_kernel_constants_are_the_wrappers():
     src = (Path(bc.__file__).parent.parent / "csrc" / "biquad_cascade.cu").read_text()
     assert int(re.search(r"constexpr int kMaxSections = (\d+);", src)[1]) == bc.MAX_SECTIONS
-    tile = int(re.search(r"constexpr int kTile = (\d+);", src)[1])
-    L = bc.BLOCK_FRAMES
-    assert L % tile == 0 and L & (L - 1) == 0
+    assert int(re.search(r"constexpr int kLanes = (\d+);", src)[1]) == bc.TILE_LANES
+    assert int(re.search(r"constexpr int kPowers = (\d+);", src)[1]) == bc.N_POWERS
+    assert int(re.search(r"constexpr int kMaxBlock = (\d+);", src)[1]) == max(bc.BLOCK_CHOICES)
+    # the entry point takes every sub-block length the wrapper may choose
+    taken = {int(v) for v in re.findall(r"l != (\d+)", src)} | {max(bc.BLOCK_CHOICES)}
+    assert set(bc.BLOCK_CHOICES) <= taken
+    for B, F in ((1, 1), (2, 1 << 20), (15, 2880000), (16, 32768), (256, 1 << 20)):
+        L = bc.block_frames(B, F)
+        assert L in bc.BLOCK_CHOICES and L % 32 == 0 and L & (L - 1) == 0
+
+
+@pytest.mark.parametrize("B,F,want", [(2, 1 << 20, 256), (15, 2880000, 256), (16, 1 << 17, 128),
+                                      (256, 1 << 20, 128)], ids=["master", "few_rows", "window", "tracks"])
+def test_block_length_follows_the_rows(B, F, want):
+    assert bc.block_frames(B, F) == want
+
+
+@pytest.mark.parametrize("l", [1, 4, 32])
+def test_tables_equal_single_steps(l):
+    """``cascade_tables``: the powers ``Phi_l^(2^i)`` and the output's
+    zero-input response to each unit state, frame by frame."""
+    coeffs = _coeffs()
+    B, S = len(CHAINS), 3
+    phis, resp = bc.cascade_tables(coeffs, l, dtype=torch.float64)
+    assert phis.shape == (B, bc.N_POWERS, 2 * S, 2 * S) and resp.shape == (B, l, 8)
+    p = [a.double() for a in coeffs[..., 0].unbind(0)]
+    z = torch.eye(2 * S, dtype=torch.float64).expand(B, 2 * S, 2 * S)
+    zero = torch.zeros((B, 2 * S), dtype=torch.float64)
+    for n in range(l):
+        y, z = bc.cascade_step(p, z, zero)
+        np.testing.assert_allclose(resp[:, n, :2 * S].numpy(), y.numpy(), rtol=1e-10, atol=1e-14)
+    np.testing.assert_allclose(phis[:, 0].numpy(), z.numpy(), rtol=1e-9, atol=1e-13)
+    for i in range(1, bc.N_POWERS):
+        np.testing.assert_allclose(phis[:, i].numpy(), (phis[:, i - 1] @ phis[:, i - 1]).numpy(), rtol=1e-12)
+    assert float(resp[:, :, 2 * S:].abs().max()) == 0.0
+    # the identity row (index 2, companion form): a state reaches its output
+    # for two frames, then none (nilpotent)
+    assert not resp[2, 2:].any()
+
+
+def test_tables_are_computed_once_per_coefficient_tensor():
+    coeffs = _coeffs()
+    bc._TABLES.clear()
+    first = bc._tables(coeffs, 0, 3, 32)
+    again = bc._tables(coeffs, 0, 3, 32)
+    assert all(a is b for a, b in zip(first, again)) and len(bc._TABLES) == 1
+    # another group, another length: their own entries
+    bc._tables(coeffs, 1, 3, 32)
+    bc._tables(coeffs, 0, 3, 64)
+    assert len(bc._TABLES) == 3
+    # an in-place edit of the coefficients is seen
+    coeffs[8, 0, 0, 0] = 0.5
+    edited = bc._tables(coeffs, 0, 3, 32)
+    assert edited[1] is not first[1] and float(edited[0][8, 0, 0]) == 0.5
+    bc._TABLES.clear()

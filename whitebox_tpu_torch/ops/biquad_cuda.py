@@ -1,5 +1,5 @@
 """The effect finisher's biquad cascade on the card: a hand CUDA kernel,
-its plain twin, and the host model of its blocked recurrence.
+its plain twin, and the host model of its single-pass blocked recurrence.
 
 A batch of ``B`` rows (``[T*C, F]`` for the tracks, ``[C, F]`` for the
 master) goes through a cascade of ``S`` biquad sections, each row with its
@@ -11,8 +11,8 @@ the plain scan uses, so a stream may mix the two.
 - :func:`biquad_cascade` launches ``csrc/biquad_cascade.cu`` on a CUDA
   tensor and runs :func:`biquad_cascade_reference` on a CPU tensor; any
   other device, a malformed argument or a refused launch raises. It counts
-  its calls in :data:`biquad_cascade_launches` (three kernel launches per
-  group of at most :data:`MAX_SECTIONS` sections, counted as one).
+  its calls in :data:`biquad_cascade_launches` (one kernel launch per group
+  of at most :data:`MAX_SECTIONS` sections, counted as one).
 - :func:`biquad_cascade_reference` is the finisher's plain torch-op cascade
   (one ``biquad_scan_batched`` per section), as
   ``render/effects_pipeline.py`` ran it before the kernel existed.
@@ -20,10 +20,15 @@ the plain scan uses, so a stream may mix the two.
   transition over ``L`` frames with zero input, in f64 from the f32
   parameters the kernel reads: one step of the unit states
   (:func:`cascade_step`), then ``L`` by repeated squaring.
-- :func:`biquad_cascade_blocked` is the host model of the kernel's three
-  phases in torch (f32 as the kernel runs them, or f64): blocks from a zero
-  state, the carry ``s_{b+1} = Phi_L s_b + e_b`` in f64, the blocks again
-  from their true starts.
+- :func:`cascade_tables` holds what the kernel reads beside the signal:
+  the powers ``Phi_l^(2^i)``, ``i = 0..5``, and the zero-input response of
+  the cascade's output to each unit state over ``l`` frames; computed once
+  per coefficient tensor and sub-block length (:func:`_tables` caches them).
+- :func:`biquad_cascade_blocked` is the host model of the kernel in torch
+  (f32 as the kernel runs it, or f64): sub-blocks of ``l`` frames walked
+  from zero, a Kogge-Stone scan over each tile's 32 sub-blocks in f64, the
+  tiles' prefixes ``s_{k+1} = Phi_W s_k + E_k`` in f64, each sub-block's
+  output corrected by the response to its start.
 
 Not a TPU kernel: the JAX package evaluates the same cascade as an XLA scan
 (``whitebox_tpu/ops/biquad.py::_biquad_scan_eig``). The kernel sums in
@@ -32,6 +37,8 @@ a tolerance (relative RMS 5e-6 per row), not to the bit.
 """
 
 from __future__ import annotations
+
+from collections import OrderedDict
 
 import torch
 
@@ -44,10 +51,23 @@ biquad_cascade_launches = 0
 #: sections one launch holds (``kMaxSections`` in the source); longer chains
 #: run in groups, each group's output the next one's input
 MAX_SECTIONS = 4
-#: frames per block of the blocked recurrence (a power of two >= 32; the
-#: transition is taken over this many frames); chosen by timing 256 to 8192
-#: on config 5's [256, 2^20] chunk (tools/sweep_finisher.py, PERF.md)
-BLOCK_FRAMES = 4096
+#: sub-blocks of a tile: the lanes of a warp (``kLanes`` in the source)
+TILE_LANES = 32
+#: frames of a sub-block the kernel takes (``kMaxBlock`` in the source is
+#: the largest), and the powers of ``Phi_l`` it reads (``kPowers``)
+BLOCK_CHOICES = (32, 64, 128, 256)
+N_POWERS = 6
+#: rows below which a call takes the longest sub-block: a row's tiles
+#: then fold fewer predecessors in the look-back
+FEW_ROWS = 16
+
+
+def block_frames(B: int, F: int) -> int:
+    """The sub-block length ``l`` for a ``[B, F]`` call: 128 frames (a
+    tile of 4,096, three blocks of four warps on an SM), 256 for fewer
+    than :data:`FEW_ROWS` rows, whose few tiles are all resident at once
+    and whose time is the walk plus the look-back over a row's tiles."""
+    return 256 if B < FEW_ROWS else 128
 
 
 def _check(x: torch.Tensor, coeffs: torch.Tensor, states) -> int:
@@ -92,24 +112,27 @@ def biquad_cascade(x: torch.Tensor, coeffs: torch.Tensor, states):
         raise ValueError(f"no biquad cascade for device {x.device}")
     S = _check(x, coeffs, states)
     B, F = x.shape
+    if F < 1:
+        raise ValueError(f"x must hold at least one frame, got {tuple(x.shape)}")
     lib = cuda_build.load()
-    nb = -(-F // BLOCK_FRAMES)
+    l = block_frames(B, F)
+    n_tiles = B * -(-F // (TILE_LANES * l))
     y, new_states = x, []
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         for s0 in range(0, S, MAX_SECTIONS):
             s1 = min(s0 + MAX_SECTIONS, S)
-            group = coeffs[:, s0:s1].contiguous()
-            phi = cascade_transition(group, BLOCK_FRAMES)
+            group, phis, resp = _tables(coeffs, s0, s1, l)
+            D = 2 * (s1 - s0)
             state_in = torch.stack(states[s0:s1]).contiguous()
             state_out = torch.empty_like(state_in)
-            ends = torch.empty((B, nb, 2 * (s1 - s0)), dtype=torch.float32, device=x.device)
-            starts = torch.empty_like(ends)
+            ints = torch.empty(1 + n_tiles, dtype=torch.int32, device=x.device)
+            doubles = torch.empty((2, n_tiles, D), dtype=torch.float64, device=x.device)
             out = torch.empty((B, F), dtype=torch.float32, device=x.device)
             stride = y.stride(0) if B > 1 else F  # a single row's stride is not its layout
-            rc = lib.wb_biquad_cascade(y.data_ptr(), stride, out.data_ptr(), B, F, BLOCK_FRAMES,
-                                       group.data_ptr(), s1 - s0, phi.data_ptr(), state_in.data_ptr(),
-                                       state_out.data_ptr(), ends.data_ptr(), starts.data_ptr(), stream)
+            rc = lib.wb_biquad_cascade(y.data_ptr(), stride, out.data_ptr(), B, F, l, group.data_ptr(), s1 - s0,
+                                       phis.data_ptr(), resp.data_ptr(), state_in.data_ptr(),
+                                       state_out.data_ptr(), ints.data_ptr(), doubles.data_ptr(), stream)
             if rc != 0:
                 raise RuntimeError(f"biquad cascade launch failed: cudaError_t {rc}")
             y = out
@@ -166,57 +189,154 @@ def cascade_transition(coeffs: torch.Tensor, L: int) -> torch.Tensor:
     return phi.contiguous()
 
 
-def biquad_cascade_blocked(x: torch.Tensor, coeffs: torch.Tensor, states, L: int = BLOCK_FRAMES):
-    """Host model of the kernel's blocked recurrence, in torch on ``x``'s
-    device and dtype (f32 as the kernel runs it, or f64): ``x`` ``[B, F]``
-    split into blocks of ``L`` frames (the last one ragged);
+def _matvec(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``M v`` for ``M`` ``[B, D, D]`` and ``v`` ``[B, ..., D]``, each
+    component's products summed in index order (the kernel's order)."""
+    Mb = M.reshape(M.shape[0], *([1] * (v.dim() - 2)), *M.shape[1:])
+    r = Mb[..., :, 0] * v[..., 0:1]
+    for j in range(1, v.shape[-1]):
+        r = r + Mb[..., :, j] * v[..., j:j + 1]
+    return r
 
-    1. every block but a row's last from a zero state -> end states ``e_b``;
-    2. the carry in f64: ``s_0`` = the states in, ``s_{b+1} = Phi_L s_b +
-       e_b`` (each component's products summed in index order, then
-       ``+ e_b``), each start rounded to ``x``'s dtype;
-    3. every block from its start, writing ``y``; the last block's end
-       states are the states out.
 
-    -> ``(y, new states)`` as :func:`biquad_cascade`. All sections run in
-    one group (the kernel's grouping of long chains composes the same)."""
+def cascade_tables(coeffs: torch.Tensor, l: int, dtype=torch.float32):
+    """What the kernel reads beside the signal, on ``coeffs``' device:
+
+    - ``phis`` ``[B, 6, 2S, 2S]`` f64: ``Phi_l^(2^i)`` for ``i = 0..5``
+      (:func:`cascade_transition` over ``l`` frames, then squared; the last
+      is ``Phi_W``, the transition over a tile of ``32 l`` frames);
+    - ``resp`` ``[B, l, DP]`` in ``dtype`` (``DP`` = 4 for ``S <= 2``, else
+      8; columns past ``2S`` are 0): ``resp[n, d]`` is the cascade's output
+      at frame ``n`` of zero input from the unit state ``d`` (one step of
+      the unit states gives the output row ``c`` and the one-frame
+      transition ``A``; then ``c A^n`` by doubling), in f64 before the cast.
+    ``coeffs`` ``[9, S, B, 1]``; ``l`` a power of two."""
+    p = _params(coeffs, torch.float64)
+    S, B = p[0].shape
+    D = 2 * S
+    dev = coeffs.device
+    eye = torch.eye(D, dtype=torch.float64, device=dev).expand(B, D, D)
+    c, A = cascade_step(p, eye, torch.zeros((B, D), dtype=torch.float64, device=dev))
+    phi = cascade_transition(coeffs, l)
+    pows = [phi]
+    for _ in range(N_POWERS - 1):
+        pows.append(pows[-1] @ pows[-1])
+    R, step = c[:, None, :], A
+    while R.shape[1] < l:
+        R = torch.cat([R, R @ step], dim=1)
+        step = step @ step
+    DP = 4 if D <= 4 else 8
+    resp = torch.zeros((B, l, DP), dtype=torch.float64, device=dev)
+    resp[:, :, :D] = R[:, :l]
+    return torch.stack(pows, dim=1).contiguous(), resp.to(dtype).contiguous()
+
+
+#: ``_tables``' cache: (pointer, version, shape, strides, device, group, l)
+#: of a coefficient tensor -> (the tensor, the group's coefficients, phis,
+#: resp); the tensor is held, so its memory cannot be reused under the key
+_TABLES: OrderedDict = OrderedDict()
+_TABLES_MAX = 32
+
+
+def _tables(coeffs: torch.Tensor, s0: int, s1: int, l: int):
+    """The group ``s0:s1`` of ``coeffs`` as the kernel reads it (``[9, S', B]``
+    contiguous) and its :func:`cascade_tables`, computed once per tensor,
+    group and ``l`` (an in-place edit of the tensor bumps its version)."""
+    key = (coeffs.data_ptr(), coeffs._version, tuple(coeffs.shape), coeffs.stride(), str(coeffs.device),
+           s0, s1, l)
+    hit = _TABLES.get(key)
+    if hit is not None:
+        _TABLES.move_to_end(key)
+        return hit[1:]
+    group = coeffs[:, s0:s1].contiguous()
+    phis, resp = cascade_tables(group, l)
+    _TABLES[key] = (coeffs, group, phis, resp)
+    while len(_TABLES) > _TABLES_MAX:
+        _TABLES.popitem(last=False)
+    return group, phis, resp
+
+
+def biquad_cascade_blocked(x: torch.Tensor, coeffs: torch.Tensor, states, l: int | None = None):
+    """Host model of the kernel, in torch on ``x``'s device and dtype (f32
+    as the kernel runs it, or f64): each row of ``x`` ``[B, F]`` in
+    sub-blocks of ``l`` frames (default :func:`block_frames`; a power of
+    two), 32 consecutive ones a tile;
+
+    1. every full sub-block but the row's last from a zero state: its
+       zero-state output ``y0`` and end state ``e_j``;
+    2. per tile, a Kogge-Stone scan over its 32 sub-blocks in f64: step
+       ``i`` adds ``Phi_l^(2^i)`` times the value ``2^i`` lanes back, so
+       lane ``j`` holds ``sum_{i <= j} Phi_l^(j-i) e_i``; lane 31's is the
+       tile's aggregate ``E_k``;
+    3. the tiles' starts in f64: ``s_0`` = the states in, ``s_{k+1} =
+       Phi_W s_k + E_k`` (what the kernel's look-back computes, whichever
+       tile it stops at);
+    4. each sub-block's start ``Phi_l^j s_k`` (the powers of ``j``'s bits,
+       low bit first) plus the scan's exclusive value, rounded to ``x``'s
+       dtype; the output ``y0 + sum_d resp[n, d] * start_d`` (index order);
+       the row's last sub-block walked from its start instead, its end
+       states the states out.
+
+    Each product sum runs in index order, each operation rounds on its
+    own: the kernel's arithmetic. -> ``(y, new states)`` as
+    :func:`biquad_cascade`. All sections run in one group (the kernel's
+    grouping of long chains composes the same)."""
     B, F = x.shape
     S = coeffs.shape[1]
+    D = 2 * S
     dt = x.dtype
+    if l is None:
+        l = block_frames(B, F)
+    f64 = torch.float64
     p = _params(coeffs, dt)
-    z_in = torch.stack([s.to(dt) for s in states], dim=1).reshape(B, 2 * S)
-    nb = max(-(-F // L), 1)
-    xp = torch.nn.functional.pad(x, (0, nb * L - F)).reshape(B, nb, L)
+    phis, resp = cascade_tables(coeffs, l, dtype=dt)
+    phis = phis.to(x.device)
+    resp = resp.to(x.device)[:, :, :D]
+    z_in = torch.stack([s.to(f64) for s in states], dim=1).reshape(B, D)
+    nsub = -(-F // l)
+    nk = -(-nsub // TILE_LANES)
+    lanes = nk * TILE_LANES
+    xp = torch.nn.functional.pad(x, (0, lanes * l - F)).reshape(B, lanes, l)
+    full = nsub - 1  # full sub-blocks walked from zero: all but the row's last
 
-    def run(z, frames):  # z [B, nb', 2S]; frames [B, nb', n] -> (y, z)
-        n_blocks = z.shape[1]
-        pp = [a[:, :, None].expand(S, B, n_blocks).reshape(S, B * n_blocks) for a in p]
-        z = z.reshape(B * n_blocks, 2 * S)
-        xs = frames.reshape(B * n_blocks, -1)
+    def walk(z, frames):  # z [B, n, D]; frames [B, n, m] -> (y, z)
+        n = z.shape[1]
+        pp = [a[:, :, None].expand(S, B, n).reshape(S, B * n) for a in p]
+        zz = z.reshape(B * n, D)
+        xs = frames.reshape(B * n, -1)
         ys = torch.empty_like(xs)
         for k in range(xs.shape[1]):
-            ys[:, k], z = cascade_step(pp, z, xs[:, k])
-        return ys.reshape(B, n_blocks, -1), z.reshape(B, n_blocks, 2 * S)
+            ys[:, k], zz = cascade_step(pp, zz, xs[:, k])
+        return ys.reshape(B, n, -1), zz.reshape(B, n, D)
 
-    starts = z_in[:, None].expand(B, nb, 2 * S).clone()
-    if nb > 1:
-        _, ends = run(torch.zeros((B, nb - 1, 2 * S), dtype=dt, device=x.device), xp[:, :-1])
-        phi = cascade_transition(coeffs, L)
-        s = z_in.to(torch.float64)
-        for b in range(nb - 1):
-            r = phi[:, :, 0] * s[:, None, 0]
-            for j in range(1, 2 * S):
-                r = r + phi[:, :, j] * s[:, None, j]
-            s = r + ends[:, b].to(torch.float64)
-            starts[:, b + 1] = s.to(dt)
-    # phase 3 runs every block from its start; the ragged tail's padding
-    # frames come after the last real frame, so they change no output
-    ys, zs = run(starts, xp)
-    y = ys.reshape(B, nb * L)[:, :F]
-    last = F - (nb - 1) * L  # frames of the last block
-    if last < L:
-        # the states out are those after the last real frame
-        _, z_last = run(starts[:, -1:], xp[:, -1:, :last])
-        zs = torch.cat([zs[:, :-1], z_last], dim=1)
-    z_out = zs[:, -1].reshape(B, S, 2)
-    return y, [z_out[:, s].to(states[s].dtype) for s in range(S)]
+    y = xp.clone()
+    e = torch.zeros((B, lanes, D), dtype=f64, device=x.device)
+    if full:
+        y0, e_full = walk(torch.zeros((B, full, D), dtype=dt, device=x.device), xp[:, :full])
+        y[:, :full] = y0
+        e[:, :full] = e_full.to(f64)
+    acc = e.reshape(B, nk, TILE_LANES, D)
+    lane = torch.arange(TILE_LANES, device=x.device)
+    for i in range(5):
+        off = 1 << i
+        o = torch.nn.functional.pad(acc, (0, 0, off, 0))[:, :, :TILE_LANES]
+        acc = torch.where((lane >= off)[None, None, :, None], acc + _matvec(phis[:, i], o), acc)
+    ex = torch.nn.functional.pad(acc, (0, 0, 1, 0))[:, :, :TILE_LANES]
+    starts = torch.empty((B, nk, D), dtype=f64, device=x.device)
+    s = z_in
+    for k in range(nk):
+        starts[:, k] = s
+        s = _matvec(phis[:, 5], s) + acc[:, k, TILE_LANES - 1]
+    w = starts[:, :, None, :].expand(B, nk, TILE_LANES, D)
+    for i in range(5):
+        w = torch.where(((lane >> i) & 1 == 1)[None, None, :, None], _matvec(phis[:, i], w), w)
+    st = (w + ex).reshape(B, lanes, D).to(dt)
+    corr = resp[:, None, :, 0] * st[:, :full, None, 0]
+    for d in range(1, D):
+        corr = corr + resp[:, None, :, d] * st[:, :full, None, d]
+    y[:, :full] = y[:, :full] + corr
+    last = F - full * l  # frames of the row's last sub-block
+    y_last, z_out = walk(st[:, full:full + 1], xp[:, full:full + 1, :last])
+    y[:, full, :last] = y_last[:, 0]
+    z_out = z_out[:, 0].reshape(B, S, 2)
+    return y.reshape(B, lanes * l)[:, :F], [z_out[:, s].to(states[s].dtype) for s in range(S)]

@@ -1,5 +1,5 @@
 """Build and bind the port's CUDA kernels (``csrc/*.cu``: the mix kernel,
-the biquad cascade).
+the biquad cascade, the dynamics scan).
 
 Counterpart of ``whitebox_tpu/io/native.py:23-110``, the repo's make +
 ctypes idiom for native code: the sources are compiled at first use by
@@ -89,9 +89,15 @@ def load() -> ctypes.CDLL:
     # wb_mix_per_track (K4): wb_mix's arguments; out is [T, C, n_tiles*tile]
     lib.wb_mix_per_track.restype = ci
     lib.wb_mix_per_track.argtypes = [vp] * 17 + [ci] * 5 + interp
-    # wb_biquad_cascade: x, x_stride (int64), y, B, F, L, coeffs, S, phi,
-    # state_in, state_out, ends, starts, stream
+    # wb_biquad_cascade: x, x_stride (int64), y, B, F, l, coeffs, S, phis,
+    # resp, state_in, state_out, ints, doubles, stream
     lib.wb_biquad_cascade.restype = ci
-    lib.wb_biquad_cascade.argtypes = [vp, ctypes.c_longlong, vp, ci, ci, ci, vp, ci] + [vp] * 6
+    lib.wb_biquad_cascade.argtypes = [vp, ctypes.c_longlong, vp, ci, ci, ci, vp, ci] + [vp] * 7
+    # wb_dynamics_scan: mode, v, v_stride (int64), B, F, L, then rho, a and
+    # floor each as (pointer, row stride (int64), frame stride), e0, y0, y,
+    # e_last, y_last, totals, scratch, stream
+    ll = ctypes.c_longlong
+    lib.wb_dynamics_scan.restype = ci
+    lib.wb_dynamics_scan.argtypes = [ci, vp, ll, ci, ci, ci] + [vp, ll, ci] * 3 + [vp] * 8
     _LIB = lib
     return _LIB

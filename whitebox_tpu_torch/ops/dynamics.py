@@ -10,10 +10,12 @@ primitives:
   in dB >= 0;
 - ballistics: the smooth decoupled peak detector (same paper, eq. 17):
   release as the max-decay recurrence R[n] = max(r[n], rho * R[n-1]),
-  then attack as a one-pole smoother. Both recurrences run as
-  Hillis-Steele prefix scans (``ops/scan_util.hillis_scan``) in
-  ceil(log2 F) steps and carry exact chunk-boundary state, so chunked
-  processing equals one-shot.
+  then attack as a one-pole smoother. Both recurrences carry exact
+  chunk-boundary state, so chunked processing equals one-shot. On the
+  CPU they run as Hillis-Steele prefix scans (``ops/scan_util.hillis_scan``)
+  in ceil(log2 F) steps; on the card the processors call the hand kernel
+  ``csrc/dynamics_scan.cu`` (``ops/dynamics_cuda.py::ballistics`` /
+  ``onepole``), whose plain version these scans are.
 
 Every multiply and add is its own torch op (no FMA contraction). The
 sequential float64 references (``*_ref``) are the JAX package's, copied;
@@ -27,6 +29,7 @@ import math
 import numpy as np
 import torch
 
+from whitebox_tpu_torch.ops import dynamics_cuda
 from whitebox_tpu_torch.ops.scan_util import hillis_scan
 
 _EPS = 1e-10  # -200 dBFS detector floor
@@ -151,7 +154,7 @@ def detector_level(x, mode: str, avg_coef, det0):
         return torch.abs(x).amax(dim=-2), det0
     if mode == "rms":
         p = torch.mean(torch.square(x), dim=-2)
-        avg, last = onepole_scan(p, avg_coef, det0)
+        avg, last = dynamics_cuda.onepole(p, avg_coef, det0)
         return torch.sqrt(torch.clamp(avg, min=0.0)), last
     raise ValueError(f"detector mode {mode!r}")
 
@@ -170,8 +173,8 @@ def compressor_process(x, params, state, *, detector: str = "peak", key=None):
                                    params.get("det_avg", 0.0), state["det"])
     r_db = compressor_reduction_db(_level_db(lvl), params["threshold_db"], params["ratio"],
                                    params["knee_db"])
-    held, red_last = maxdecay_scan(r_db, params["release"], state["red"])
-    smooth, att_last = onepole_scan(held, params["attack"], state["att"])
+    smooth, red_last, att_last = dynamics_cuda.ballistics(r_db, params["release"], params["attack"],
+                                                          state["red"], state["att"])
     gain = torch.exp((params["makeup_db"] - smooth) / _LOG10_20)
     return x * gain[..., None, :], {"red": red_last, "att": att_last, "det": det_last}
 
@@ -198,8 +201,8 @@ def limiter_process(x, params, state, *, lookahead: int = 0):
         look_last = seq[..., -lookahead:]
     else:
         look_last = state["look"]
-    held, red_last = maxdecay_scan(r_db, params["release"], state["red"])
-    smooth, att_last = onepole_scan(held, params["attack"], state["att"])
+    smooth, red_last, att_last = dynamics_cuda.ballistics(r_db, params["release"], params["attack"],
+                                                          state["red"], state["att"])
     gain = torch.exp(-smooth / _LOG10_20)
     if lookahead > 0:
         xs = torch.cat([state["xdelay"], x], dim=-1)
@@ -220,9 +223,9 @@ def gate_process(x, params, state, key=None):
     tgt = gate_open_gain(_level_db(lvl), params["threshold_db"], params["range_db"],
                          params.get("hyst_db", 0.0))
     floor = torch.exp(-torch.abs(_f32(params["range_db"], x)) / _LOG10_20)
-    held, open_last = maxdecay_scan(tgt, params["release"], state["open"])
-    held = torch.maximum(held, floor)  # decay stops at the closed-gain floor
-    smooth, att_last = onepole_scan(held, params["attack"], state["att"])
+    # the decay stops at the closed-gain floor
+    smooth, open_last, att_last = dynamics_cuda.ballistics(tgt, params["release"], params["attack"],
+                                                           state["open"], state["att"], floor=floor)
     return x * smooth[..., None, :], {"open": open_last, "att": att_last}
 
 

@@ -8,9 +8,14 @@ state, the shards exchange O(summary) state over the frames axis
 (``parallel/collectives.py``), and each shard folds its predecessors'
 summaries into its exact incoming state, which it injects:
 
-- one-pole smoothers: affine summaries ``(a^F, y_last)``, linear injection;
-- max-decay peak detectors: max-plus summaries ``(rho^F, e_last)``,
-  injection ``max(e_local, rho^(n+1) * z_in)``;
+- the dynamics' ballistics (max-decay release, optional floor, one-pole
+  attack) and the RMS detector's one-pole: the dynamics kernel's own
+  recipe with the shard as the block (``ops/dynamics_cuda.py``, the plain
+  scans on the CPU): a pass from zero states gives the shard's end max and
+  ``prod rho`` (max-plus summary), folded over the predecessors into the
+  release's incoming state; a pass from that state gives the shard's
+  one-pole end and ``prod a`` (affine summary), folded likewise; a last
+  pass runs from both incoming states;
 - feedback combs (delay): the shard-to-shard map of the ``D``-tap tail is
   a scaled permutation (closed form from ``F_local``, ``D``, ``fb``;
   ping-pong folds the channel swap's parity into it); the comb runs again
@@ -24,11 +29,12 @@ summaries into its exact incoming state, which it injects:
   CPU); time-varying ones exchange their span transitions and run again
   from the exact incoming state.
 
-On the card a shard's recurrences run :data:`SHARD_CHUNK` frames at a time
-with their state carried (the finisher's ``CUDA_CHUNK_CAP``), which bounds
-the prefix scans' temporaries: a 15 s stereo shard of 128 tracks is
+On the card a shard's other recurrences run :data:`SHARD_CHUNK` frames at
+a time with their state carried (the finisher's ``CUDA_CHUNK_CAP``), which
+bounds the prefix scans' temporaries: a 15 s stereo shard of 128 tracks is
 ``[256, 720000]``, and a whole-shard scan holds about twenty levels of such
-temporaries. On the CPU a shard runs at once, as the JAX package runs it.
+temporaries; the dynamics kernel holds none and takes the whole shard. On
+the CPU a shard runs at once, as the JAX package runs it.
 The summary exchange happens once per recurrence, on the shard's final
 summary. Equal to the single-device stream up to f32 rounding of the
 injection terms.
@@ -45,9 +51,9 @@ from whitebox_tpu_torch.ops.automation import eval_lanes
 from whitebox_tpu_torch.ops.biquad import (
     PARAM_BLOCK, BiquadType, biquad_scan_blocked_tv, design_biquad_device, tv_section_params,
 )
+from whitebox_tpu_torch.ops import dynamics_cuda
 from whitebox_tpu_torch.ops.dynamics import (
-    _LOG10_20, _level_db, _window_max, compressor_reduction_db, gate_open_gain,
-    limiter_reduction_db, maxdecay_scan_t, onepole_scan_t,
+    _LOG10_20, _level_db, _window_max, compressor_reduction_db, gate_open_gain, limiter_reduction_db,
 )
 from whitebox_tpu_torch.parallel.biquad_sharded import biquad_shard_framewise, cascade_shard_framewise
 from whitebox_tpu_torch.parallel.collectives import all_gather, axis, gather_frames, shift
@@ -71,56 +77,43 @@ def _spans(F: int, chunk: int):
     return [(a, min(a + chunk, F)) for a in range(0, F, chunk)]
 
 
-def _frames_of(v, a: int, b: int, F: int):
-    """A coefficient's frames [a, b): per-frame lanes ``[..., F]`` sliced,
-    constants (scalars, ``[..., 1]``) as they are."""
-    if torch.is_tensor(v) and v.dim() and v.shape[-1] == F and F > 1:
-        return v[..., a:b]
-    return v
-
-
-def _scan_from_zero(scan_t, x, coef):
-    """``scan_t`` (``onepole_scan_t`` / ``maxdecay_scan_t``) over ``x`` from
-    a zero state, chunk by chunk with the state carried -> (the output, the
-    cumulative transition over the whole shard)."""
-    F = x.shape[-1]
-    chunk = _chunk(x)
-    zero = torch.zeros(x.shape[:-1], dtype=torch.float32, device=x.device)
-    if chunk >= F:
-        y0, _, m = scan_t(x, coef, zero)
-        return y0, m
-    y0, m = torch.empty_like(x), torch.empty_like(x)
-    s, M = zero, torch.ones_like(zero)
-    for a, b in _spans(F, chunk):
-        yk, s, mk = scan_t(x[..., a:b], _frames_of(coef, a, b, F), s)
-        y0[..., a:b] = yk
-        m[..., a:b] = M[..., None] * mk
-        M = m[..., b - 1].clone()
-    return y0, m
+def _fold(ax, fp: int, end, prod, combine) -> torch.Tensor:
+    """Gather every shard's summary (its end value from its incoming state
+    so far, the coefficients' product over it) and fold the predecessors'
+    in order in f64 -> this shard's incoming state (f32)."""
+    e_all = all_gather(end.to(torch.float64), ax)
+    p_all = all_gather(prod, ax)
+    z = torch.zeros_like(e_all[0])
+    for j in range(min(ax.index, fp)):
+        z = combine(p_all[j], z, e_all[j])
+    return z.to(torch.float32)
 
 
 def onepole_shard(x, a, axis_name, fp: int):
-    """Frame-sharded one-pole smoother y[n] = a*y[n-1] + (1-a)*x[n]."""
+    """Frame-sharded one-pole smoother y[n] = a*y[n-1] + (1-a)*x[n]: a pass
+    from zero (the shard's end and ``prod a``), the fold ``z <- A_j z +
+    y_j``, a pass from the incoming state."""
     ax = axis(axis_name)
-    y0, m = _scan_from_zero(onepole_scan_t, x, a)
-    m_all = all_gather(m[..., -1], ax)
-    v_all = all_gather(y0[..., -1], ax)
-    z_in = torch.zeros_like(v_all[0])
-    for j in range(min(ax.index, fp)):  # z <- m_j*z + v_j over the predecessors
-        z_in = m_all[j] * z_in + v_all[j]
-    return y0 + m * z_in[..., None]
+    zero = torch.zeros(x.shape[:-1], dtype=torch.float32, device=x.device)
+    _, y_end, prod = dynamics_cuda.onepole(x, a, zero, products=True)
+    z = _fold(ax, fp, y_end, prod, lambda p, z, e: p * z + e)
+    return dynamics_cuda.onepole(x, a, z)[0]
 
 
-def maxdecay_shard(v, rho, axis_name, fp: int):
-    """Frame-sharded peak detector e[n] = max(v[n], rho*e[n-1])."""
+def ballistics_shard(v, rho, a, axis_name, fp: int, floor=None):
+    """Frame-sharded release then attack (``dynamics_cuda.ballistics``):
+    e[n] = max(v[n], rho*e[n-1]), h = max(e, floor), y[n] = a*y[n-1] +
+    (1-a)*h[n]. Three passes: from zero (the shard's end max and ``prod
+    rho``; the fold ``z <- max(D_j z, e_j)``), from that release state (the
+    shard's one-pole end and ``prod a``; the fold ``z <- A_j z + y_j``), and
+    from both incoming states -> y."""
     ax = axis(axis_name)
-    e0, dd = _scan_from_zero(maxdecay_scan_t, v, rho)
-    d_all = all_gather(dd[..., -1], ax)
-    e_all = all_gather(e0[..., -1], ax)
-    z_in = torch.zeros_like(e_all[0])
-    for j in range(min(ax.index, fp)):  # max-plus affine: z <- max(d_j * z, e_j)
-        z_in = torch.maximum(d_all[j] * z_in, e_all[j])
-    return torch.maximum(e0, dd * z_in[..., None])
+    zero = torch.zeros(v.shape[:-1], dtype=torch.float32, device=v.device)
+    _, e_end, _, (d, _) = dynamics_cuda.ballistics(v, rho, a, zero, zero, floor, products=True)
+    z_e = _fold(ax, fp, e_end, d, lambda p, z, e: torch.maximum(p * z, e))
+    _, _, y_end, (_, prod_a) = dynamics_cuda.ballistics(v, rho, a, z_e, zero, floor, products=True)
+    z_y = _fold(ax, fp, y_end, prod_a, lambda p, z, e: p * z + e)
+    return dynamics_cuda.ballistics(v, rho, a, z_e, z_y, floor)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -141,8 +134,7 @@ def compressor_shard(x, params, axis_name, fp: int, detector: str = "peak", key=
         lvl = torch.abs(det_src).amax(dim=-2)
     r_db = compressor_reduction_db(_level_db(lvl), params["threshold_db"], params["ratio"],
                                    params["knee_db"])
-    held = maxdecay_shard(r_db, params["release"], axis_name, fp)
-    smooth = onepole_shard(held, params["attack"], axis_name, fp)
+    smooth = ballistics_shard(r_db, params["release"], params["attack"], axis_name, fp)
     gain = torch.exp((params["makeup_db"] - smooth) / _LOG10_20)
     return x * gain[..., None, :]
 
@@ -159,8 +151,7 @@ def limiter_shard(x, params, axis_name, fp: int, lookahead: int = 0):
         r_db = _window_max(seq, lookahead + 1)[..., :F]
         xtail = shift(x[..., -lookahead:].contiguous(), axis_name)
         xd = torch.cat([xtail, x], dim=-1)[..., :F]
-    held = maxdecay_shard(r_db, params["release"], axis_name, fp)
-    smooth = onepole_shard(held, params["attack"], axis_name, fp)
+    smooth = ballistics_shard(r_db, params["release"], params["attack"], axis_name, fp)
     return xd * torch.exp(-smooth / _LOG10_20)[..., None, :]
 
 
@@ -170,8 +161,7 @@ def gate_shard(x, params, axis_name, fp: int, key=None):
                          params.get("hyst_db", 0.0))
     floor = torch.exp(-torch.abs(torch.as_tensor(params["range_db"], dtype=torch.float32,
                                                  device=x.device)) / _LOG10_20)
-    held = torch.maximum(maxdecay_shard(tgt, params["release"], axis_name, fp), floor)
-    smooth = onepole_shard(held, params["attack"], axis_name, fp)
+    smooth = ballistics_shard(tgt, params["release"], params["attack"], axis_name, fp, floor=floor)
     return x * smooth[..., None, :]
 
 

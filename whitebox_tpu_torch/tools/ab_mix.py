@@ -87,30 +87,30 @@ print(json.dumps(out))
 """
 
 
-def run(checkout: Path, label: str, cells: str) -> dict:
-    r = subprocess.run([sys.executable, "-c", _RUN, label, cells], cwd=checkout, capture_output=True,
+def run(checkout: Path, label: str, cells: str, program: str = _RUN) -> dict:
+    r = subprocess.run([sys.executable, "-c", program, label, cells], cwd=checkout, capture_output=True,
                        text=True, timeout=900)
     if r.returncode != 0:
         raise RuntimeError(f"{label} ({checkout}) failed:\n{r.stderr[-3000:]}")
     return json.loads(r.stdout.strip().splitlines()[-1])
 
 
-def summarize(rows: list[dict]) -> None:
+def summarize(rows: list[dict], tag: str = "ab_mix") -> None:
     cells = [k for k in rows[0] if k != "checkout"]
     runs = {label: [r for r in rows if r["checkout"] == label] for label in ("other", "this")}
     summary = {label: {c: statistics.median(r[c] for r in rs) for c in cells} for label, rs in runs.items()}
-    print("[ab_mix] medians ms " + json.dumps(summary))
-    print("[ab_mix] this vs other, percent " + json.dumps(
+    print(f"[{tag}] medians ms " + json.dumps(summary))
+    print(f"[{tag}] this vs other, percent " + json.dumps(
         {c: round(100.0 * (summary["this"][c] / summary["other"][c] - 1.0), 2) for c in cells}))
     pairs = list(zip(runs["other"], runs["this"]))
-    print("[ab_mix] pairs this won, of " + str(len(pairs)) + " " + json.dumps(
+    print(f"[{tag}] pairs this won, of " + str(len(pairs)) + " " + json.dumps(
         {c: sum(t[c] < o[c] for o, t in pairs) for c in cells}))
     if len(runs["other"]) >= 4:
         iqr = {}
         for c in cells:
             q = statistics.quantiles([r[c] for r in runs["other"]], n=4)
             iqr[c] = q[2] - q[0]
-        print("[ab_mix] other's interquartile range ms " + json.dumps(iqr))
+        print(f"[{tag}] other's interquartile range ms " + json.dumps(iqr))
 
 
 def main(argv=None) -> int:

@@ -5,9 +5,10 @@
 Compiles ``csrc/*.cu`` once more with the build's own flags plus
 ``--resource-usage`` (to a cubin that is thrown away) and prints what
 ``ptxas`` reports per kernel, each named by its template arguments, with
-the resident blocks per SM that registers and shared
-memory allow on an H100 (65,536 registers, 227 KB of shared memory, 2,048
-threads per SM). Needs ``nvcc``; no card.
+the resident blocks per SM that registers and static shared memory allow
+on an H100 (65,536 registers, 227 KB of shared memory, 2,048 threads per
+SM; the cascade's and the dynamics walk's tiles are dynamic shared memory,
+sized at the launch, and not counted here). Needs ``nvcc``; no card.
 """
 
 from __future__ import annotations
@@ -30,11 +31,14 @@ def kernel_name(mangled: str) -> str:
     m = re.search(r"mix_per_track_kernelILi(\d)ELi(\d)E", mangled)
     if m:
         return f"mix_per_track_kernel<{_INTERP[int(m[1])]}, kCh={m[2]}>"
-    m = re.search(r"cascade_blocksILi(\d)ELb([01])E", mangled)
+    m = re.search(r"cascade_kernelILi(\d)E", mangled)
     if m:
-        return f"cascade_blocks<S={m[1]}, kWrite={m[2]}>"
-    m = re.search(r"cascade_carryILi(\d)E", mangled)
-    return f"cascade_carry<S={m[1]}>" if m else mangled
+        return f"cascade_kernel<S={m[1]}>"
+    m = re.search(r"dyn_walkILb([01])ELi(\d)E", mangled)
+    if m:
+        return f"dyn_walk<kMax={m[1]}, kPhase={m[2]}>"
+    m = re.search(r"dyn_carryILi(\d)E", mangled)
+    return f"dyn_carry<kKind={m[1]}>" if m else mangled
 
 
 def block_threads(src) -> int:
@@ -44,7 +48,7 @@ def block_threads(src) -> int:
     m = re.search(r"constexpr int kFramesPerBlock = (\d+);", text)
     if m:
         return int(m[1])
-    return 32 * int(re.search(r"constexpr int kWarpsPerBlock = (\d+);", text)[1])
+    return 32 * int(re.search(r"constexpr int kWarps(?:PerBlock)? = (\d+);", text)[1])
 
 
 def main() -> int:

@@ -1,7 +1,7 @@
-"""Time the scan finisher's choices on one card: the cascade kernel's block
-length and the finisher's chunk length.
+"""Time the scan finisher's choices on one card: the cascade kernel's
+sub-block length and the finisher's chunk length.
 
-    python -m whitebox_tpu_torch.tools.sweep_finisher [--blocks 512,1024,2048]
+    python -m whitebox_tpu_torch.tools.sweep_finisher [--blocks 32,64,128,256]
         [--chunks 262144,1048576,4194304] [--profile]
 
 On config 5's session (``chip_smoke.effects_eq_128trk``: 128 tracks x 60 s,
@@ -10,8 +10,9 @@ per-track buffers once, then times by CUDA events (median of 5 after one
 warm call):
 
 - ``biquad_cascade`` on the tracks' first chunk of ``CUDA_CHUNK`` frames
-  at each block length ``L`` (``biquad_cuda.BLOCK_FRAMES``), with the
-  largest row relative RMS against the L of the build's default;
+  and on the master's (2 rows) at each sub-block length ``l`` (what
+  ``biquad_cuda.block_frames`` returns), with the largest row relative RMS
+  against the default ``l``;
 - ``finish_mix`` (plain and metered) at each chunk length, with the peak
   memory of the metered call.
 
@@ -34,7 +35,7 @@ ROOT = Path(__file__).resolve().parents[2]
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--blocks", default="256,512,1024,2048,4096")
+    ap.add_argument("--blocks", default="32,64,128,256")
     ap.add_argument("--chunks", default="262144,1048576,4194304")
     ap.add_argument("--profile", action="store_true")
     args = ap.parse_args(argv)
@@ -60,19 +61,23 @@ def main(argv=None) -> int:
     xc = pt.reshape(p.num_tracks * p.channels, -1)[:, :pipe.CUDA_CHUNK]
     zeros = [torch.zeros((xc.shape[0], 2), device=dev) for _ in range(S)]
 
-    default = biquad_cuda.BLOCK_FRAMES
-    base, _ = biquad_cuda.biquad_cascade(xc, coeffs, zeros)
-    try:
-        for L in (int(v) for v in args.blocks.split(",")):
-            biquad_cuda.BLOCK_FRAMES = L
-            y, _ = biquad_cuda.biquad_cascade(xc, coeffs, zeros)
-            torch.cuda.synchronize()
-            ms, all_ms = cs._event_ms(torch, lambda: biquad_cuda.biquad_cascade(xc, coeffs, zeros), 5)
-            print(json.dumps({"cascade_block_frames": L, "rows": list(xc.shape), "ms": ms, "ms_all": all_ms,
-                              "rel_rms_vs_default_L": float(cs.row_rel_rms(y, base).max())}), flush=True)
-            del y
-    finally:
-        biquad_cuda.BLOCK_FRAMES = default
+    master = pt[0, :, :pipe.CUDA_CHUNK].contiguous()
+    mzeros = [torch.zeros((p.channels, 2), device=dev) for _ in range(Sm)]
+    default = biquad_cuda.block_frames
+    for label, x, c, z in (("tracks", xc, coeffs, zeros), ("master", master, mcoeffs, mzeros)):
+        base, _ = biquad_cuda.biquad_cascade(x, c, z)
+        try:
+            for L in (int(v) for v in args.blocks.split(",")):
+                biquad_cuda.block_frames = lambda B, F, L=L: L
+                y, _ = biquad_cuda.biquad_cascade(x, c, z)
+                torch.cuda.synchronize()
+                ms, all_ms = cs._event_ms(torch, lambda: biquad_cuda.biquad_cascade(x, c, z), 5)
+                print(json.dumps({"cascade_block_frames": L, "call": label, "rows": list(x.shape), "ms": ms,
+                                  "ms_all": all_ms, "default_l": default(*x.shape),
+                                  "rel_rms_vs_default_l": float(cs.row_rel_rms(y, base).max())}), flush=True)
+                del y
+        finally:
+            biquad_cuda.block_frames = default
     del base
 
     tg = r.tables["track_gain"]

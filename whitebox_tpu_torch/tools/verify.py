@@ -48,7 +48,7 @@ import torch
 
 from whitebox_tpu_torch.core.formats import AudioFormat
 from whitebox_tpu_torch.device import resolve_device
-from whitebox_tpu_torch.ops import biquad_cuda, mix_cuda
+from whitebox_tpu_torch.ops import biquad_cuda, dynamics_cuda, mix_cuda
 from whitebox_tpu_torch.session import Session
 from whitebox_tpu_torch.session.sample import Sample
 
@@ -127,11 +127,13 @@ def mono_asset(s: Session, n=6000, seed=0, key="a", src_rate=48000):
 def launch_counts() -> dict:
     """The kernels' launch counters as they stand: the summing mix kernel
     (K1/K2), its automation variant (K3), the per-track kernel (K4), each
-    variant's launches by interpolation mode, and the biquad cascade."""
+    variant's launches by interpolation mode, the biquad cascade and the
+    dynamics scan."""
     return {"mix": mix_cuda.mix_kernel_launches, "mix_auto": mix_cuda.mix_auto_launches,
             "mix_per_track": mix_cuda.mix_per_track_launches,
             **{f"interp_{k}": v for k, v in mix_cuda.interp_launches.items()},
-            "biquad_cascade": biquad_cuda.biquad_cascade_launches}
+            "biquad_cascade": biquad_cuda.biquad_cascade_launches,
+            "dynamics_scan": dynamics_cuda.dynamics_scan_launches}
 
 
 class Launches:
