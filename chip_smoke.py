@@ -66,11 +66,20 @@ no ``.wb`` project. Phases, one or more lines each:
    six-section chain, a row shorter than a block, an unaligned row view,
    40 rows of 25 tiles each) within relative RMS 5e-6 per row of its plain
    version, identity rows exact, each call's time printed; then the
-   dynamics kernel (the compressor's, limiter's and gate's release and
-   attack, the RMS detector's one-pole) on 1, 2, 7 and 256 rows, frames
-   fewer than a block and not a multiple of one, per-frame coefficients,
-   states over two calls, the gate's floor, within relative RMS 5e-6 per
-   row of its plain version (the Hillis scans) and the host model;
+   dynamics kernel: its unfused kinds (the release and attack alone, the
+   RMS detector's one-pole: the sharded stages' form) on 1, 2, 7, 64 and
+   256 rows, frames fewer than a tile and not a multiple of one,
+   per-frame coefficients, states over two calls, the gate's floor,
+   within relative RMS 5e-6 per row of the f64 oracle and of its plain
+   version (plus the Hillis scans' own distance), bit-equal to its host
+   model; its fused kinds (one launch a compressor, limiter or gate call)
+   at the paths' shapes (64 stereo compressor rows, the master limiter,
+   16 gate rows, 2^18 frames; timed by CUDA events around 20 launches in
+   a row, with their bounds) and on small cases: keys and silent keys,
+   lanes, lookahead, hysteresis, two chunks, mono, a row shorter than a
+   tile, against the oracle, the plain version, the host model (1e-6)
+   and the f64 sequential references (5e-5; 2e-4 with lanes); two runs of
+   every call bit-equal;
 4. headline and headline_resampled: ``bounce(device="cuda")`` of the
    128-track session with the launch counts reset just before, bit-equal
    to the NumPy segment reference; then 5 warm carve+plan+upload+kernel
@@ -123,9 +132,12 @@ no ``.wb`` project. Phases, one or more lines each:
    relative RMS 1e-5 of the same finisher on the CPU and 5e-5 (2e-4 with
    lanes) of the f64 ``reference_generic_finish``;
 10. generic_fx_128trk (config 6's chains on the flat mix): one K4 launch,
-    the cascade kernel for the static EQ stages, the dynamics kernel for
-    the compressors (held to its plain version at the first compressor
-    group's full width, timed with its bound); the finisher's first 10 s
+    the cascade kernel for the static EQ stages, one fused dynamics launch
+    a compressor and master limiter call and no unfused one (the fused
+    stage and its ballistics alone held to their plain versions at the
+    first compressor group's full width, timed with their bounds; the
+    ``wb.track.compressor`` and ``wb.master.limiter`` ranges' busy time,
+    the fused kernel alone in them); the finisher's first 10 s
     against the CPU's, one track per signature and the master over 2 s
     against the f64 chains; 5 warm iterations, the device time per stage
     kind from a ``torch.profiler`` trace of the shipped finisher (its
@@ -142,9 +154,12 @@ no ``.wb`` project. Phases, one or more lines each:
     launch, the gather path none;
 13. routed_sidechain_128trk (the JAX package's config 6 exactly: 8 group
     buses, a sidechain duck, sends, a master limiter): one K4 launch,
-    then the routed finisher (the cascade and dynamics kernels launched); its first 10 s against the CPU's (1e-5),
-    its first 2 s against the f64 reference (5e-5), ``engine="xla"`` (no
-    mix-kernel launch, within 1e-6 of the K4 path at equal chunks); 5
+    then the routed finisher (the cascade kernel and the fused dynamics
+    kernel launched, the ``wb.bus.compressor`` and ``wb.master.limiter``
+    ranges' busy time, the fused kernel alone in them); its first 10 s
+    against the CPU's (1e-5), its first 2 s against the f64 reference
+    (5e-5), ``engine="xla"`` (no mix-kernel launch, within 1e-6 of the K4
+    path at equal chunks); 5
     warm iterations, the stages by ``torch.profiler`` (``wb.route.matmul``,
     ``wb.bus.<kind>``, ...) and the chunk sweep (2^15-2^20);
 14. midi_synth_128trk (112 audio tracks and 16 MIDI tracks of 960 notes):
@@ -155,7 +170,9 @@ no ``.wb`` project. Phases, one or more lines each:
 15. the export deliverables, each 128 tracks x 60 s at 48 kHz with the
     launch counts reset just before: stems_eq_128trk and
     stems_generic_128trk (``render_stems``: one K4 launch, then the stems
-    finisher, the EQ cell's through the cascade kernel; the stems' sum
+    finisher, the EQ cell's through the cascade kernel, the generic cell's
+    compressors one fused dynamics launch a call, their ranges' busy time
+    printed; the stems' sum
     within atol 5e-5 of the pre-master bounce, the first 10 s of a stem of
     each chain within relative RMS 1e-5 of the CPU's), bus_stems_routed_128trk
     (``render_bus_stems`` of config 6: one K4 launch, the master chain over
@@ -368,6 +385,7 @@ def reset_launches() -> None:
 
     biquad_cuda.biquad_cascade_launches = 0
     dynamics_cuda.dynamics_scan_launches = 0
+    dynamics_cuda.dynamics_fused_launches = 0
     mix_cuda.mix_kernel_launches = 0
     mix_cuda.mix_auto_launches = 0
     mix_cuda.mix_per_track_launches = 0
@@ -946,6 +964,19 @@ def _event_ms(torch, fn, iters):
 SLOW_OPS = {"linear": 17 + 3, "catmull": 17 + 19, "poly": 17 + 72}
 
 
+def _event_ms_batch(torch, fn, n):
+    """Device ms of one call of ``fn``: CUDA events around ``n`` calls in a
+    row after a warm one, over ``n``. The host's part of each call hides
+    behind the queued device work while it is the shorter."""
+    from whitebox_tpu_torch.render.metrics import DeviceTimer
+
+    fn()
+    with DeviceTimer(torch.device("cuda")) as t:
+        for _ in range(n):
+            fn()
+    return t.seconds * 1e3 / n
+
+
 def card_peaks() -> tuple[float, float]:
     """The card's published peaks (NVIDIA H100 SXM data sheet, 700 W): HBM
     bytes/s and f32 operations/s outside the tensor cores, as the port's
@@ -1423,45 +1454,74 @@ def phase_cascade_small(torch) -> None:
 
 
 #: the dynamics kernel against the f64 oracle (``dynamics_cuda.ballistics_f64``:
-#: the plain scans in f64), relative RMS per row (the cascade's bar); against
-#: its plain version (the f32 Hillis scans) this plus the plain version's own
-#: distance from the oracle, which reaches ~6e-6 over a 2^18-frame chunk
+#: the plain scans in f64; for a fused stage its torch form on those scans),
+#: relative RMS per row (the cascade's bar); against its plain version (the
+#: f32 Hillis scans) this plus the plain version's own distance from the
+#: oracle, which reaches ~6e-6 over a 2^18-frame chunk
 DYNAMICS_REL_RMS = 5e-6
+#: frames of the dynamics paths' chunks (``CUDA_CHUNK_CAP``), the shape the
+#: timed cases of :func:`phase_dynamics_small` take
+DYNAMICS_PATH_FRAMES = 1 << 18
 
 
 def dynamics_bound(B: int, F: int, framewise: int, max_decay: bool = True) -> dict:
-    """The dynamics kernel's least time on ``[B, F]``: v read and y written
-    once (4 B a frame each, 4 B more per frame-wise coefficient row), its
-    f32 operations (``OPS_PER_FRAME`` a frame; the one-pole alone 4)."""
+    """The unfused dynamics kernel's least time on ``[B, F]``: v read and y
+    written once (4 B a frame each, 4 B more per frame-wise coefficient row),
+    its f32 operations (``OPS_PER_FRAME`` a frame; the one-pole alone 4)."""
     from whitebox_tpu_torch.ops.dynamics_cuda import OPS_PER_FRAME
 
     return least_ms(B * F * 4 * (2 + framewise), B * F * (OPS_PER_FRAME if max_decay else 4))
 
 
+def fused_bound(kind: str, B: int, C: int, F: int, *, key: bool = False, lanes: int = 0, lookahead: int = 0,
+                detector: str = "peak") -> dict:
+    """A fused dynamics stage's least time on ``[B, C, F]``: x (and the key)
+    read and the output written once (4 B a sample each), each per-frame
+    lane read once (4 B a frame), the states in and out (3 floats a row
+    each way; the limiter's look and xdelay, ``L (1 + C)`` floats a row each
+    way); its f32 operations (``dynamics_cuda.FUSED_OPS`` of the kind, the
+    ballistics' ``OPS_PER_FRAME``, 3 a channel and, with a lookahead, a max
+    per doubling pass of the window, a frame)."""
+    import math
+
+    from whitebox_tpu_torch.ops.dynamics_cuda import FUSED_OPS, OPS_PER_FRAME
+
+    ops = FUSED_OPS["compressor_rms" if kind == "compressor" and detector == "rms" else kind] + OPS_PER_FRAME + 3 * C
+    if kind == "limiter" and lookahead:
+        ops += int(math.ceil(math.log2(lookahead + 1)))
+    state = 3 + (lookahead * (1 + C) if kind == "limiter" else 0)
+    return least_ms(B * F * 4 * (C * (2 + int(key)) + lanes) + B * 4 * 2 * state, B * F * ops)
+
+
+def _frames_of(c, F) -> bool:
+    import torch
+
+    return torch.is_tensor(c) and c.dim() > 0 and c.shape[-1] == F and F > 1
+
+
 def dynamics_vs_plain(name, torch, v, rho, a, e0, y0, floor=None, pieces=(None,), onepole=False,
                       host_model=False, time_it=True) -> dict:
-    """The dynamics kernel on ``v`` [B, F] (in calls over the frame ranges
-    ``pieces`` splits it at, each handing its states to the next) against
-    the f64 oracle (the plain scans in f64, one call) within
+    """The unfused dynamics kernel (``dynamics_cuda.ballistics`` /
+    ``onepole``) on ``v`` [B, F] (in calls over the frame ranges ``pieces``
+    splits it at, each handing its states to the next) against the f64
+    oracle (the plain scans in f64, one call) within
     :data:`DYNAMICS_REL_RMS` relative RMS per row, its states out within
     5e-6 of the oracle's scale; against the plain version (the f32 Hillis
     scans, one call) within that bar plus the plain version's own distance
-    from the oracle, row by row (all three printed); with ``host_model``,
-    the largest difference from the torch model of the kernel's blocks and
-    carries on the host; the kernel's time (CUDA events, median of 20), its
-    plain version's and its bound. ``onepole``: the RMS detector's one-pole
-    alone over v."""
+    from the oracle, row by row (all three printed); a second run bit-equal
+    to the first; with ``host_model``, bit-equal to the torch model of the
+    kernel's tiles and look-back on the host; the kernel's time by CUDA
+    events around the launch alone (one call over all frames, prepared
+    once: 20 in a row, and the median of 20 each bracketed) and around the
+    wrapper, its plain version's and its bound. ``onepole``: the RMS detector's one-pole alone over v."""
     from whitebox_tpu_torch.ops import dynamics_cuda as dc
-
-    def coef_frames(c, F):
-        return F if (torch.is_tensor(c) and c.dim() and c.shape[-1] == F and F > 1) else None
 
     before = dc.dynamics_scan_launches
     F = v.shape[-1]
     edges = [0, *[p for p in pieces if p is not None], F]
 
     def part(c, a0, b0):
-        return c[..., a0:b0] if coef_frames(c, F) else c
+        return c[..., a0:b0] if _frames_of(c, F) else c
 
     def calls():
         ys, es, yl = [], e0, y0
@@ -1475,10 +1535,13 @@ def dynamics_vs_plain(name, torch, v, rho, a, e0, y0, floor=None, pieces=(None,)
         return torch.cat(ys, dim=-1), es, yl
     got, e_last, y_last = calls()
     check(dc.dynamics_scan_launches == before + len(edges) - 1, f"{name}: the dynamics kernel did not launch")
+    again = calls()
     plain = dc.onepole_reference(v, a, y0)[0] if onepole else dc.ballistics_reference(v, rho, a, e0, y0, floor)[0]
     ref, ref_e, ref_y = dc.ballistics_f64(v, rho, a, 0.0 if onepole else e0, y0, floor, max_decay=not onepole)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(got).all()) and got.shape == v.shape, f"{name}: output {tuple(got.shape)}")
+    check(torch.equal(got, again[0]) and torch.equal(y_last, again[2])
+          and (onepole or torch.equal(e_last, again[1])), f"{name}: two runs of the dynamics kernel differ")
     rows2 = (-1, F)
     rr = row_rel_rms(got.reshape(rows2), ref.reshape(rows2))
     rr_plain = row_rel_rms(got.reshape(rows2), plain.reshape(rows2))
@@ -1496,40 +1559,248 @@ def dynamics_vs_plain(name, torch, v, rho, a, e0, y0, floor=None, pieces=(None,)
     out = {"rows": int(v.numel() // F), "frames": F, "calls": len(edges) - 1,
            "max_row_rel_rms_vs_f64": float(rr.max()), "max_row_rel_rms_vs_plain": float(rr_plain.max()),
            "plain_max_row_rel_rms_vs_f64": float(rr_plain_f64.max()), "max_abs_err": max_abs,
-           "states_err_vs_f64": st_err}
+           "states_err_vs_f64": st_err, "two_runs_bit_equal": True}
     if host_model:
         v2 = v.reshape(-1, F).cpu()
 
         def rows(c):
             t = torch.as_tensor(c, dtype=torch.float32, device=v.device)
-            return torch.broadcast_to(t, v.shape[:-1] + (t.shape[-1] if coef_frames(c, F) else 1,)) \
+            return torch.broadcast_to(t, v.shape[:-1] + (t.shape[-1] if _frames_of(c, F) else 1,)) \
                 .reshape(v2.shape[0], -1).cpu()
+
         def state(c):
             return torch.as_tensor(c, dtype=torch.float32, device=v.device).reshape(-1).cpu()
-        model = dc.ballistics_blocked(v2, None if onepole else rows(rho), rows(a), state(0.0 if onepole else e0),
-                                      state(y0), None if floor is None else rows(floor), dc.BLOCK_FRAMES,
-                                      max_decay=not onepole)[0]
+        ys, ye, yl = [], state(0.0 if onepole else e0), state(y0)
+        for a0, b0 in zip(edges, edges[1:]):  # the model over the same calls, states handed on
+            cut = (lambda c: None if c is None else (c[:, a0:b0] if c.shape[-1] == F and F > 1 else c))
+            y, e_m, yl, _ = dc.ballistics_model(v2[:, a0:b0], None if onepole else cut(rows(rho)), cut(rows(a)), ye,
+                                                yl, None if floor is None else cut(rows(floor)),
+                                                max_decay=not onepole)
+            ye = ye if onepole else e_m
+            ys.append(y)
+        model = torch.cat(ys, dim=-1)
         out["vs_host_model_max_abs"] = float((got.reshape(-1, F).cpu() - model).abs().max())
+        check(out["vs_host_model_max_abs"] == 0.0 and torch.equal(y_last.reshape(-1).cpu(), yl),
+              f"{name}: the dynamics kernel is {out['vs_host_model_max_abs']:.3g} off its host model (bit-equal "
+              "expected)")
     if time_it:
-        framewise = sum(1 for c in ((a,) if onepole else (rho, a, floor)) if c is not None and coef_frames(c, F))
-        out["ms"], _ = _event_ms(torch, calls, 20)
-        # the kernels' own device time (the events above hold the wrapper's host work too)
-        out["device_ms"] = card_busy_ms(torch, calls)[0]
+        framewise = sum(1 for c in ((a,) if onepole else (rho, a, floor)) if c is not None and _frames_of(c, F))
+        call = dc.prepare_scan(v, rho, a, 0.0 if onepole else e0, y0, floor, max_decay=not onepole)
+        out["ms"] = _event_ms_batch(torch, call, 20)  # the launch alone, 20 in a row
+        out["ms_each"], _ = _event_ms(torch, call, 20)  # each bracketed by its own events
+        out["wrapper_ms"], _ = _event_ms(torch, calls, 20)
         plain = (lambda: dc.onepole_reference(v, a, y0)) if onepole else \
             (lambda: dc.ballistics_reference(v, rho, a, e0, y0, floor))
         out["plain_ms"], _ = _event_ms(torch, plain, 3)
         out.update(dynamics_bound(out["rows"], F, framewise, not onepole))
+        out["sub_frames"] = dc.sub_frames(out["rows"], F)
     print(f"[dynamics-vs-plain] {name}: " + json.dumps(out))
     return out
 
 
+def _stage_ref(kind, x, params, kw, row):
+    """The f64 sequential reference (``ops/dynamics.py::*_ref``) of row
+    ``row`` of a stage on ``x`` [B, C, F] with ``params`` [B, 1] / [B, F]."""
+    import numpy as np
+
+    from whitebox_tpu_torch.ops import dynamics as dyn
+
+    F = x.shape[-1]
+
+    def prm(name, default=0.0):
+        c = params.get(name, default)
+        t = torch_row(c, row, F)
+        return t
+
+    def torch_row(c, r, F):
+        if not hasattr(c, "shape") or c.dim() == 0:
+            return float(c)
+        c = c.reshape(-1, c.shape[-1])
+        c = c[r if c.shape[0] > 1 else 0]
+        return c.cpu().double().numpy() if c.shape[-1] == F and F > 1 else float(c[0])
+    xr = x[row].cpu().double().numpy()
+    key = kw.get("key")
+    key = key[row].cpu().double().numpy() if key is not None else (np.zeros_like(xr) if kw.get("silent_key")
+                                                                    else None)
+    if kind == "compressor":
+        return dyn.compressor_ref(xr, threshold_db=prm("threshold_db"), ratio=prm("ratio"), knee_db=prm("knee_db"),
+                                  attack=prm("attack"), release=prm("release"), makeup_db=prm("makeup_db"),
+                                  detector=kw.get("detector", "peak"), det_avg=prm("det_avg"), key=key)
+    if kind == "limiter":
+        return dyn.limiter_ref(xr, ceiling_db=prm("ceiling_db"), attack=prm("attack"), release=prm("release"),
+                               lookahead=kw.get("lookahead", 0))
+    return dyn.gate_ref(xr, threshold_db=prm("threshold_db"), range_db=prm("range_db"), attack=prm("attack"),
+                        release=prm("release"), hysteresis_db=prm("hyst_db"), key=key)
+
+
+def fused_vs_plain(name, torch, kind, x, params, state, pieces=(None,), host_model=False, ref_rows=(),
+                   ref_bar=5e-5, time_it=True, **kw) -> dict:
+    """A fused dynamics stage (``ops/dynamics.py``'s processor of ``kind``:
+    one launch of the kernel a call) on ``x`` [B, C, F] (in calls over the
+    frame ranges ``pieces`` splits it at, each handing its states to the
+    next) against its oracle (its torch form on the scans in f64, one call)
+    within :data:`DYNAMICS_REL_RMS` relative RMS per row and its states out
+    within 5e-6 of the oracle's scale; against its plain version (the torch
+    form on the f32 Hillis scans, one call) within that bar plus the plain
+    version's own distance from the oracle; a second run bit-equal; with
+    ``host_model``, against the torch model of the kernel on the host
+    (``dynamics_cuda.stage_model``, which shares its elementwise math with
+    the host's libm: within 1e-6 relative RMS, bit-equality printed); from
+    zero states, the rows ``ref_rows`` against the f64 sequential
+    references within ``ref_bar``; the launch alone by CUDA events (prepared
+    once: 20 in a row, and the median of 20 each bracketed), the plain
+    version's time and the stage's bound (:func:`fused_bound`)."""
+    import numpy as np
+
+    from whitebox_tpu_torch.ops import dynamics as dyn
+    from whitebox_tpu_torch.ops import dynamics_cuda as dc
+
+    proc = {"compressor": dyn.compressor_process, "limiter": dyn.limiter_process, "gate": dyn.gate_process}[kind]
+    B, C, F = x.shape
+    edges = [0, *[p for p in pieces if p is not None], F]
+
+    def part(c, a0, b0):
+        return c[..., a0:b0] if _frames_of(c, F) else c
+
+    def calls():
+        ys, st = [], state
+        for a0, b0 in zip(edges, edges[1:]):
+            y, st = proc(x[..., a0:b0], {k: part(c, a0, b0) for k, c in params.items()}, st,
+                         **{k: part(c, a0, b0) for k, c in kw.items()})
+            ys.append(y)
+        return torch.cat(ys, dim=-1), st
+    before = dc.dynamics_fused_launches
+    got, st = calls()
+    check(dc.dynamics_fused_launches == before + len(edges) - 1, f"{name}: the fused dynamics kernel did not launch")
+    again, st2 = calls()
+    plain, _ = dc.stage_torch(kind, x, params, state, **kw)
+    oracle, ost = dc.stage_torch(kind, x, params, state, dc.oracle_scans(), **kw)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()) and got.shape == x.shape, f"{name}: output {tuple(got.shape)}")
+    check(torch.equal(got, again) and all(torch.equal(st[k], st2[k]) for k in st),
+          f"{name}: two runs of the fused dynamics kernel differ")
+    rows = (-1, C * F)
+    rr = row_rel_rms(got.reshape(rows), oracle.reshape(rows))
+    rr_plain = row_rel_rms(got.reshape(rows), plain.reshape(rows))
+    rr_plain_f64 = row_rel_rms(plain.reshape(rows), oracle.reshape(rows))
+    check(bool((rr < DYNAMICS_REL_RMS).all()), f"{name}: fused kernel rows {rr.max():.3g} relative RMS off "
+          f"the f64 oracle (bar {DYNAMICS_REL_RMS})")
+    check(bool((rr_plain <= rr_plain_f64 + DYNAMICS_REL_RMS).all()),
+          f"{name}: fused kernel rows {rr_plain.max():.3g} relative RMS off the plain version, which is "
+          f"{rr_plain_f64.max():.3g} off the f64 oracle (bar {DYNAMICS_REL_RMS} + that)")
+    keys = [k for k in st if st[k].numel()]  # the limiter's look and xdelay are empty without a lookahead
+    st_err = max(float((st[k].double() - ost[k].double()).abs().max()) for k in keys)
+    scale = max(float(ost[k].abs().max()) for k in keys)
+    check(st_err <= DYNAMICS_REL_RMS * scale + 1e-6, f"{name}: states out {st_err:.3g} off the f64 oracle's")
+    out = {"kind": kind, "rows": B, "channels": C, "frames": F, "calls": len(edges) - 1,
+           "max_row_rel_rms_vs_f64": float(rr.max()), "max_row_rel_rms_vs_plain": float(rr_plain.max()),
+           "plain_max_row_rel_rms_vs_f64": float(rr_plain_f64.max()),
+           "max_abs_err": float((got - plain).abs().max()), "states_err_vs_f64": st_err,
+           "two_runs_bit_equal": True}
+    if host_model:
+        cpu = (lambda d: {k: c.cpu() if torch.is_tensor(c) else c for k, c in d.items()})
+        ys, mst = [], cpu(state)
+        for a0, b0 in zip(edges, edges[1:]):
+            y, mst = dc.stage_model(kind, x[..., a0:b0].cpu(), cpu({k: part(c, a0, b0) for k, c in params.items()}),
+                                    mst, **cpu({k: part(c, a0, b0) for k, c in kw.items()}))
+            ys.append(y)
+        model = torch.cat(ys, dim=-1)
+        got_h = got.cpu()
+        out["vs_host_model_max_abs"] = float((got_h - model).abs().max())
+        out["vs_host_model_bit_equal"] = bool(torch.equal(got_h, model))
+        rr_m = float(row_rel_rms(got_h.reshape(rows), model.reshape(rows)).max())
+        out["vs_host_model_max_row_rel_rms"] = rr_m
+        check(rr_m < 1e-6, f"{name}: the fused kernel is {rr_m:.3g} off its host model (bar 1e-6)")
+    if ref_rows:  # the references start from silence: one more call from zero states
+        got_np = proc(x, params, {k: torch.zeros_like(c) for k, c in state.items()}, **kw)[0].cpu().double().numpy()
+        worst = 0.0
+        for r in ref_rows:
+            worst = max(worst, rel_rms(got_np[r], _stage_ref(kind, x, params, kw, r)))
+        out["max_row_rel_rms_vs_f64_reference"] = worst
+        check(worst < ref_bar, f"{name}: {worst:.3g} off the f64 sequential reference (bar {ref_bar})")
+    if time_it:
+        call = dc.prepare_stage(kind, x, params, state, **kw)
+        out["ms"] = _event_ms_batch(torch, call, 20)  # the launch alone, 20 in a row
+        out["ms_each"], _ = _event_ms(torch, call, 20)  # each bracketed by its own events
+        out["plain_ms"], _ = _event_ms(torch, lambda: dc.stage_torch(kind, x, params, state, **kw), 3)
+        lanes = sum(1 for c in params.values() if _frames_of(c, F))
+        out.update(fused_bound(kind, B, C, F, key=kw.get("key") is not None, lanes=lanes,
+                               lookahead=kw.get("lookahead", 0), detector=kw.get("detector", "peak")))
+        out["sub_frames"] = dc.sub_frames(B, F, fused=True)
+    print(f"[dynamics-fused-vs-plain] {name}: " + json.dumps(out))
+    return out
+
+
+def dynamics_inputs(torch, kind, B, C, F, seed, *, lanes=(), key=False, silent_key=False, lookahead=0,
+                    detector="peak", hyst=0.0):
+    """Seeded inputs of a fused stage on the card: noise swelling from quiet
+    to loud on each row, parameters one a row (``lanes``: those one a
+    frame), random states -> (x, params, state, kw)."""
+    import numpy as np
+
+    from whitebox_tpu_torch.ops import dynamics as dyn
+
+    rng = np.random.default_rng(seed)
+    dev = torch.device("cuda")
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    swell = np.linspace(0.02, 1.6, F)[None, None, :]
+    x = t(rng.standard_normal((B, C, F)) * swell * rng.uniform(0.5, 1.5, (B, 1, 1)))
+
+    def row(lo, hi):
+        return t(rng.uniform(lo, hi, (B, 1)))
+
+    def tc(lo, hi):
+        return t(dyn.time_coef(rng.uniform(lo, hi, (B, 1)), RATE))
+    if kind == "compressor":
+        params = {"threshold_db": row(-30.0, -12.0), "ratio": row(2.0, 8.0), "knee_db": row(0.0, 8.0),
+                  "attack": tc(0.001, 0.02), "release": tc(0.05, 0.3), "makeup_db": row(-2.0, 4.0),
+                  "det_avg": tc(0.01, 0.05)}
+        state = {"red": row(0.0, 6.0)[:, 0], "att": row(0.0, 6.0)[:, 0], "det": row(0.0, 0.2)[:, 0]}
+    elif kind == "limiter":
+        params = {"ceiling_db": row(-6.0, -0.3), "attack": tc(0.0005, 0.002), "release": tc(0.02, 0.1)}
+        state = {"red": row(0.0, 3.0)[:, 0], "att": row(0.0, 3.0)[:, 0],
+                 "look": t(rng.uniform(0.0, 2.0, (B, lookahead))),
+                 "xdelay": t(rng.standard_normal((B, C, lookahead)) * 0.3)}
+    else:
+        params = {"threshold_db": row(-30.0, -10.0), "range_db": row(20.0, 80.0), "hyst_db": row(hyst, hyst),
+                  "attack": tc(0.0005, 0.005), "release": tc(0.05, 0.2)}
+        state = {"open": row(0.0, 1.0)[:, 0], "att": row(0.0, 1.0)[:, 0]}
+    for name in lanes:  # automation lanes: the parameter moves over the frames
+        base = params[name]
+        if name in ("attack", "release", "det_avg"):
+            params[name] = base ** t(np.linspace(0.5, 2.0, F))[None, :]
+        else:
+            params[name] = base + t(np.sin(np.linspace(0.0, 6.0, F)) * 4.0)[None, :]
+    kw = {}
+    if kind == "compressor":
+        kw["detector"] = detector
+    if kind == "limiter":
+        kw["lookahead"] = lookahead
+    if key:
+        kw["key"] = t(rng.standard_normal((B, C, F)) * swell[:, :, ::-1] * 0.8)
+    if silent_key:
+        kw["silent_key"] = True
+    return x, params, state, kw
+
+
 def phase_dynamics_small(torch) -> None:
-    """The dynamics kernel against its plain version (the Hillis scans) on
-    1, 2, 7 and 256 rows: frames fewer than a block and not a multiple of
+    """The dynamics kernel against its plain versions. The unfused kinds
+    (the ballistics and the one-pole of ``parallel/effects_sharded.py``) on
+    1, 2, 7, 64 and 256 rows: frames fewer than a tile and not a multiple of
     one, per-row and per-frame coefficients (automation lanes), states
     handed over between two calls, the gate's floor, the RMS detector's
-    one-pole; relative RMS 5e-6 per row, the states out, and on the small
-    cases the host model of the kernel's blocks and carries."""
+    one-pole; relative RMS 5e-6 per row, the states out, two runs bit-equal,
+    and on the small cases bit-equal to the host model. The fused kinds
+    (one launch a compressor, limiter or gate call): at the paths' shapes
+    (64 stereo compressor rows and the master limiter, 2^18 frames), timed
+    with their bounds; a peak and an RMS compressor with a key and a
+    silent key, per-frame lanes, a limiter with and without lookahead, a
+    gate with hysteresis and a keyed one with a per-frame range, states
+    over two chunks, mono, a row shorter than a tile; against the oracle
+    and the plain version, on the small cases the host model and the f64
+    sequential references (5e-5; 2e-4 with lanes)."""
     import numpy as np
 
     from whitebox_tpu_torch.ops import dynamics_cuda as dc
@@ -1547,25 +1818,25 @@ def phase_dynamics_small(torch) -> None:
     def coefs(B, lo, hi):
         return t(rng.uniform(lo, hi, (B, 1)))
 
-    L = dc.BLOCK_FRAMES
-    cases = [("one_row_short", 1, 700), ("two_rows_ragged", 2, 5 * L + 333), ("seven_rows", 7, 3 * L),
-             ("rows_256", 256, 1 << 18)]
+    T = 32 * 32  # a tile of the few-row calls
+    cases = [("one_row_short", 1, 700), ("two_rows_ragged", 2, 5 * T + 333), ("seven_rows", 7, 3 * T),
+             ("rows_64", 64, DYNAMICS_PATH_FRAMES), ("rows_256", 256, DYNAMICS_PATH_FRAMES)]
     for name, B, F in cases:
         v = target(B, F)
         e0, y0 = t(rng.uniform(0, 3, B)), t(rng.uniform(0, 3, B))
         dynamics_vs_plain(name, torch, v, coefs(B, 0.99, 0.99999), coefs(B, 0.9, 0.9999), e0, y0,
-                          host_model=B <= 7, time_it=B == 256)
-    B, F = 7, 4 * L + 77
+                          host_model=B <= 7, time_it=F == DYNAMICS_PATH_FRAMES)
+    B, F = 7, 4 * T + 77
     v = target(B, F)
     lanes = (t(rng.uniform(0.995, 0.99999, (B, F))), t(rng.uniform(0.95, 0.9999, (B, F))))
     zeros = torch.zeros(B, device=dev)
     dynamics_vs_plain("per_frame_coefficients", torch, v, *lanes, zeros, zeros, host_model=True, time_it=False)
     dynamics_vs_plain("states_over_two_calls", torch, v, *lanes, t(rng.uniform(0, 3, B)), t(rng.uniform(0, 3, B)),
-                      pieces=(L + 500,), host_model=True, time_it=False)
+                      pieces=(T + 500,), host_model=True, time_it=False)
     gate = t(np.clip(rng.random((B, F)) * 1.3, 0.05, 1.0))
     floor = coefs(B, 0.05, 0.3)
     dynamics_vs_plain("gate_floor", torch, gate, coefs(B, 0.999, 0.9999), coefs(B, 0.9, 0.999), zeros, zeros,
-                      floor=floor, pieces=(2 * L,), host_model=True, time_it=False)
+                      floor=floor, pieces=(2 * T,), host_model=True, time_it=False)
     dynamics_vs_plain("gate_floor_per_frame", torch, gate, coefs(B, 0.999, 0.9999), lanes[1], zeros, zeros,
                       floor=t(rng.uniform(0.05, 0.3, (B, F))), host_model=True, time_it=False)
     power = t(rng.standard_normal((B, F)) ** 2)
@@ -1573,6 +1844,34 @@ def phase_dynamics_small(torch) -> None:
                       t(rng.uniform(0, 1, B)), pieces=(3000,), onepole=True, host_model=True, time_it=False)
     # leading batch dims as the generic finisher passes them (rows of a group), and a 1-D row
     dynamics_vs_plain("one_dimensional_row", torch, v[0], 0.9995, 0.99, 0.5, 0.25, time_it=False)
+
+    # the fused kinds: the paths' shapes first, then the small cases
+    P = DYNAMICS_PATH_FRAMES
+    fused = [("compressor_peak_64x2x2^18", "compressor", 64, 2, P, {}, {}),
+             ("limiter_lookahead_1x2x2^18", "limiter", 1, 2, P, {"lookahead": 240}, {}),
+             ("gate_16x2x2^18", "gate", 16, 2, P, {"hyst": 3.0}, {}),
+             ("compressor_rms_key", "compressor", 4, 2, 20000, {"detector": "rms", "key": True},
+              {"host_model": True, "ref_rows": (0, 3), "pieces": (7000,)}),
+             ("compressor_peak_silent_key", "compressor", 3, 2, 9000, {"silent_key": True},
+              {"host_model": True, "ref_rows": (1,)}),
+             ("compressor_rms_silent_key", "compressor", 3, 2, 9000, {"detector": "rms", "silent_key": True},
+              {"host_model": True, "ref_rows": (2,)}),
+             ("compressor_lanes", "compressor", 3, 2, 30000, {"lanes": ("threshold_db", "release")},
+              {"host_model": True, "ref_rows": (0,), "ref_bar": 2e-4, "pieces": (11111,)}),
+             ("limiter_lookahead_two_chunks", "limiter", 2, 2, 50000, {"lookahead": 240},
+              {"host_model": True, "ref_rows": (1,), "pieces": (20000,)}),
+             ("limiter_lookahead_lanes", "limiter", 2, 2, 30000, {"lookahead": 97, "lanes": ("ceiling_db",)},
+              {"host_model": True, "ref_rows": (0,), "ref_bar": 2e-4}),
+             ("limiter_no_lookahead", "limiter", 5, 2, 12000, {}, {"host_model": True, "ref_rows": (4,)}),
+             ("gate_hysteresis", "gate", 8, 2, 30000, {"hyst": 6.0},
+              {"host_model": True, "ref_rows": (0, 7), "pieces": (9999,)}),
+             ("gate_key_range_lane", "gate", 3, 2, 20000, {"key": True, "lanes": ("range_db", "attack")},
+              {"host_model": True, "ref_rows": (1,), "ref_bar": 2e-4}),
+             ("mono_row_shorter_than_a_tile", "compressor", 2, 1, 700, {"detector": "rms"},
+              {"host_model": True, "ref_rows": (0, 1)})]
+    for i, (name, kind, B, C, F, inputs, opts) in enumerate(fused):
+        x, params, state, kw = dynamics_inputs(torch, kind, B, C, F, 100 + i, **inputs)
+        fused_vs_plain(name, torch, kind, x, params, state, time_it=F == P, **opts, **kw)
 
 
 def phase_effects(torch) -> dict:
@@ -2223,14 +2522,14 @@ def generic_kind_vs_cpu_and_f64(torch, name, chain, lanes, frames=16 * 512, chun
     tg = np.array([[np.float32(t.volume_linear * np.float32(t.pan_coeffs[c])) for c in range(2)]
                    for t in s.tracks], np.float32)
     outs = {}
-    before, dyn_before = biquad_cuda.biquad_cascade_launches, dynamics_cuda.dynamics_scan_launches
+    before, dyn_before = biquad_cuda.biquad_cascade_launches, dynamics_cuda.dynamics_fused_launches
     for dev in ("cuda", "cpu"):
         fx = gen.prepare_generic_fx(s, RATE)
         fin = gen.make_generic_finisher(fx, 3, 2, chunk=chunk, device=dev)
         outs[dev] = fin(torch.from_numpy(pt).to(dev), torch.from_numpy(tg).to(dev),
                         prepare_automation_tables(s, RATE, device=dev)).cpu().numpy()
     cascades = biquad_cuda.biquad_cascade_launches - before
-    dynamics = dynamics_cuda.dynamics_scan_launches - dyn_before
+    dynamics = dynamics_cuda.dynamics_fused_launches - dyn_before
     ref = gen.reference_generic_finish(pt, s, RATE)
     rr_cpu, rr_f64 = rel_rms(outs["cuda"], outs["cpu"]), rel_rms(outs["cuda"], ref)
     bar = LANES_F64_REL_RMS if lanes else GENERIC_F64_REL_RMS
@@ -2242,7 +2541,7 @@ def generic_kind_vs_cpu_and_f64(torch, name, chain, lanes, frames=16 * 512, chun
           f"{name}: {cascades} cascade launches for its static biquad stages")
     has_dynamics = any(type(e).__name__ in ("Compressor", "Limiter", "NoiseGate") for e in chain)
     check(dynamics > 0 if has_dynamics else dynamics == 0,
-          f"{name}: {dynamics} dynamics kernel launches for its dynamics stages")
+          f"{name}: {dynamics} fused dynamics kernel launches for its dynamics stages")
     print(f"[generic-small] {name}: finisher on the card vs CPU relative RMS {rr_cpu:.3g} "
           f"(< {GENERIC_REL_RMS}), vs f64 reference {rr_f64:.3g} (< {bar}); cascade kernel launches "
           f"{cascades}, dynamics kernel launches {dynamics}")
@@ -2267,8 +2566,10 @@ def phase_gather_small(torch) -> dict:
     return dense
 
 
-def card_busy_ms(torch, fn):
+def card_busy_ms(torch, fn, names=None):
     """One profiled call of ``fn`` after a warm one -> (busy_ms, stage_ms).
+    ``names``, a dict when given, gets for each ``wb.*`` range label the set
+    of the device kernels' names that ran inside its span.
     ``busy_ms``: the card's busy time, the sum of the device kernels
     ``torch.profiler`` records (the operators' device time repeats them,
     so only the kernels' own events count; None when it records none).
@@ -2300,15 +2601,17 @@ def card_busy_ms(torch, fn):
             if e.name.startswith("wb."):
                 spans.append((e.time_range.start, e.time_range.end, e.name[3:]))
             else:
-                kernels.append((e.time_range.start, e.time_range.end))
+                kernels.append((e.time_range.start, e.time_range.end, e.name))
     kernels.sort()
     stages, span_ms = {}, {}
     for a, b, label in spans:
         inside = 0.0
-        for k0, k1 in kernels[bisect.bisect_left(kernels, (a,)):]:
+        for k0, k1, kname in kernels[bisect.bisect_left(kernels, (a,)):]:
             if k0 >= b:
                 break
             inside += min(k1, b) - k0
+            if names is not None:
+                names.setdefault(label, set()).add(kname)
         stages[label] = stages.get(label, 0.0) + inside / 1e3
         span_ms[f"span:{label}"] = span_ms.get(f"span:{label}", 0.0) + (b - a) / 1e3
     if busy_us > 0:
@@ -2317,6 +2620,24 @@ def card_busy_ms(torch, fn):
     print("[profile] " + events.table(sort_by="device_time_total", row_limit=14,
                                        max_name_column_width=60).replace("\n", "\n[profile] "))
     return (busy_us / 1e3 if busy_us > 0 else None), stages
+
+
+def dynamics_stages(name, parts, names) -> dict:
+    """The busy ms of the dynamics stages' ``wb.*`` ranges (compressor,
+    limiter, gate) in a :func:`card_busy_ms` trace, each checked to run the
+    fused dynamics kernel and nothing but it and the memset of its flags:
+    no torch-op detector, curve or gain."""
+    out = {}
+    for label, ms in parts.items():
+        if label.startswith("span:") or label.split(".")[-1] not in ("compressor", "limiter", "gate"):
+            continue
+        ran = names.get(label, set())
+        others = sorted(k for k in ran if "dyn_kernel" not in k and "memset" not in k.lower())
+        check(any("dyn_kernel" in k for k in ran), f"{name}: {label} ran no fused dynamics kernel")
+        check(not others, f"{name}: {label} ran {others} beside the fused dynamics kernel")
+        out[label] = ms
+    print(f"[{name}] dynamics stages' busy ms (profiler, the fused kernel alone in each range): " + json.dumps(out))
+    return out
 
 
 def phase_generic(torch) -> dict:
@@ -2345,16 +2666,18 @@ def phase_generic(torch) -> dict:
     res = bounce(session, RATE, device="cuda")
     bounce_peak = torch.cuda.max_memory_allocated() / 1e9
     k4, casc = mix_cuda.mix_per_track_launches, biquad_cuda.biquad_cascade_launches
-    dyn_launches = dynamics_cuda.dynamics_scan_launches
+    dyn_launches = dynamics_cuda.dynamics_fused_launches
     check(k4 == 1 and mix_cuda.mix_kernel_launches == 0 and mix_cuda.mix_auto_launches == 0,
           f"{name}: mix launches {mix_launches()} (want one K4)")
     check(casc > 0, f"{name}: the static EQ and highpass stages never ran the cascade kernel")
-    check(dyn_launches > 0, f"{name}: the compressor stages never ran the dynamics kernel")
+    check(dyn_launches > 0 and dynamics_cuda.dynamics_scan_launches == 0,
+          f"{name}: the compressor and limiter stages ran the fused dynamics kernel {dyn_launches} times and "
+          f"the unfused one {dynamics_cuda.dynamics_scan_launches} (want one fused launch a call)")
     check(res.stats.mix_path == "kernel" and np.isfinite(res.audio).all()
           and float(np.abs(res.audio).max()) > 0.01, f"{name}: output")
     print(f"[{name}] bounce(device='cuda'): {res.stats.summary()}; finisher "
           f"{res.stats.finish_seconds * 1e3:.3f} ms; K4 launches={k4}; cascade kernel launches={casc}; "
-          f"dynamics kernel launches={dyn_launches}; peak memory {bounce_peak:.2f} GB")
+          f"fused dynamics kernel launches={dyn_launches}; peak memory {bounce_peak:.2f} GB")
 
     table, pool = carve_session(session, RATE, buffer_size=512, slow_emit="runs")
     warm = mix_cuda.CudaMixRenderer(table, pool, session, device="cuda")
@@ -2365,18 +2688,22 @@ def phase_generic(torch) -> dict:
     fx = gen.prepare_generic_fx(session, RATE, C)
     chunk = gen.auto_chunk_frames(fx, device=dev)
     f10, f2 = int(10 * RATE), int(2 * RATE)
-    # the dynamics kernel at full width: the first compressor group's gain
-    # reductions over the finisher's first chunk, against the plain scans
+    # the dynamics kernel at full width on the first compressor group's first
+    # chunk: the fused stage, and its ballistics alone on the group's gain
+    # reductions (the frame-sharded stages' form), against their plain versions
     gp, _ = gen.device_params(fx, dev)
-    group, prm = next((g, prm) for g, plist in zip(fx.groups, gp)
-                      for (kind, _, _), prm in zip(g.stages, plist) if kind == "compressor")
+    group, static, prm = next((g, static, prm) for g, plist in zip(fx.groups, gp)
+                              for (kind, static, _), prm in zip(g.stages, plist) if kind == "compressor")
     col = {k: v[:, None] for k, v in prm.items() if k != "auto"}
-    lvl = pt[torch.as_tensor(np.asarray(group.track_idx), device=dev), :, :chunk].abs().amax(dim=-2)
-    r_db = dyn.compressor_reduction_db(dyn._level_db(lvl), col["threshold_db"], col["ratio"], col["knee_db"])
-    zrow = torch.zeros(r_db.shape[0], device=dev)
-    dyn_full = dynamics_vs_plain(f"{name}_compressor_full_width", torch, r_db, col["release"], col["attack"],
-                                 zrow, zrow)
-    del lvl, r_db
+    xg = pt[torch.as_tensor(np.asarray(group.track_idx), device=dev), :, :chunk]
+    zrow = torch.zeros(xg.shape[0], device=dev)
+    fused_full = fused_vs_plain(f"{name}_compressor_stage_full_width", torch, "compressor", xg, col,
+                                {"red": zrow, "att": zrow, "det": zrow}, detector=static[0])
+    r_db = dyn.compressor_reduction_db(dyn._level_db(xg.abs().amax(dim=-2)), col["threshold_db"], col["ratio"],
+                                       col["knee_db"])
+    dyn_full = dynamics_vs_plain(f"{name}_compressor_ballistics_full_width", torch, r_db, col["release"],
+                                 col["attack"], zrow, zrow)
+    del xg, r_db
     t0 = time.perf_counter()
     on_card = gen.make_generic_finisher(fx, T, C, chunk=chunk, device=dev, valid_frames=f10)(
         pt[:, :, :f10], tg).cpu().numpy()
@@ -2414,7 +2741,9 @@ def phase_generic(torch) -> dict:
     k4_ms, _ = _event_ms(torch, lambda: mix_cuda.mix_per_track_cuda(warm.pool_device, warm.tables, p.n_tiles,
                                                                     p.tile, C), 10)
     finish_ms, finish_all = _event_ms(torch, lambda: finish(pt), 3)
-    busy_ms, parts = card_busy_ms(torch, lambda: finish(pt))
+    names = {}
+    busy_ms, parts = card_busy_ms(torch, lambda: finish(pt), names)
+    dyn_stages = dynamics_stages(name, parts, names)
     sweep = {}
     for c in GENERIC_CHUNK_SWEEP:
         torch.cuda.synchronize()
@@ -2439,7 +2768,7 @@ def phase_generic(torch) -> dict:
         "finish_bound_bytes": fcost.hbm_bytes,
         "bounce_peak_mem_gb": bounce_peak, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "k4_launches": k4, "cascade_launches": casc, "dynamics_launches": dyn_launches,
-        "dynamics_full_width": dyn_full,
+        "dynamics_full_width": dyn_full, "dynamics_fused_full_width": fused_full, "dynamics_stage_ms": dyn_stages,
     }
     print(f"[{name}] " + json.dumps(stats))
     print(f"[{name}] " + sh(["nvidia-smi", "--query-gpu=name,power.limit,power.draw,clocks.sm,"
@@ -2637,15 +2966,17 @@ def phase_routed(torch) -> dict:
     res = bounce(session, RATE, device="cuda")
     bounce_peak = torch.cuda.max_memory_allocated() / 1e9
     k4_launches, casc = mix_launches(), biquad_cuda.biquad_cascade_launches
-    dyn_launches = dynamics_cuda.dynamics_scan_launches
+    dyn_launches = dynamics_cuda.dynamics_fused_launches
     check(res.stats.mix_path == "kernel" and k4_launches == {"mix": 0, "auto": 0, "per_track": 1},
           f"{name}: path {res.stats.mix_path}, mix launches {k4_launches} (want one K4)")
     check(casc > 0, f"{name}: the EQ buses and the master highpass never ran the cascade kernel")
-    check(dyn_launches > 0, f"{name}: the ducking bus and the master limiter never ran the dynamics kernel")
+    check(dyn_launches > 0 and dynamics_cuda.dynamics_scan_launches == 0,
+          f"{name}: the bus compressors and the master limiter ran the fused dynamics kernel {dyn_launches} "
+          f"times and the unfused one {dynamics_cuda.dynamics_scan_launches} (want one fused launch a call)")
     check(np.isfinite(res.audio).all() and float(np.abs(res.audio).max()) > 0.01, f"{name}: output")
     print(f"[{name}] bounce(device='cuda'): {res.stats.summary()}; finisher "
           f"{res.stats.finish_seconds * 1e3:.3f} ms; K4 launches={k4_launches['per_track']}; "
-          f"cascade kernel launches={casc}; dynamics kernel launches={dyn_launches}; "
+          f"cascade kernel launches={casc}; fused dynamics kernel launches={dyn_launches}; "
           f"peak memory {bounce_peak:.2f} GB")
 
     table, pool = carve_session(session, RATE, buffer_size=512, slow_emit="runs")
@@ -2697,7 +3028,9 @@ def phase_routed(torch) -> dict:
     k4_ms, _ = _event_ms(torch, lambda: mix_cuda.mix_per_track_cuda(warm.pool_device, warm.tables, p.n_tiles,
                                                                     p.tile, C), 10)
     finish_ms, finish_all = _event_ms(torch, lambda: finish(pt), 3)
-    busy_ms, parts = card_busy_ms(torch, lambda: finish(pt))
+    names = {}
+    busy_ms, parts = card_busy_ms(torch, lambda: finish(pt), names)
+    dyn_stages = dynamics_stages(name, parts, names)
     auto = prepare_automation_tables(session, RATE, device=dev)
     sweep = {}
     for c in ROUTED_CHUNK_SWEEP:
@@ -2724,7 +3057,7 @@ def phase_routed(torch) -> dict:
         "xla_device_ms": xla.stats.device_seconds * 1e3, "xla_wall_ms": xla.stats.wall_seconds * 1e3,
         "bounce_peak_mem_gb": bounce_peak, "peak_mem_gb": peak,
         "k4_launches": k4_launches["per_track"], "cascade_launches": casc, "dynamics_launches": dyn_launches,
-        "xla_launches": xla_launches,
+        "dynamics_stage_ms": dyn_stages, "xla_launches": xla_launches,
     }
     print(f"[{name}] " + json.dumps(stats))
     print(f"[{name}] " + sh(["nvidia-smi", "--query-gpu=name,power.limit,power.draw,clocks.sm,"
@@ -2975,11 +3308,12 @@ def stems_cell(torch, name: str, session, kind: str, rows: list) -> dict:
     stems, names = render_stems(session, RATE, device="cuda")
     peak = torch.cuda.max_memory_allocated() / 1e9
     launches, casc = mix_launches(), biquad_cuda.biquad_cascade_launches
-    dyn_launches = dynamics_cuda.dynamics_scan_launches
+    dyn_launches = dynamics_cuda.dynamics_fused_launches
     check(launches == {"mix": 0, "auto": 0, "per_track": 1}, f"{name}: mix launches {launches} (want one K4)")
     check(casc > 0, f"{name}: the stems finisher never ran the cascade kernel")
-    check(dyn_launches > 0 if kind == "generic" else dyn_launches == 0,
-          f"{name}: {dyn_launches} dynamics kernel launches (the generic stems' compressors run it)")
+    check((dyn_launches > 0 if kind == "generic" else dyn_launches == 0) and dynamics_cuda.dynamics_scan_launches == 0,
+          f"{name}: {dyn_launches} fused and {dynamics_cuda.dynamics_scan_launches} unfused dynamics kernel "
+          "launches (the generic stems' compressors run the fused one)")
     T, C, F = stems.shape
     check(T == len(session.tracks) == len(names) and np.isfinite(stems).all(), f"{name}: stems {stems.shape}")
 
@@ -3000,7 +3334,7 @@ def stems_cell(torch, name: str, session, kind: str, rows: list) -> dict:
     rr = max(rel_rms(stems[t, :, :f10], on_cpu[i]) for i, t in enumerate(rows))
     check(rr < GENERIC_REL_RMS, f"{name}: the stems' first 10 s {rr:.3g} off the CPU's")
     print(f"[{name}] render_stems(device='cuda'): {T} stems x {F} frames; K4 launches=1, cascade kernel "
-          f"launches={casc}, dynamics kernel launches={dyn_launches}, peak memory {peak:.2f} GB; the stems' sum max abs {sum_err:.3g} off the "
+          f"launches={casc}, fused dynamics kernel launches={dyn_launches}, peak memory {peak:.2f} GB; the stems' sum max abs {sum_err:.3g} off the "
           f"pre-master bounce (<= 5e-5); first 10 s of stems {rows} vs the CPU relative RMS max {rr:.3g} "
           f"(< {GENERIC_REL_RMS}; CPU {cpu_s:.1f} s)")
     del stems, on_cpu
@@ -3009,6 +3343,11 @@ def stems_cell(torch, name: str, session, kind: str, rows: list) -> dict:
     auto = prepare_automation_tables(session, RATE, device="cuda")
     finish = _stems_finisher(session, kind, "cuda")
     fin_ms, fin_all = _event_ms(torch, lambda: finish(pt, tg, auto), 3)
+    dyn_stages = None
+    if kind == "generic":
+        names = {}
+        _, parts = card_busy_ms(torch, lambda: finish(pt, tg, auto), names)
+        dyn_stages = dynamics_stages(name, parts, names)
     out = finish(pt, tg, auto)
     read_ms, _, _ = _wall_ms(torch, lambda: out.cpu().shape)
     pinned = _pinned_readback(torch, out)
@@ -3018,7 +3357,7 @@ def stems_cell(torch, name: str, session, kind: str, rows: list) -> dict:
              "readback_ms": read_ms, "stems_gb": out.numel() * 4 / 1e9,
              "readback_gb_per_s": out.numel() * 4 / 1e9 / (read_ms / 1e3), **pinned, "peak_mem_gb": peak,
              "sum_max_abs": sum_err, "cpu_rel_rms_max": rr, "k4_launches": 1, "cascade_launches": casc,
-             "dynamics_launches": dyn_launches}
+             "dynamics_launches": dyn_launches, "dynamics_stage_ms": dyn_stages}
     print(f"[{name}] " + json.dumps(stats))
     del pt, out
     return stats
@@ -3753,7 +4092,8 @@ def _sharded_run(torch, mesh, name, session, keep_audio=True) -> dict:
            "staged_copy_s": collectives.staging["seconds"],
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
            "cascade_launches": biquad_cuda.biquad_cascade_launches,
-           "dynamics_launches": dynamics_cuda.dynamics_scan_launches, "mix_launches": mix_launches(),
+           "dynamics_launches": dynamics_cuda.dynamics_scan_launches,
+           "dynamics_fused_launches": dynamics_cuda.dynamics_fused_launches, "mix_launches": mix_launches(),
            "sha256": hashlib.sha256(audio.tobytes()).hexdigest()}
     if keep_audio:
         rec["audio"] = audio
@@ -4066,17 +4406,27 @@ def main() -> int:
                            "preview_32trk": preview["cascade_launches"],
                            "stream_takes_eq_128trk": stream["eq_cascade_launches"],
                            **sharded["cell_launches"], **launched("biquad_cascade")}},
-        {"name": "dynamics_scan", "route": "cuda", "source": "whitebox_tpu_torch/csrc/dynamics_scan.cu",
-         "replaces": "whitebox_tpu/ops/dynamics.py:53,79 (onepole_scan_t, maxdecay_scan_t: XLA Hillis scans "
-                     "there, torch ops in the port, not a TPU kernel)",
+        {"name": "dynamics_fused", "route": "cuda", "source": "whitebox_tpu_torch/csrc/dynamics_scan.cu",
+         "replaces": "whitebox_tpu/ops/dynamics.py:167,190,229 (compressor_process, limiter_process, "
+                     "gate_process: XLA programs there, torch ops in the port, not a TPU kernel)",
          "launches": generic["dynamics_launches"],
-         **{k: generic["dynamics_full_width"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
-         # no PyTorch call runs a max-decay or one-pole recurrence
+         **{k: generic["dynamics_fused_full_width"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                                  "bound_by")},
+         # no PyTorch call runs a compressor, limiter or gate
          "library_ms": None,
          "cell_launches": {"generic_fx_128trk": generic["dynamics_launches"],
                            "routed_sidechain_128trk": routed["dynamics_launches"],
                            "stems_generic_128trk": stems_generic["dynamics_launches"],
-                           **sharded["dynamics_cell_launches"], **launched("dynamics_scan")}},
+                           **launched("dynamics_fused")}},
+        {"name": "dynamics_scan", "route": "cuda", "source": "whitebox_tpu_torch/csrc/dynamics_scan.cu",
+         "replaces": "whitebox_tpu/ops/dynamics.py:53,79 (onepole_scan_t, maxdecay_scan_t: XLA Hillis scans "
+                     "there, torch ops in the port, not a TPU kernel)",
+         # the frame-sharded stages run the recurrences alone
+         "launches": sharded["dynamics_cell_launches"]["sharded_1x1_generic_fx_128trk"],
+         **{k: generic["dynamics_full_width"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+         # no PyTorch call runs a max-decay or one-pole recurrence
+         "library_ms": None,
+         "cell_launches": {**sharded["dynamics_cell_launches"], **launched("dynamics_scan")}},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["device"],
                                              "count": env["device_count"]}}))

@@ -303,10 +303,76 @@ def test_cascade_kernel_on_small_rows(card):
 
 
 def test_dynamics_kernel_on_small_rows(card):
-    """The dynamics kernel against the f64 oracle and its plain version on
-    1, 2, 7 and 256 rows, ragged blocks, lanes, states over two calls, the
-    gate's floor and the RMS detector (``chip_smoke.phase_dynamics_small``)."""
+    """The dynamics kernel against the f64 oracle and its plain versions:
+    the recurrences alone on 1, 2, 7, 64 and 256 rows, ragged tiles, lanes,
+    states over two calls, the gate's floor and the RMS detector; the fused
+    compressor, limiter and gate at the paths' shapes and on the small
+    cases (``chip_smoke.phase_dynamics_small``)."""
     chip_smoke.phase_dynamics_small(torch)
+
+
+#: fused dynamics cases: kind, rows, channels, frames, inputs, checks
+FUSED_CASES = {
+    "compressor_rms_key_two_chunks": ("compressor", 4, 2, 20000, {"detector": "rms", "key": True},
+                                      {"pieces": (7000,), "ref_rows": (0,)}),
+    "compressor_peak_silent_key": ("compressor", 3, 2, 9000, {"silent_key": True}, {"ref_rows": (1,)}),
+    "compressor_rms_silent_key": ("compressor", 2, 2, 9000, {"detector": "rms", "silent_key": True},
+                                  {"ref_rows": (0,)}),
+    "compressor_lanes": ("compressor", 3, 2, 30000, {"lanes": ("threshold_db", "release", "det_avg"),
+                                                     "detector": "rms"}, {"ref_rows": (2,), "ref_bar": 2e-4}),
+    "limiter_lookahead_two_chunks": ("limiter", 2, 2, 50000, {"lookahead": 240},
+                                     {"pieces": (20000,), "ref_rows": (1,)}),
+    "limiter_lookahead_longer_than_a_tile": ("limiter", 1, 2, 9000, {"lookahead": 2500}, {"ref_rows": (0,)}),
+    "limiter_no_lookahead": ("limiter", 5, 1, 12000, {}, {"ref_rows": (4,)}),
+    "gate_hysteresis_two_chunks": ("gate", 8, 2, 30000, {"hyst": 6.0}, {"pieces": (9999,), "ref_rows": (7,)}),
+    "gate_key_range_lane": ("gate", 3, 2, 20000, {"key": True, "lanes": ("range_db", "attack")},
+                            {"ref_rows": (1,), "ref_bar": 2e-4}),
+    "mono_row_shorter_than_a_tile": ("compressor", 2, 1, 700, {"detector": "rms"}, {"ref_rows": (0, 1)}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FUSED_CASES))
+def test_fused_dynamics_kernel(card, case):
+    """One fused launch a compressor, limiter or gate call against its f64
+    oracle (5e-6 a row), its plain version (5e-6 plus the plain scans' own
+    distance), its host model (1e-6), the f64 sequential references (5e-5,
+    2e-4 with lanes); two runs bit-equal."""
+    kind, B, C, F, inputs, opts = FUSED_CASES[case]
+    x, params, state, kw = chip_smoke.dynamics_inputs(torch, kind, B, C, F, 7, **inputs)
+    chip_smoke.fused_vs_plain(case, torch, kind, x, params, state, host_model=True, time_it=False, **opts, **kw)
+
+
+@pytest.mark.parametrize("kind", ["compressor", "gate"])
+def test_silent_key_on_the_card_is_an_explicit_zero_key(card, kind):
+    """The generic finisher's sidechain stage with nothing routed: the
+    silent-key flag gives the output of a key of zeros, bit for bit."""
+    from whitebox_tpu_torch.ops import dynamics_cuda
+    from whitebox_tpu_torch.render import effects_generic as gen
+
+    x, params, state, _ = chip_smoke.dynamics_inputs(torch, kind, 3, 2, 30000, 11, detector="rms")
+    flat = {k: v[:, 0] for k, v in params.items()}  # one value a row, as the finisher holds them
+    static = ("rms", True) if kind == "compressor" else (True,)
+    before = dynamics_cuda.dynamics_fused_launches
+    silent, s_state = gen._apply_stage(kind, static, flat, x, state, 0, 48000.0)
+    zeros, z_state = gen._apply_stage(kind, static, flat, x, state, 0, 48000.0, key=torch.zeros_like(x))
+    assert dynamics_cuda.dynamics_fused_launches == before + 2
+    assert torch.equal(silent, zeros) and all(torch.equal(s_state[k], z_state[k]) for k in s_state)
+
+
+def test_the_card_launches_the_kernel_or_raises(card):
+    """A CUDA tensor never falls back to torch ops: a launch the kernel
+    refuses raises, and so does a call its wrapper cannot prepare."""
+    from whitebox_tpu_torch.ops import dynamics_cuda
+
+    x, params, state, kw = chip_smoke.dynamics_inputs(torch, "compressor", 2, 2, 5000, 13)
+    call = dynamics_cuda.prepare_stage("compressor", x, params, state, **kw)
+    call.args.l = 48  # not a sub-block length the kernel takes
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        call()
+    with pytest.raises(ValueError, match="shared memory"):
+        dynamics_cuda.prepare_stage("limiter", x, {"ceiling_db": -1.0, "attack": 0.9, "release": 0.99},
+                                    {"red": 0.0, "att": 0.0, "look": torch.zeros(30000, device="cuda"),
+                                     "xdelay": torch.zeros((2, 30000), device="cuda")}, lookahead=30000)
 
 
 def _dynamics_session():
@@ -325,14 +391,14 @@ def _dynamics_session():
 def test_bounces_run_the_dynamics_kernel(card, kind):
     """A generic bounce (compressors, an RMS detector, a gate, limiters) and
     the routed small session (a ducking bus, a master limiter) on the card:
-    the dynamics kernel launched, within relative RMS 1e-5 of the same
-    bounce on the CPU (the finishers' bar)."""
+    the fused dynamics kernel launched (the unfused kinds not), within
+    relative RMS 1e-5 of the same bounce on the CPU (the finishers' bar)."""
     from whitebox_tpu_torch.ops import dynamics_cuda
 
     s = _dynamics_session() if kind == "generic" else chip_smoke.routed_small()
     chip_smoke.reset_launches()
     got = bounce(s, 48000.0, device="cuda")
-    assert dynamics_cuda.dynamics_scan_launches > 0
+    assert dynamics_cuda.dynamics_fused_launches > 0 and dynamics_cuda.dynamics_scan_launches == 0
     want = bounce(s, 48000.0, device="cpu")
     assert got.audio.shape == want.audio.shape
     assert chip_smoke.rel_rms(got.audio, want.audio) < chip_smoke.GENERIC_REL_RMS

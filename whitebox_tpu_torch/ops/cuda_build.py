@@ -1,5 +1,5 @@
 """Build and bind the port's CUDA kernels (``csrc/*.cu``: the mix kernel,
-the biquad cascade, the dynamics scan).
+the biquad cascade, the dynamics kernel).
 
 Counterpart of ``whitebox_tpu/io/native.py:23-110``, the repo's make +
 ctypes idiom for native code: the sources are compiled at first use by
@@ -93,11 +93,8 @@ def load() -> ctypes.CDLL:
     # resp, state_in, state_out, ints, doubles, stream
     lib.wb_biquad_cascade.restype = ci
     lib.wb_biquad_cascade.argtypes = [vp, ctypes.c_longlong, vp, ci, ci, ci, vp, ci] + [vp] * 7
-    # wb_dynamics_scan: mode, v, v_stride (int64), B, F, L, then rho, a and
-    # floor each as (pointer, row stride (int64), frame stride), e0, y0, y,
-    # e_last, y_last, totals, scratch, stream
-    ll = ctypes.c_longlong
-    lib.wb_dynamics_scan.restype = ci
-    lib.wb_dynamics_scan.argtypes = [ci, vp, ll, ci, ci, ci] + [vp, ll, ci] * 3 + [vp] * 8
+    # wb_dynamics: the address of a WbDynArgs (ops/dynamics_cuda.py), stream
+    lib.wb_dynamics.restype = ci
+    lib.wb_dynamics.argtypes = [vp, vp]
     _LIB = lib
     return _LIB

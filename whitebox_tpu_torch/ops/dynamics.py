@@ -13,9 +13,12 @@ primitives:
   then attack as a one-pole smoother. Both recurrences carry exact
   chunk-boundary state, so chunked processing equals one-shot. On the
   CPU they run as Hillis-Steele prefix scans (``ops/scan_util.hillis_scan``)
-  in ceil(log2 F) steps; on the card the processors call the hand kernel
-  ``csrc/dynamics_scan.cu`` (``ops/dynamics_cuda.py::ballistics`` /
-  ``onepole``), whose plain version these scans are.
+  in ceil(log2 F) steps.
+
+On the card each processor is one launch of the hand kernel
+``csrc/dynamics_scan.cu`` (``ops/dynamics_cuda.py``), which fuses the
+detector, the curve, both recurrences and the gain; the torch ops here
+(``*_torch``) are its plain version.
 
 Every multiply and add is its own torch op (no FMA contraction). The
 sequential float64 references (``*_ref``) are the JAX package's, copied;
@@ -143,23 +146,37 @@ def _level_db(x):
 # ---------------------------------------------------------------------------
 # full processors: x [..., C, F] -> (y, state)
 # ---------------------------------------------------------------------------
+#
+# ``compressor_process``, ``limiter_process`` and ``gate_process`` run one
+# launch of the fused kernel ``csrc/dynamics_scan.cu`` on a CUDA ``x``
+# (``ops/dynamics_cuda.py``) and the torch ops of ``*_torch`` on the CPU.
+# The ``*_torch`` forms take ``scans``, a (ballistics, onepole) pair with the
+# signatures of ``dynamics_cuda.ballistics_reference`` / ``onepole_reference``
+# (those by default): with ``dynamics_cuda.model_scans`` they are the
+# kernel's host model.
 
 
-def detector_level(x, mode: str, avg_coef, det0):
+def _scans(scans):
+    return scans or (dynamics_cuda.ballistics_reference, dynamics_cuda.onepole_reference)
+
+
+def detector_level(x, mode: str, avg_coef, det0, onepole=None, silent: bool = False):
     """Stereo-linked detector level [..., F] from x [..., C, F].
 
     "peak": max |x| over channels (det0 returned unchanged). "rms": sqrt of
-    the one-pole average of the channel-mean x^2 (state = the average)."""
+    the one-pole average of the channel-mean x^2 (state = the average).
+    ``silent``: the detector hears silence (x gives only the shape)."""
+    if mode not in ("peak", "rms"):
+        raise ValueError(f"detector mode {mode!r}")
+    quiet = torch.zeros(x.shape[:-2] + x.shape[-1:], dtype=torch.float32, device=x.device) if silent else None
     if mode == "peak":
-        return torch.abs(x).amax(dim=-2), det0
-    if mode == "rms":
-        p = torch.mean(torch.square(x), dim=-2)
-        avg, last = dynamics_cuda.onepole(p, avg_coef, det0)
-        return torch.sqrt(torch.clamp(avg, min=0.0)), last
-    raise ValueError(f"detector mode {mode!r}")
+        return (quiet if silent else torch.abs(x).amax(dim=-2)), det0
+    p = quiet if silent else torch.mean(torch.square(x), dim=-2)
+    avg, last = (onepole or dynamics_cuda.onepole_reference)(p, avg_coef, det0)
+    return torch.sqrt(torch.clamp(avg, min=0.0)), last
 
 
-def compressor_process(x, params, state, *, detector: str = "peak", key=None):
+def compressor_process(x, params, state, *, detector: str = "peak", key=None, silent_key: bool = False):
     """Compress x [..., C, F].
 
     ``params``: f32 tensors broadcastable over the leading batch dims
@@ -168,13 +185,23 @@ def compressor_process(x, params, state, *, detector: str = "peak", key=None):
     detector coef). ``state``: "red" (release-held reduction, dB), "att"
     (attack smoother output, dB), "det" (RMS average), each of the leading
     batch shape. ``key`` [..., C, F]: an external sidechain signal the
-    detector listens to instead of ``x``. Returns (y, new_state)."""
-    lvl, det_last = detector_level(x if key is None else key, detector,
-                                   params.get("det_avg", 0.0), state["det"])
+    detector listens to instead of ``x``; ``silent_key``: a sidechain with
+    nothing routed, whose detector hears silence (no tensor of zeros).
+    Returns (y, new_state)."""
+    return dynamics_cuda.compressor(x, params, state, detector=detector, key=key, silent_key=silent_key)
+
+
+def compressor_torch(x, params, state, *, detector: str = "peak", key=None, silent_key: bool = False,
+                     scans=None):
+    """:func:`compressor_process` in torch ops (the CPU's form)."""
+    if silent_key and key is not None:
+        raise ValueError("a silent key and a key tensor at once")
+    ballistics, onepole = _scans(scans)
+    lvl, det_last = detector_level(x if key is None else key, detector, params.get("det_avg", 0.0), state["det"],
+                                   onepole, silent_key)
     r_db = compressor_reduction_db(_level_db(lvl), params["threshold_db"], params["ratio"],
                                    params["knee_db"])
-    smooth, red_last, att_last = dynamics_cuda.ballistics(r_db, params["release"], params["attack"],
-                                                          state["red"], state["att"])
+    smooth, red_last, att_last = ballistics(r_db, params["release"], params["attack"], state["red"], state["att"])
     gain = torch.exp((params["makeup_db"] - smooth) / _LOG10_20)
     return x * gain[..., None, :], {"red": red_last, "att": att_last, "det": det_last}
 
@@ -193,6 +220,12 @@ def limiter_process(x, params, state, *, lookahead: int = 0):
     of the audio. ``state``: "red", "att" as the compressor's; "look"
     [..., L], the last L levels of the previous chunk; "xdelay" [..., C, L],
     the audio delay line."""
+    return dynamics_cuda.limiter(x, params, state, lookahead=lookahead)
+
+
+def limiter_torch(x, params, state, *, lookahead: int = 0, scans=None):
+    """:func:`limiter_process` in torch ops (the CPU's form)."""
+    ballistics, _ = _scans(scans)
     lvl = torch.abs(x).amax(dim=-2)
     r_db = limiter_reduction_db(_level_db(lvl), params["ceiling_db"])
     if lookahead > 0:
@@ -201,8 +234,7 @@ def limiter_process(x, params, state, *, lookahead: int = 0):
         look_last = seq[..., -lookahead:]
     else:
         look_last = state["look"]
-    smooth, red_last, att_last = dynamics_cuda.ballistics(r_db, params["release"], params["attack"],
-                                                          state["red"], state["att"])
+    smooth, red_last, att_last = ballistics(r_db, params["release"], params["attack"], state["red"], state["att"])
     gain = torch.exp(-smooth / _LOG10_20)
     if lookahead > 0:
         xs = torch.cat([state["xdelay"], x], dim=-1)
@@ -213,19 +245,28 @@ def limiter_process(x, params, state, *, lookahead: int = 0):
                                     "xdelay": state["xdelay"]}
 
 
-def gate_process(x, params, state, key=None):
+def gate_process(x, params, state, key=None, silent_key: bool = False):
     """Noise gate on x [..., C, F]: openness o[n] = max(target[n],
     rho*o[n-1]) (instant open, exponential close), floored at the closed
     gain, then one-pole attack smoothing. ``params``: threshold_db,
     range_db, hyst_db, attack, release; ``state``: "open", "att". ``key``:
-    an external sidechain detector signal."""
-    lvl = torch.abs(x if key is None else key).amax(dim=-2)
+    an external sidechain detector signal; ``silent_key``: a sidechain with
+    nothing routed (the detector hears silence)."""
+    return dynamics_cuda.gate(x, params, state, key=key, silent_key=silent_key)
+
+
+def gate_torch(x, params, state, key=None, silent_key: bool = False, scans=None):
+    """:func:`gate_process` in torch ops (the CPU's form)."""
+    if silent_key and key is not None:
+        raise ValueError("a silent key and a key tensor at once")
+    ballistics, _ = _scans(scans)
+    lvl, _ = detector_level(x if key is None else key, "peak", 0.0, None, silent=silent_key)
     tgt = gate_open_gain(_level_db(lvl), params["threshold_db"], params["range_db"],
                          params.get("hyst_db", 0.0))
     floor = torch.exp(-torch.abs(_f32(params["range_db"], x)) / _LOG10_20)
     # the decay stops at the closed-gain floor
-    smooth, open_last, att_last = dynamics_cuda.ballistics(tgt, params["release"], params["attack"],
-                                                           state["open"], state["att"], floor=floor)
+    smooth, open_last, att_last = ballistics(tgt, params["release"], params["attack"], state["open"], state["att"],
+                                             floor=floor)
     return x * smooth[..., None, :], {"open": open_last, "att": att_last}
 
 

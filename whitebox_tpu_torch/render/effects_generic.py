@@ -479,16 +479,15 @@ def _apply_stage(kind: str, static: tuple, params, x, state, n0: int, sample_rat
             p["attack"] = _time_coef_dev(lanes["attack_s"], sample_rate)
         if "release_s" in lanes:
             p["release"] = _time_coef_dev(lanes["release_s"], sample_rate)
-        if key is None:
-            key = torch.zeros_like(x)  # a sidechain with nothing routed hears silence
-        if kind == "compressor":
-            detector, sc = static
-            return dyn.compressor_process(x, p, state, detector=detector, key=key if sc else None)
         if kind == "limiter":
             (L,) = static
             return dyn.limiter_process(x, p, state, lookahead=L)
-        (sc,) = static
-        return dyn.gate_process(x, p, state, key=key if sc else None)
+        sc = static[-1]
+        # a sidechain with nothing routed hears silence: a flag, not a tensor of zeros
+        side = {"key": key if sc else None, "silent_key": bool(sc) and key is None}
+        if kind == "compressor":
+            return dyn.compressor_process(x, p, state, detector=static[0], **side)
+        return dyn.gate_process(x, p, state, **side)
     if kind == "delay":
         mode, D = static
         fb = params["feedback"][:, None, None, None]  # broadcast vs [B, *, *, D]

@@ -7,8 +7,10 @@ Compiles ``csrc/*.cu`` once more with the build's own flags plus
 ``ptxas`` reports per kernel, each named by its template arguments, with
 the resident blocks per SM that registers and static shared memory allow
 on an H100 (65,536 registers, 227 KB of shared memory, 2,048 threads per
-SM; the cascade's and the dynamics walk's tiles are dynamic shared memory,
-sized at the launch, and not counted here). Needs ``nvcc``; no card.
+SM; the cascade's and the dynamics kernel's tiles are dynamic shared
+memory, sized at the launch, and not counted here: the dynamics kernel's
+per tile is printed for its kinds at the paths' shapes from
+``ops/dynamics_cuda.py::warp_bytes``). Needs ``nvcc``; no card.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from pathlib import Path
 from whitebox_tpu_torch.ops import cuda_build
 
 _INTERP = ("kLinear", "kCatmull", "kPoly", "kPoly6")
+_DYN_KINDS = ("kOnePole", "kBallistics", "kCompressor", "kLimiter", "kGate")
 
 
 def kernel_name(mangled: str) -> str:
@@ -34,11 +37,8 @@ def kernel_name(mangled: str) -> str:
     m = re.search(r"cascade_kernelILi(\d)E", mangled)
     if m:
         return f"cascade_kernel<S={m[1]}>"
-    m = re.search(r"dyn_walkILb([01])ELi(\d)E", mangled)
-    if m:
-        return f"dyn_walk<kMax={m[1]}, kPhase={m[2]}>"
-    m = re.search(r"dyn_carryILi(\d)E", mangled)
-    return f"dyn_carry<kKind={m[1]}>" if m else mangled
+    m = re.search(r"dyn_kernelILi(\d)ELb([01])E", mangled)
+    return f"dyn_kernel<{_DYN_KINDS[int(m[1])]}, kFw={m[2]}>" if m else mangled
 
 
 def block_threads(src) -> int:
@@ -78,7 +78,23 @@ def main() -> int:
                           f"{blocks} blocks/SM ({blocks * threads * 100 // 2048} % of 2048 threads) | {line.strip()}")
                 elif "spill" in line and name:
                     print(f"{name}: {line.strip()}")
+    print(dynamic_shared())
     return 0
+
+
+def dynamic_shared() -> str:
+    """The dynamics kernel's shared memory a tile (a warp) at the paths'
+    shapes, and the warps an SM that it leaves room for."""
+    from whitebox_tpu_torch.ops import dynamics_cuda as dc
+
+    rows = []
+    for label, kind, B, C, F, look in (("compressor [64, 2, 2^18]", "compressor", 64, 2, 1 << 18, 0),
+                                       ("master limiter [1, 2, 2^18], lookahead 240", "limiter", 1, 2, 1 << 18, 240),
+                                       ("ballistics [64, 2^18]", "ballistics", 64, 0, 1 << 18, 0)):
+        l = dc.sub_frames(B, F, fused=kind != "ballistics")
+        b = dc.warp_bytes(kind, C, l, look)
+        rows.append(f"{label}: l = {l}, {b} B a tile -> {min(dc.SMEM_BYTES // b, 64)} tiles an SM by shared memory")
+    return "dyn_kernel dynamic shared memory: " + "; ".join(rows)
 
 
 if __name__ == "__main__":

@@ -128,11 +128,13 @@ def launch_counts() -> dict:
     """The kernels' launch counters as they stand: the summing mix kernel
     (K1/K2), its automation variant (K3), the per-track kernel (K4), each
     variant's launches by interpolation mode, the biquad cascade and the
-    dynamics scan."""
+    dynamics kernel, fused (a compressor, limiter or gate call) and unfused
+    (the recurrences alone)."""
     return {"mix": mix_cuda.mix_kernel_launches, "mix_auto": mix_cuda.mix_auto_launches,
             "mix_per_track": mix_cuda.mix_per_track_launches,
             **{f"interp_{k}": v for k, v in mix_cuda.interp_launches.items()},
             "biquad_cascade": biquad_cuda.biquad_cascade_launches,
+            "dynamics_fused": dynamics_cuda.dynamics_fused_launches,
             "dynamics_scan": dynamics_cuda.dynamics_scan_launches}
 
 
