@@ -123,14 +123,28 @@ no ``.wb`` project. Phases, one or more lines each:
    pyramid over one hour of seeded int32 codes on the card, by CUDA events
    (median and best of 5) in Gsamples/s, every level bit-identical to the
    C++ scalar walk;
-9. the gather mix (``ops/mix.py``, torch ops) on small sessions with the
-   launch counts reset just before each bounce: no mix-kernel launch,
+9. the gather mix (``ops/mix.py``: on the card the hand kernel
+   ``csrc/gather_mix.cu``, the plain torch ops on the CPU) on small
+   sessions with the launch counts reset just before each bounce: no
+   slot-plan kernel launch and a gather-kernel launch or more a chunk,
    bit-equal to the same bounce on the CPU, bit-equal to
    ``render_segments_numpy`` at speed 1 and within the resampling
    contract otherwise, the dense session whose slots overflow taken by
    ``engine="auto"``; each generic effect stage kind on the card within
    relative RMS 1e-5 of the same finisher on the CPU and 5e-5 (2e-4 with
-   lanes) of the f64 ``reference_generic_finish``;
+   lanes) of the f64 ``reference_generic_finish``; then the gather kernel
+   itself (:func:`phase_gather_kernel`) in its three forms (per-track,
+   summed, summed unclipped) on those sessions in every interpolation
+   mode (linear, Catmull-Rom, polynomial taps, the direct sinc bank), one
+   and three channels, ragged chunks, a chunk past the end, a track
+   subset and 300 tracks, bit-equal to its plain version on the card
+   (``strict_order=False`` within 1e-6, within the reordering bound on
+   300 tracks); every other gather check below (the headline through
+   ``engine="xla"``, the 6 GiB rule, the routed and MIDI cells through
+   ``engine="xla"``, the preview, the stream, the sharded mix) requires
+   a gather-kernel launch or more a chunk or window beside its zero
+   slot-plan kernel launches, and phase 4 times the kernel's three forms
+   over the headline's chunks beside the plain version and the bounds;
 10. generic_fx_128trk (config 6's chains on the flat mix): one K4 launch,
     the cascade kernel for the static EQ stages, one fused dynamics launch
     a compressor and master limiter call and no unfused one (the fused
@@ -233,7 +247,8 @@ no ``.wb`` project. Phases, one or more lines each:
     state folded, against its plain version (relative RMS 5e-6 a row);
 22. each phase's seconds, the script's wall time, one JSON line of
     kernels (each entry's ``cell_launches`` the counts read in those
-    cells), then the last line
+    cells; the gather kernel's forms as ``gather_mix_sum``,
+    ``gather_mix_per_track`` and ``gather_mix_sum_unclipped``), then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Exits non-zero, printing no result, when CUDA is unavailable, when the
@@ -381,9 +396,12 @@ def slow_frames(table, n):
 
 
 def reset_launches() -> None:
-    from whitebox_tpu_torch.ops import biquad_cuda, dynamics_cuda, mix_cuda
+    from whitebox_tpu_torch.ops import biquad_cuda, dynamics_cuda, gather_cuda, mix_cuda
 
     biquad_cuda.biquad_cascade_launches = 0
+    gather_cuda.gather_launches = 0
+    for form in gather_cuda.form_launches:
+        gather_cuda.form_launches[form] = 0
     dynamics_cuda.dynamics_scan_launches = 0
     dynamics_cuda.dynamics_fused_launches = 0
     mix_cuda.mix_kernel_launches = 0
@@ -1191,6 +1209,70 @@ def _kernel_entry(cell: dict, launches: int) -> dict:
             "library_ms": None}
 
 
+def gather_bound(torch, tables, pool, frames: int, form: str, mode: str = "linear") -> dict:
+    """The least time the card could take for the gather mix of ``frames``
+    frames in ``form``: the larger of the bytes it must move (the pool and
+    the tables read once, the output written once: ``[T, C, frames]`` per
+    track, ``[C, frames]`` summed) over HBM bandwidth and the f32 operations
+    this run's rows need over the f32 peak. Operations per covered (track,
+    frame, channel) as :func:`bound` counts them for a covering slot: 4 in
+    the per-track form, 5 summed, plus :data:`SLOW_OPS` of ``mode`` on a
+    resampled row; the row search, the rows' loads and the uncovered
+    frames' zeros are overhead."""
+    length = tables["length"].to(torch.int64)
+    slow = ~tables["fast"]
+    T, _, C = tables["src_base"].shape
+    covered, resampled = int(length.sum()), int(length[slow].sum())
+    per_track = form == "per_track"
+    ops = C * ((4 if per_track else 5) * covered + SLOW_OPS[mode] * resampled)
+    table_bytes = sum(v.numel() * v.element_size() for v in tables.values())
+    bytes_ = (T if per_track else 1) * C * frames * 4 + pool.numel() * 4 + table_bytes
+    return {**least_ms(bytes_, ops), "bound_bytes": bytes_, "bound_ops": ops}
+
+
+def gather_cell(torch, name: str, session, chunk: int = 1 << 17, iters: int = 5) -> dict:
+    """The gather kernel at the main path's shapes: the whole session in
+    ``bounce``'s chunks of ``chunk`` frames, each form timed by CUDA events
+    around ``iters`` renders after a warm one, the plain version's time once
+    (for the record: it repeats the kernel's arithmetic in ~100 torch ops a
+    chunk), the largest difference of the two, the bound -> {form: entry}."""
+    from whitebox_tpu_torch.ops import gather_cuda, mix
+
+    pool, tables, F, bank, interp = gather_inputs(torch, session)
+    starts = range(0, F, chunk)
+    out = {}
+    for form in GATHER_FORMS:
+        err = 0.0
+        for a in starts:
+            k = gather_cuda.gather_mix_cuda(pool, tables, a, chunk, form)
+            p = mix.gather_plain(pool, tables, a, chunk, form)
+            err = max(err, float((k - p).abs().max()))
+            check(same_bits(torch, k, p), f"{name} {form} [{a}, +{chunk}): kernel != plain version")
+        del k, p
+
+        def kernel():
+            for a in starts:
+                gather_cuda.gather_mix_cuda(pool, tables, a, chunk, form)
+
+        def plain():
+            for a in starts:
+                mix.gather_plain(pool, tables, a, chunk, form)
+        ms = _event_ms_batch(torch, kernel, iters)
+        plain_ms = _event_ms(torch, plain, 1)[0]
+        b = gather_bound(torch, tables, pool, len(starts) * chunk, form)
+        out[form] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
+                     "bound_by": b["bound_by"],
+                     # no PyTorch call computes the gather mix (searchsorted and
+                     # the gathers are pieces of it)
+                     "library_ms": None, "bound_bytes": b["bound_bytes"], "bound_ops": b["bound_ops"],
+                     "chunks": len(starts), "chunk": chunk}
+        smi = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]).splitlines()[0]
+        print(f"[gather-kernel] {name} {form} ({smi}): {len(starts)} chunks of {chunk}, kernel {ms:.3f} ms, "
+              f"plain {plain_ms:.2f} ms, bound {b['bound_ms']:.3f} ms ({b['bound_by']}), "
+              f"x{ms / b['bound_ms']:.1f} the bound, bit-equal (max abs {err})")
+    return out
+
+
 def phase_headline(torch) -> dict:
     import numpy as np
 
@@ -1218,23 +1300,32 @@ def phase_headline(torch) -> dict:
     print(f"[headline] audio {res.audio.shape} bit-equal to render_segments_numpy "
           f"(peak {float(np.abs(res.audio).max()):.4f})")
 
-    # the same session through the gather path (engine="xla"): no mix
-    # kernel, bit-equal to the kernel's headline (torch ops, not a kernel)
+    # the same session through the gather path (engine="xla"): no slot-plan
+    # kernel, the gather kernel once a chunk, bit-equal to the kernel's headline
     reset_launches()
     xr = bounce(session, RATE, device="cuda", engine="xla")
     xla_launches = mix_launches()
     check(xr.stats.mix_path == "gather" and not any(xla_launches.values()),
           f"headline (xla): path {xr.stats.mix_path}, mix launches {xla_launches}")
+    gk = check_gather_launches("headline (xla)", xr.stats.gather_chunks, forms=("sum",))
     check(np.array_equal(xr.audio, res.audio), "headline: the gather path != the kernel's bounce")
     gather_ms = []
     for _ in range(3):
         gather_ms.append(bounce(session, RATE, device="cuda", engine="xla").stats.device_seconds * 1e3)
     cost = xr.stats.cost
+    forms = gather_cell(torch, "headline", session)
     gather = {"gather_ms_median": statistics.median(gather_ms), "gather_ms_all": gather_ms,
-              "gather_bound_ms": least_ms(cost.hbm_bytes, cost.mxu_flops)["bound_ms"],
-              "gather_cost_bytes": cost.hbm_bytes, "gather_carve_pack_ms": xr.stats.carve_seconds * 1e3}
-    print(f"[headline] bounce(device='cuda', engine='xla'): gather path, 0 mix-kernel launches, "
-          f"bit-equal to the kernel's bounce; {xr.stats.summary()}; " + json.dumps(gather))
+              "gather_cost_bound_ms": least_ms(cost.hbm_bytes, cost.mxu_flops)["bound_ms"],
+              "gather_bound_ms": {f: forms[f]["bound_ms"] for f in forms},
+              "gather_kernel_ms": {f: forms[f]["ms"] for f in forms},
+              "gather_plain_ms": {f: forms[f]["plain_ms"] for f in forms},
+              "gather_cost_bytes": cost.hbm_bytes, "gather_carve_pack_ms": xr.stats.carve_seconds * 1e3,
+              "gather_chunks": xr.stats.gather_chunks, "gather_launches": gk}
+    print(f"[headline] bounce(device='cuda', engine='xla'): gather path, 0 slot-plan kernel launches, "
+          f"{gk['sum']} gather-kernel launches for {xr.stats.gather_chunks} chunks, bit-equal to the "
+          f"kernel's bounce; {xr.stats.summary()}; " + json.dumps(gather))
+    for f in forms:
+        forms[f]["launches"] = gk[f]
 
     k = measure_cell(torch, "headline", session, duration)
     print("[headline] " + sh(["nvidia-smi", "--query-gpu=name,power.limit,power.draw,clocks.sm,"
@@ -1245,7 +1336,7 @@ def phase_headline(torch) -> dict:
     resampled = make_demo_session(n_tracks=n_tracks, duration_seconds=duration,
                                   sample_rate=int(RATE), seed=7, clip_speeds=(1.0, 44100 / 48000))
     measure_cell(torch, "headline_resampled", resampled, duration)
-    return _kernel_entry(k, launches), xla_launches
+    return _kernel_entry(k, launches), xla_launches, forms
 
 
 def automation_cell(torch, name: str, session, duration: float,
@@ -2409,6 +2500,23 @@ def mix_launches() -> dict:
             "per_track": mix_cuda.mix_per_track_launches}
 
 
+def gather_counts() -> dict:
+    """The gather kernel's launches by form (kept apart from :func:`mix_launches`,
+    the slot-plan kernels')."""
+    from whitebox_tpu_torch.ops import gather_cuda
+
+    return dict(gather_cuda.form_launches)
+
+
+def check_gather_launches(name: str, chunks: int, forms=("sum", "per_track")) -> dict:
+    """At least one gather-kernel launch per rendered chunk or window, in
+    ``forms`` together -> the counts by form."""
+    counts = gather_counts()
+    n = sum(counts[f] for f in forms)
+    check(chunks > 0 and n >= chunks, f"{name}: {n} gather-kernel launches ({counts}) for {chunks} chunks")
+    return counts
+
+
 def gather_vs_reference(name, session, interpolation="linear", engine="xla", chunk_frames=8192):
     """``bounce(device="cuda", engine=...)`` through the gather path with the
     launch counts reset just before: no mix kernel launched, the audio
@@ -2428,6 +2536,7 @@ def gather_vs_reference(name, session, interpolation="linear", engine="xla", chu
     launches = mix_launches()
     check(res.stats.mix_path == "gather", f"{name}: took the {res.stats.mix_path} path")
     check(not any(launches.values()), f"{name}: the gather path launched a mix kernel {launches}")
+    gk = check_gather_launches(name, res.stats.gather_chunks)
     cpu = bounce(session, RATE, device="cpu", engine=engine, interpolation=interpolation,
                  chunk_frames=chunk_frames).audio
     ok, ku, ka = ulp_contract(res.audio, cpu)
@@ -2452,8 +2561,9 @@ def gather_vs_reference(name, session, interpolation="linear", engine="xla", chu
     else:
         note = "direct sinc bank, held to the CPU only"
     print(f"[gather-small] {name}: bounce(device='cuda', engine={engine!r}, interpolation="
-          f"{interpolation!r}) gather path, 0 mix-kernel launches, bit-equal to the CPU's "
-          f"({ku} ulp); vs render_segments_numpy: {note}; {res.stats.summary()}")
+          f"{interpolation!r}) gather path, 0 slot-plan kernel launches, gather-kernel launches {gk} "
+          f"for {res.stats.gather_chunks} chunks, bit-equal to the CPU's ({ku} ulp); vs "
+          f"render_segments_numpy: {note}; {res.stats.summary()}")
     return launches
 
 
@@ -2564,6 +2674,151 @@ def phase_gather_small(torch) -> dict:
     for name, (chain, lanes) in _kind_chains().items():
         generic_kind_vs_cpu_and_f64(torch, name, chain, lanes)
     return dense
+
+
+GATHER_FORMS = ("per_track", "sum", "sum_unclipped")
+#: strict_order=False (one torch.sum in the plain version) against the
+#: kernel's index-order sum on the small sessions (tests/test_torch_gather_mix.py's bar)
+GATHER_FAST_SUM_ATOL = 1e-6
+
+
+def reorder_bound(torch, per_track, track_gain):
+    """Per (channel, frame), the most two summation orders of the tracks'
+    ``contrib * track_gain`` can differ by: each order is within
+    ``(T - 1) u sum |x|`` of the exact sum (u = 2^-24), so two are within
+    twice that. The bar of strict_order=False on many tracks, where 1e-6
+    is less than the rounding of a few hundred terms."""
+    T = per_track.shape[0]
+    return 2 * max(T - 1, 0) * 2.0 ** -24 * (per_track * track_gain[:, :, None]).abs().sum(dim=0)
+
+
+def gather_inputs(torch, session, interpolation="linear", channels=2, seconds=None):
+    """The gather path's inputs for ``session`` on the card, as ``bounce``
+    builds them: the blocks carve for ``channels`` outputs, resolved to
+    Catmull-Rom, to the 4x oversampled pool with polynomial taps ("poly"),
+    or with the direct sinc bank ("sinc_bank") -> (pool, tables, total
+    frames, sinc_bank, interp)."""
+    import numpy as np
+
+    from whitebox_tpu_torch.ops.mix import pack_device_tables
+    from whitebox_tpu_torch.ops.resample import design_sinc_bank
+    from whitebox_tpu_torch.timeline.carve import carve_session
+
+    blocks = None if seconds is None else int(seconds * RATE) // 512
+    table, pool = carve_session(session, RATE, buffer_size=512, slow_emit="blocks", num_blocks=blocks,
+                                out_channels=channels)
+    bank, interp = None, "linear"
+    if interpolation == "sinc_bank":
+        ratio = float(np.max(np.abs(table.speed[~table.fast])))
+        bank = torch.from_numpy(design_sinc_bank(max(ratio, 1.0))).cuda()
+    else:
+        table, pool, interp = resolve_mode(table, pool, interpolation)
+    tables = pack_device_tables(table, pool, session, channels=channels).as_torch("cuda")
+    return torch.from_numpy(pool.data).cuda(), tables, table.total_frames, bank, interp
+
+
+def same_bits(torch, a, b) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype == torch.float32 and \
+        torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def gather_kernel_vs_plain(torch, name, session, interpolation="linear", chunk=8192, channels=2,
+                           fast_sum_atol=GATHER_FAST_SUM_ATOL) -> dict:
+    """The gather kernel against its plain version on the card, chunk by
+    chunk over the whole timeline and one chunk past its end, in every
+    form: bit-equal; ``strict_order=False`` of the plain version within
+    ``fast_sum_atol`` of the kernel's sum (None: within
+    :func:`reorder_bound`); the per-track and summed forms on a subset
+    of the tables' track rows (the PDC fetch-ahead's ``{k: v[idx]}``) bit-equal;
+    the chunk past the end all +0.0."""
+    from whitebox_tpu_torch.ops import gather_cuda, mix
+
+    pool, tables, F, bank, interp = gather_inputs(torch, session, interpolation, channels)
+    T = tables["dst_start"].shape[0]
+    starts = list(range(0, F, chunk))
+    past = F + chunk  # a chunk wholly past the end (the master latency's extra chunk)
+    reset_launches()
+    fast_sum = 0.0
+    for start in starts + [past]:
+        outs = {}
+        for form in GATHER_FORMS:
+            outs[form] = gather_cuda.gather_mix_cuda(pool, tables, start, chunk, form, sinc_bank=bank, interp=interp)
+            want = mix.gather_plain(pool, tables, start, chunk, form, sinc_bank=bank, interp=interp)
+            check(same_bits(torch, outs[form], want), f"{name} [{start}, +{chunk}) {form}: kernel != plain version "
+                  f"(max abs {float((outs[form] - want).abs().max()):.3g})")
+        loose = mix.gather_plain(pool, tables, start, chunk, "sum", strict_order=False, sinc_bank=bank,
+                                 interp=interp)
+        diff = (outs["sum"] - loose).abs()
+        fast_sum = max(fast_sum, float(diff.max()))
+        if fast_sum_atol is None:
+            bar = reorder_bound(torch, outs["per_track"], tables["track_gain"])
+            check(bool((diff <= bar).all()), f"{name} [{start}, +{chunk}): strict_order=False off the kernel's "
+                  f"sum beyond the reordering bound")
+        if start == past:
+            check(all(not torch.any(o.view(torch.int32) != 0) for o in outs.values()),
+                  f"{name}: a chunk past the end is not all +0.0")
+    check(fast_sum_atol is None or fast_sum <= fast_sum_atol,
+          f"{name}: strict_order=False {fast_sum:.3g} off the kernel's sum")
+    counts = gather_counts()
+    check(counts == {f: len(starts) + 1 for f in GATHER_FORMS}, f"{name}: gather launches {counts}")
+    rows = torch.as_tensor(sorted({0, T - 1, T // 2}), device=pool.device)
+    sub = {k: v[rows] for k, v in tables.items()}
+    for form in ("per_track", "sum"):
+        got = gather_cuda.gather_mix_cuda(pool, sub, 0, chunk, form, sinc_bank=bank, interp=interp)
+        want = mix.gather_plain(pool, sub, 0, chunk, form, sinc_bank=bank, interp=interp)
+        check(same_bits(torch, got, want), f"{name}: {form} on the track subset {rows.tolist()} != plain version")
+    print(f"[gather-kernel] {name}: {interpolation}, T={T}, C={channels}, {F} frames in chunks of {chunk} + one "
+          f"past the end: per_track, sum and sum_unclipped bit-equal to the plain version on the card; "
+          f"strict_order=False within {fast_sum:.3g} ("
+          f"{'<= the reordering bound' if fast_sum_atol is None else f'<= {fast_sum_atol}'}); track subset "
+          f"{rows.tolist()} bit-equal; launches {counts}")
+    return {"launches": counts, "fast_sum_max_abs": fast_sum}
+
+
+def gather_kernel_cases() -> dict:
+    """The gather phase's small sessions for the kernel -> name -> (a
+    function making the session, interpolation, chunk, channels): speed-1 int formats (one, two
+    and three channels), resampled with fades in every interpolation mode,
+    the reverse session in ragged chunks, the dense overflow."""
+    from whitebox_tpu_torch.render.demo import make_demo_session
+
+    def resampled():
+        return make_demo_session(n_tracks=4, duration_seconds=4.0, seed=3, fades=True,
+                                 clip_speeds=(1.0, 0.5, 44100 / 48000, 1.37))
+
+    def ints():
+        return int_formats_session(n_tracks=4)
+    return {"speed1_int_formats": (ints, "linear", 8192, 2),
+            "speed1_mono": (ints, "linear", 8192, 1),
+            "speed1_three_channels": (ints, "linear", 8192, 3),
+            "resampled_fades": (resampled, "linear", 8192, 2),
+            "resampled_catmull": (resampled, "catmull", 8192, 2),
+            "resampled_poly": (resampled, "poly", 8192, 2),
+            "resampled_sinc_bank": (resampled, "sinc_bank", 8192, 2),
+            "resampled_three_channels_catmull": (resampled, "catmull", 8192, 3),
+            "reverse_bidirectional": (reverse_session, "linear", 10007, 2),
+            "dense_overflow": (dense_session, "linear", 1000, 2)}
+
+
+def many_tracks_gather_session():
+    """300 tracks of short faded clips, a quarter of them resampled: two
+    staging passes of the summed forms' row ranges."""
+    from whitebox_tpu_torch.render.demo import make_demo_session
+
+    return make_demo_session(n_tracks=300, duration_seconds=2.0, seed=19, fades=True, clip_speeds=(1.0, 0.75))
+
+
+def phase_gather_kernel(torch) -> dict:
+    """The gather kernel (``csrc/gather_mix.cu``) against its plain version
+    on :func:`gather_kernel_cases`, in every form, and on 300 tracks
+    (strict_order=False there within the reordering bound of its 300
+    terms) -> the largest strict_order=False distance of the small sessions."""
+    worst = 0.0
+    for name, (build, interpolation, chunk, channels) in gather_kernel_cases().items():
+        worst = max(worst, gather_kernel_vs_plain(torch, name, build(), interpolation, chunk, channels)
+                    ["fast_sum_max_abs"])
+    gather_kernel_vs_plain(torch, "tracks_300", many_tracks_gather_session(), chunk=1 << 15, fast_sum_atol=None)
+    return {"fast_sum_max_abs": worst}
 
 
 def card_busy_ms(torch, fn, names=None):
@@ -2822,11 +3077,13 @@ def phase_long(torch) -> dict:
         gather_launches, gcasc = mix_launches(), biquad_cuda.biquad_cascade_launches
         check(res.stats.mix_path == "gather", f"{name} (6 GiB rule): took the {res.stats.mix_path} path")
         check(not any(gather_launches.values()), f"{name} (6 GiB rule): mix kernel launches {gather_launches}")
+        gk = check_gather_launches(f"{name} (6 GiB rule)", res.stats.gather_chunks)
         check(gcasc > 0, f"{name} (6 GiB rule): the streaming finisher never ran the cascade kernel")
         rr = rel_rms(res.audio, k4.audio)
         check(res.audio.shape == k4.audio.shape and rr < 1e-5, f"{name}: gather vs K4 relative RMS {rr:.3g}")
         print(f"[{name}] the same bounce under the 6 GiB rule: {res.stats.summary()}; gather path, mix "
-              f"launches {gather_launches}, cascade kernel launches={gcasc}; peak memory {gather_peak:.2f} GB; "
+              f"launches {gather_launches}, gather-kernel launches {gk} for {res.stats.gather_chunks} chunks, "
+              f"cascade kernel launches={gcasc}; peak memory {gather_peak:.2f} GB; "
               f"vs the K4 path relative RMS {rr:.3g} (< 1e-05)")
         gather_rows = _long_rows(torch, bounce_mod, session)
     finally:
@@ -2843,7 +3100,8 @@ def phase_long(torch) -> dict:
                        "device_bound_ms": least_ms(cost.hbm_bytes, cost.mxu_flops)["bound_ms"],
                        "cost_bytes": cost.hbm_bytes, "peak_mem_gb": peak}
     stats.update({"gather_vs_k4_rel_rms": rr, "k4_launches": k4_launches, "cascade_launches": casc,
-                  "gather_launches": gather_launches, "gather_cascade_launches": gcasc})
+                  "gather_launches": gather_launches, "gather_kernel_launches": gk,
+                  "gather_cascade_launches": gcasc})
     print(f"[{name}] " + json.dumps(stats))
     print(f"[{name}] " + sh(["nvidia-smi", "--query-gpu=name,power.limit,power.draw,clocks.sm,"
                              "temperature.gpu", "--format=csv,noheader"]))
@@ -2931,12 +3189,14 @@ def phase_routed_small(torch) -> None:
           f"routed_small: mix launches {k4_launches} (want one K4)")
     check(gather.stats.mix_path == "gather" and not any(gather_launches.values()),
           f"routed_small: the gather path launched {gather_launches}")
+    gk = check_gather_launches("routed_small (xla)", gather.stats.gather_chunks)
     cpu = bounce(s, RATE, device="cpu", engine="xla", chunk_frames=8192).audio
     rr_gather = rel_rms(gather.audio, cpu)
     check(rr_gather < GENERIC_REL_RMS, f"routed_small: gather bounce card vs CPU {rr_gather:.3g}")
     print(f"[routed-small] routed finisher (PDC) on the card vs CPU relative RMS {rr_cpu:.3g} (< "
           f"{GENERIC_REL_RMS}), vs f64 reference_routed_finish {rr_f64:.3g} (< {GENERIC_F64_REL_RMS}); "
-          f"bounce: K4 launches {k4_launches['per_track']}, gather path launches {gather_launches}, "
+          f"bounce: K4 launches {k4_launches['per_track']}, gather path launches {gather_launches} "
+          f"(gather kernel {gk}), "
           f"gather card vs CPU {rr_gather:.3g}")
 
 
@@ -3016,10 +3276,12 @@ def phase_routed(torch) -> dict:
     rr_xla = rel_rms(xla.audio, res.audio)
     check(xla.stats.mix_path == "gather" and not any(xla_launches.values()),
           f"{name}: engine='xla' took {xla.stats.mix_path}, mix launches {xla_launches}")
+    xla_gather = check_gather_launches(f"{name} (xla)", xla.stats.gather_chunks)
     check(xla.audio.shape == res.audio.shape and rr_xla < 1e-6,
           f"{name}: engine='xla' {rr_xla:.3g} off the K4 path")
     print(f"[{name}] bounce(engine='xla', chunk_frames={chunk}): {xla.stats.summary()}; mix launches "
-          f"{xla_launches}; vs the K4 path relative RMS {rr_xla:.3g} (< 1e-06)")
+          f"{xla_launches}, gather-kernel launches {xla_gather}; vs the K4 path relative RMS {rr_xla:.3g} "
+          f"(< 1e-06)")
 
     torch.cuda.reset_peak_memory_stats()
     legs = _finisher_rows(torch, session, pool, warm.pool_device, C, "routed")
@@ -3057,7 +3319,7 @@ def phase_routed(torch) -> dict:
         "xla_device_ms": xla.stats.device_seconds * 1e3, "xla_wall_ms": xla.stats.wall_seconds * 1e3,
         "bounce_peak_mem_gb": bounce_peak, "peak_mem_gb": peak,
         "k4_launches": k4_launches["per_track"], "cascade_launches": casc, "dynamics_launches": dyn_launches,
-        "dynamics_stage_ms": dyn_stages, "xla_launches": xla_launches,
+        "dynamics_stage_ms": dyn_stages, "xla_launches": xla_launches, "xla_gather_launches": xla_gather,
     }
     print(f"[{name}] " + json.dumps(stats))
     print(f"[{name}] " + sh(["nvidia-smi", "--query-gpu=name,power.limit,power.draw,clocks.sm,"
@@ -3118,11 +3380,13 @@ def phase_midi(torch) -> dict:
     xla_launches = mix_launches()
     check(xla.stats.mix_path == "gather" and not any(xla_launches.values()),
           f"{name}: engine='xla' took {xla.stats.mix_path}, mix launches {xla_launches}")
+    xla_gather = check_gather_launches(f"{name} (xla)", xla.stats.gather_chunks)
     check(np.array_equal(xla.audio, res.audio), f"{name}: engine='xla' != the K4 path")
     voices = int(synth["tables"]["start"].shape[1])
     print(f"[{name}] synth of {len(want)} tracks ({voices} voice slots) on the card bit-equal to "
           f"render_synth_numpy ({host_s:.1f} s on the host); first 10 s bit-equal to the CPU bounce; "
-          f"engine='xla' ({xla.stats.summary()}) mix launches {xla_launches}, bit-equal to the K4 path")
+          f"engine='xla' ({xla.stats.summary()}) mix launches {xla_launches}, gather-kernel launches "
+          f"{xla_gather}, bit-equal to the K4 path")
     del cpu, rows
 
     torch.cuda.reset_peak_memory_stats()
@@ -3151,6 +3415,7 @@ def phase_midi(torch) -> dict:
         "xla_device_ms": xla.stats.device_seconds * 1e3, "xla_wall_ms": xla.stats.wall_seconds * 1e3,
         "bounce_peak_mem_gb": bounce_peak, "peak_mem_gb": peak,
         "k4_launches": k4_launches["per_track"], "cascade_launches": casc, "xla_launches": xla_launches,
+        "xla_gather_launches": xla_gather,
     }
     print(f"[{name}] " + json.dumps(stats))
     print(f"[{name}] " + sh(["nvidia-smi", "--query-gpu=name,power.limit,power.draw,clocks.sm,"
@@ -3730,6 +3995,7 @@ def phase_preview(torch) -> dict:
     launches, casc = mix_launches(), biquad_cuda.biquad_cascade_launches
     check(not any(launches.values()) and casc > 0,
           f"{name}: mix launches {launches}, cascade launches {casc} (want none, > 0)")
+    gk = check_gather_launches(name, -(-n10 // ps.lookahead))  # a window of lookahead frames at a time
     head = np.concatenate(blocks, axis=1)[:, :n10]
     rr = rel_rms(head, ref[:, :n10])
     check(np.isfinite(head).all() and rr < 1e-5, f"{name}: first 10 s {rr:.3g} off the bounce")
@@ -3775,12 +4041,14 @@ def phase_preview(torch) -> dict:
     edit_ms = (time.perf_counter() - t0) * 1e3
     stats = {"cell": name, "tracks": len(s.tracks), "lookahead_blocks": look, "budget_ms": budget_ms,
              "build_ms": build_ms, "first_10s_rel_rms": rr, "mix_launches": launches, "cascade_launches": casc,
+             "gather_launches": gk,
              "block_e2e_ms": block_e2e_ms, "duty_e2e_pct": 100.0 * block_e2e_ms / budget_ms,
              "window_device_ms": window_ms, "window_device_ms_all": win_ms,
              "block_device_ms": window_ms / look, "duty_device_pct": 100.0 * window_ms / look / budget_ms,
              "window_card_busy_ms": busy_ms, "seek_ms": seek_ms, "edit_ms": edit_ms,
              "cascade_vs_plain_rel_rms_max_abs": vs_plain}
-    print(f"[{name}] 0 mix-kernel launches, {casc} cascade launches; " + json.dumps(stats))
+    print(f"[{name}] 0 slot-plan kernel launches, gather-kernel launches {gk}, {casc} cascade launches; "
+          + json.dumps(stats))
     return stats
 
 
@@ -3825,6 +4093,7 @@ def phase_stream(torch) -> dict:
                                                                  window_frames=window, stats=st))
     launches = mix_launches()
     check(not any(launches.values()), f"{name}: mix launches {launches} (want none)")
+    gk = check_gather_launches(name, st["windows"])
     check(got.shape == resident.shape and np.array_equal(got, resident),
           f"{name}: streamed != bounce(engine='xla')")
     check(stream_peak < resident_peak, f"{name}: peak {stream_peak:.3f} GB not below the resident "
@@ -3850,6 +4119,7 @@ def phase_stream(torch) -> dict:
     eq_launches, eq_casc = mix_launches(), biquad_cuda.biquad_cascade_launches
     check(not any(eq_launches.values()) and eq_casc > 0,
           f"{name}: EQ mix launches {eq_launches}, cascade launches {eq_casc} (want none, > 0)")
+    eq_gk = check_gather_launches(f"{name} EQ", eq_st["windows"])
     eq_rr = rel_rms(eq, eq_ref)
     check(np.isfinite(eq).all() and eq_rr < 1e-5, f"{name}: EQ stream {eq_rr:.3g} off the resident bounce")
     # the cascade kernel at this path's shapes against its plain version: the
@@ -3873,10 +4143,12 @@ def phase_stream(torch) -> dict:
              "render_ms": mid["render_s"] * 1e3, "span_ms": mid["span_s"] * 1e3, "card_busy_ms": busy_ms,
              "peak_gb": stream_peak, "resident_peak_gb": resident_peak, "resident_first_ms": resident_first_ms,
              "resident_e2e_ms": resident_ms,
-             "mix_launches": launches, "eq_ms": eq_ms, "eq_peak_gb": eq_peak, "eq_rel_rms": eq_rr,
+             "mix_launches": launches, "gather_launches": gk, "eq_gather_launches": eq_gk,
+             "eq_ms": eq_ms, "eq_peak_gb": eq_peak, "eq_rel_rms": eq_rr,
              "eq_render_ms": eq_st["render_s"] * 1e3, "eq_cascade_launches": eq_casc,
              "cascade_vs_plain_rel_rms_max_abs": vs_plain}
-    print(f"[{name}] bit-equal to bounce(engine='xla'), 0 mix-kernel launches, peak below the resident's; "
+    print(f"[{name}] bit-equal to bounce(engine='xla'), 0 slot-plan kernel launches, gather-kernel launches "
+          f"{gk} for {st['windows']} windows, peak below the resident's; "
           + json.dumps(stats))
     return stats
 
@@ -4094,6 +4366,7 @@ def _sharded_run(torch, mesh, name, session, keep_audio=True) -> dict:
            "cascade_launches": biquad_cuda.biquad_cascade_launches,
            "dynamics_launches": dynamics_cuda.dynamics_scan_launches,
            "dynamics_fused_launches": dynamics_cuda.dynamics_fused_launches, "mix_launches": mix_launches(),
+           "gather_launches": gather_counts(),
            "sha256": hashlib.sha256(audio.tobytes()).hexdigest()}
     if keep_audio:
         rec["audio"] = audio
@@ -4232,7 +4505,7 @@ def phase_sharded(torch) -> dict:
 
     smi = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]).splitlines()[0]
     t_phase = time.perf_counter()
-    refs, launches, dyn_launches, out = {}, {}, {}, {}
+    refs, launches, dyn_launches, gather_launches, out = {}, {}, {}, {}, {}
     check(not dist.is_initialized(), "a process group is already initialised")
     mesh = make_render_mesh()
     check(mesh.backend == "nccl" and mesh.shape == {"tracks": 1, "frames": 1} and not mesh.staged,
@@ -4244,6 +4517,9 @@ def phase_sharded(torch) -> dict:
             rec = _sharded_run(torch, mesh, name, session)
             note = _check_sharded(rec, refs[name], _sharded_bar(name, "1x1"))
             check(not any(rec["mix_launches"].values()), f"{name} 1x1: the sharded mix launched a mix kernel")
+            check(rec["gather_launches"]["sum_unclipped" if name == "headline" else "per_track"] >= 1,
+                  f"{name} 1x1: the sharded mix never launched the gather kernel ({rec['gather_launches']})")
+            gather_launches[f"sharded_1x1_{name}"] = rec["gather_launches"]
             if name != "headline":
                 check(rec["cascade_launches"] > 0, f"{name} 1x1: the cascade kernel never launched")
                 check(rec["dynamics_launches"] > 0, f"{name} 1x1: the dynamics kernel never launched")
@@ -4268,6 +4544,10 @@ def phase_sharded(torch) -> dict:
         check(all(r["backend"] == "gloo" and r["staged_host"] for r in per_rank),
               f"{cell}: not gloo with host staging")
         check(not any(v for r in per_rank for v in r["mix_launches"].values()), f"{cell}: a mix kernel launched")
+        form = "sum_unclipped" if rec["name"] == "headline" else "per_track"
+        check(all(r["gather_launches"][form] >= 1 for r in per_rank),
+              f"{cell}: a rank never launched the gather kernel")
+        gather_launches[cell] = [r["gather_launches"] for r in per_rank]
         if rec["name"] != "headline":
             check(all(r["cascade_launches"] > 0 for r in per_rank), f"{cell}: the cascade kernel never launched")
             check(all(r["dynamics_launches"] > 0 for r in per_rank), f"{cell}: the dynamics kernel never launched")
@@ -4278,7 +4558,7 @@ def phase_sharded(torch) -> dict:
         dyn_launches[cell] = rec["dynamics_launches"]
         stats = {"ranks": [{k: r[k] for k in ("rank", "wall_s", "staged_copies", "staged_bytes",
                                               "staged_copy_s", "peak_gb", "cascade_launches",
-                                              "dynamics_launches")}
+                                              "dynamics_launches", "gather_launches")}
                            for r in per_rank],
                  "wall_s_max": max(r["wall_s"] for r in per_rank), "peak_gb_max": peak,
                  "card_gb": total_gb}
@@ -4291,7 +4571,8 @@ def phase_sharded(torch) -> dict:
     L = -(-int(refs["headline"].shape[1]) // (SHARED_WORLD * 512)) * 512  # the 1x4 shard
     out["cascade"] = sharded_cascade_vs_plain(torch, L)
     print(f"[sharded] phase {time.perf_counter() - t_phase:.1f} s")
-    return {"cell_launches": launches, "dynamics_cell_launches": dyn_launches, **out}
+    return {"cell_launches": launches, "dynamics_cell_launches": dyn_launches,
+            "gather_cell_launches": gather_launches, **out}
 
 
 def main() -> int:
@@ -4323,12 +4604,13 @@ def main() -> int:
     timed(phase_kernel_vs_plain)
     timed(phase_cascade_small, torch)
     timed(phase_dynamics_small, torch)
-    linear, headline_xla = timed(phase_headline, torch)
+    linear, headline_xla, gather_forms = timed(phase_headline, torch)
     auto = timed(phase_automation, torch)
     effects = timed(phase_effects, torch)
     interp = timed(phase_interpolation, torch)
     run_all = timed(phase_run_all, torch)
     dense = timed(phase_gather_small, torch)
+    timed(phase_gather_kernel, torch)
     generic = timed(phase_generic, torch)
     long = timed(phase_long, torch)
     timed(phase_routed_small, torch)
@@ -4350,6 +4632,27 @@ def main() -> int:
 
     def launched(counter):
         return {k: v[counter] for k, v in fx_launches.items() if v.get(counter)}
+
+    # the gather kernel's forms, each with the launches of its main path's run
+    sharded_gather = {k: v[0] if isinstance(v, list) else v for k, v in sharded["gather_cell_launches"].items()}
+    gather_forms["per_track"]["launches"] = long["gather_kernel_launches"]["per_track"]
+    gather_forms["sum_unclipped"]["launches"] = sharded_gather["sharded_1x1_headline"]["sum_unclipped"]
+    for form, entry in gather_forms.items():
+        check(entry["launches"] > 0, f"gather kernel ({form}): no launch on its main path")
+    gather_cells = {
+        "sum": {"headline_xla": gather_forms["sum"]["launches"],
+                "stream_takes_128trk": stream["gather_launches"]["sum"]},
+        "per_track": {"effects_eq_240s_128trk_6gib_rule": long["gather_kernel_launches"]["per_track"],
+                      "routed_sidechain_128trk_xla": routed["xla_gather_launches"]["per_track"],
+                      "midi_synth_128trk_xla": midi["xla_gather_launches"]["per_track"],
+                      "preview_32trk": preview["gather_launches"]["per_track"],
+                      "stream_takes_eq_128trk": stream["eq_gather_launches"]["per_track"],
+                      **{k: v["per_track"] for k, v in sharded_gather.items() if v["per_track"]}},
+        "sum_unclipped": {k: v["sum_unclipped"] for k, v in sharded_gather.items() if v["sum_unclipped"]},
+    }
+    gather_src = "whitebox_tpu_torch/csrc/gather_mix.cu"
+    gather_replaces = ("whitebox_tpu/ops/mix.py:171-305 (render_chunk's gather mix: an XLA program there, "
+                       "~100 torch ops a chunk in the port's plain version, not a TPU kernel)")
     check("jax" not in sys.modules and "whitebox_tpu" not in sys.modules,
           "the port loaded jax or the JAX package")
     print(f"[total] chip_smoke wall time {time.perf_counter() - t_start:.1f} s (limit 1200 s)")
@@ -4427,6 +4730,10 @@ def main() -> int:
          # no PyTorch call runs a max-decay or one-pole recurrence
          "library_ms": None,
          "cell_launches": {**sharded["dynamics_cell_launches"], **launched("dynamics_scan")}},
+        *({"name": f"gather_mix_{form}", "route": "cuda", "source": gather_src, "replaces": gather_replaces,
+           **{k: gather_forms[form][k] for k in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                 "bound_by", "library_ms")},
+           "cell_launches": gather_cells[form]} for form in GATHER_FORMS),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["device"],
                                              "count": env["device_count"]}}))

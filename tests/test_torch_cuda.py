@@ -39,7 +39,10 @@ the CPU's preview) and the streamed bounce (bit-equal to the card's
 gather bounce; with EQ chains within 1e-5); the sharded render on a world
 of one over NCCL (bit-equal plain, chains within atol 3e-6 / rtol 1e-4,
 the cascade kernel launched) and on two ranks sharing the card over gloo;
-the eleven feature checks of ``whitebox_tpu_torch/tools/verify.py``.
+the eleven feature checks of ``whitebox_tpu_torch/tools/verify.py``; the
+gather kernel (``csrc/gather_mix.cu``) bit-equal to its plain version in
+every form and interpolation mode, the bounce through ``engine="xla"``
+launching it once a chunk and no slot-plan kernel, a failed build raising.
 """
 
 import importlib
@@ -687,6 +690,7 @@ def test_sharded_world_of_one_over_nccl(card, chained):
     finally:
         dist.destroy_process_group()
     assert not any(chip_smoke.mix_launches().values())
+    assert chip_smoke.gather_counts()["per_track" if chained else "sum_unclipped"] >= 1
     if chained:
         assert biquad_cuda.biquad_cascade_launches > 0
         np.testing.assert_allclose(got, ref, atol=3e-6, rtol=1e-4)
@@ -720,3 +724,55 @@ def test_verify_checks_pass_on_the_card(card):
     from whitebox_tpu_torch.tools import verify
 
     assert verify.main(["--device", "cuda"]) == 0
+
+
+@pytest.mark.parametrize("case", list(chip_smoke.gather_kernel_cases()))
+def test_gather_kernel_bit_equal_to_plain(card, case):
+    """Every form (per-track, summed, summed unclipped) bit-equal to the
+    plain torch ops on the card chunk by chunk, a chunk past the end +0.0,
+    a track subset, strict_order=False within 1e-6."""
+    build, interpolation, chunk, channels = chip_smoke.gather_kernel_cases()[case]
+    chip_smoke.gather_kernel_vs_plain(torch, case, build(), interpolation, chunk, channels)
+
+
+def test_gather_kernel_many_tracks(card):
+    """300 tracks: two staging passes of the row ranges; strict_order=False
+    within the reordering bound of 300 terms."""
+    chip_smoke.gather_kernel_vs_plain(torch, "tracks_300", chip_smoke.many_tracks_gather_session(),
+                                      chunk=1 << 15, fast_sum_atol=None)
+
+
+def test_bounce_xla_launches_the_gather_kernel(card):
+    """``engine="xla"``: the gather path, no slot-plan kernel, the gather
+    kernel at least once a chunk, bit-equal to the slot-plan kernel's bounce."""
+    s = make_demo_session(n_tracks=8, duration_seconds=4.0, seed=7)
+    k = bounce(s, 48000.0, device=card)
+    chip_smoke.reset_launches()
+    got = bounce(s, 48000.0, device=card, engine="xla", chunk_frames=50000)
+    assert got.stats.mix_path == "gather" and not any(chip_smoke.mix_launches().values())
+    assert got.stats.gather_chunks == -(-k.frames // 50000)
+    assert chip_smoke.gather_counts() == {"per_track": 0, "sum": got.stats.gather_chunks, "sum_unclipped": 0}
+    np.testing.assert_array_equal(got.audio, k.audio)
+
+
+def test_gather_kernel_has_no_fallback(card, monkeypatch):
+    """A failed build or a malformed argument raises on the card; nothing
+    renders through the torch ops instead."""
+    from whitebox_tpu_torch.ops import cuda_build, gather_cuda
+    from whitebox_tpu_torch.ops import mix as mix_mod
+
+    s = make_demo_session(n_tracks=2, duration_seconds=1.0, seed=7)
+    table, pool = carve_session(s, 48000.0, buffer_size=512, slow_emit="blocks")
+    tables = mix_mod.pack_device_tables(table, pool, s).as_torch(card)
+    pool_dev = torch.from_numpy(pool.data).to(card)
+    with pytest.raises(ValueError, match="pool must be"):
+        mix_mod.render_chunk(pool_dev.double(), tables, 0, 4096)
+
+    def broken():
+        raise RuntimeError("nvcc failed")
+    monkeypatch.setattr(cuda_build, "load", broken)
+    monkeypatch.setattr(mix_mod, "gather_plain", lambda *a, **k: pytest.fail("fell back to the torch ops"))
+    before = gather_cuda.gather_launches
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        mix_mod.render_chunk_per_track(pool_dev, tables, 0, 4096)
+    assert gather_cuda.gather_launches == before

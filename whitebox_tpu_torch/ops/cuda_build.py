@@ -1,5 +1,5 @@
 """Build and bind the port's CUDA kernels (``csrc/*.cu``: the mix kernel,
-the biquad cascade, the dynamics kernel).
+the gather mix, the biquad cascade, the dynamics kernel).
 
 Counterpart of ``whitebox_tpu/io/native.py:23-110``, the repo's make +
 ctypes idiom for native code: the sources are compiled at first use by
@@ -96,5 +96,8 @@ def load() -> ctypes.CDLL:
     # wb_dynamics: the address of a WbDynArgs (ops/dynamics_cuda.py), stream
     lib.wb_dynamics.restype = ci
     lib.wb_dynamics.argtypes = [vp, vp]
+    # wb_gather_mix: the address of a WbGatherArgs (ops/gather_cuda.py), stream
+    lib.wb_gather_mix.restype = ci
+    lib.wb_gather_mix.argtypes = [vp, vp]
     _LIB = lib
     return _LIB

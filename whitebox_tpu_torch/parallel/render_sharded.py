@@ -1,14 +1,14 @@
 """The sharded timeline render over a ('tracks', 'frames') mesh of ranks.
 
 Counterpart of ``whitebox_tpu/parallel/render_sharded.py``. Each rank
-renders its track shard x frame shard tile with the per-track
-contribution program of the single-device gather mix
-(``ops/mix.py::_track_contrib``), sums its tracks in index order, and the
+renders its track shard x frame shard tile with the single-device gather
+mix (``ops/mix.py``: on the card one launch of ``csrc/gather_mix.cu`` in
+its per-track or unclipped summed form), sums its tracks in index order, and the
 partial sums meet in the ordered track sum over the tracks axis
 (``collectives.ordered_sum``: gathered and added in rank order); the hard
 clip follows. Frame shards are independent in the mix (it is a gather,
 not a stencil). As in the JAX package the sharded mix is the gather, not
-the mix kernel.
+the slot-plan mix kernel.
 
 Sum order: within a rank the tracks add in index order from zero; across
 the tracks axis the partials add in rank order. On a frames-only mesh
@@ -22,9 +22,9 @@ per-track processing (chains, lanes, MIDI, buses) take
 each chain group spread over the tracks axis by an explicit exchange and
 run frame-sharded with the exact state handoff (``effects_sharded``),
 gains, the routing products or the ordered sum, bus chains, the master
-chain and the clip. The shard's contributions are rendered
-:data:`CONTRIB_FRAMES` frames at a time, which bounds the gather's
-temporaries.
+chain and the clip. The shard's contributions are one kernel launch on
+the card; the plain version on the CPU renders ``mix.PLAIN_FRAMES``
+frames at a time, which bounds its temporaries.
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ import torch
 
 from whitebox_tpu_torch.midi.synth import render_synth_chunk
 from whitebox_tpu_torch.ops.automation import session_has_automation
-from whitebox_tpu_torch.ops.mix import _frames, _track_contrib, pack_device_tables
+from whitebox_tpu_torch.ops.mix import _clip, pack_device_tables, render_chunk, render_chunk_per_track
 from whitebox_tpu_torch.ops.resample import full_f32_matmul
 from whitebox_tpu_torch.parallel.collectives import all_gather, gather_frames, ordered_sum
 from whitebox_tpu_torch.parallel.effects_sharded import chain_group, chain_program, chain_shard
@@ -46,11 +46,6 @@ from whitebox_tpu_torch.render.effects_pipeline import _frame_gains, _ordered_su
 from whitebox_tpu_torch.render.routing import _route, prepare_routed_fx, routed_device_params
 from whitebox_tpu_torch.session.bus import session_has_routing
 from whitebox_tpu_torch.timeline.carve import carve_session
-
-#: frames of a shard's contributions rendered at once (the gather's
-#: per-frame temporaries are ``[T, frames]`` int64 and f32)
-CONTRIB_FRAMES = 1 << 16
-
 
 def shard_tables(tables: dict, mesh) -> dict:
     """This rank's rows of the packed tables (``DeviceTables.as_torch``),
@@ -66,18 +61,7 @@ def shard_tables(tables: dict, mesh) -> dict:
 
 def _tile_contribs(pool, tables, chunk_start: int, f_local: int, frames_index: int) -> torch.Tensor:
     """Per-track contributions ``[T_local, C, f_local]`` of this frame shard."""
-    T, _, C = tables["src_base"].shape
-    g0 = int(chunk_start) + frames_index * f_local
-    out = torch.empty((T, C, f_local), dtype=torch.float32, device=pool.device)
-    for a in range(0, f_local, CONTRIB_FRAMES):
-        n = min(CONTRIB_FRAMES, f_local - a)
-        out[..., a:a + n] = _track_contrib(pool, tables, _frames(g0 + a, n, pool.device))
-    return out
-
-
-def _clip(total: torch.Tensor) -> torch.Tensor:
-    total = torch.where(total > 1.0, 1.0, total)
-    return torch.where(total < -1.0, -1.0, total)
+    return render_chunk_per_track(pool, tables, int(chunk_start) + frames_index * f_local, f_local)
 
 
 def render_chunk_sharded(pool, tables, chunk_start: int, frames: int, mesh) -> torch.Tensor:
@@ -90,12 +74,7 @@ def render_chunk_sharded(pool, tables, chunk_start: int, frames: int, mesh) -> t
         raise ValueError("frames must divide over the frames mesh axis")
     f_local = frames // fp
     g0 = int(chunk_start) + mesh.coords["frames"] * f_local
-    C = tables["src_base"].shape[2]
-    local = torch.empty((C, f_local), dtype=torch.float32, device=pool.device)
-    for a in range(0, f_local, CONTRIB_FRAMES):
-        n = min(CONTRIB_FRAMES, f_local - a)
-        contribs = _track_contrib(pool, tables, _frames(g0 + a, n, pool.device))
-        local[:, a:a + n] = _ordered_sum(contribs * tables["track_gain"][:, :, None])
+    local = render_chunk(pool, tables, g0, f_local, strict_order=True, clip=False)
     return _clip(ordered_sum(local, mesh.axis("tracks")))
 
 

@@ -32,7 +32,9 @@ interpolation modes of resampled clips (``"linear"``, ``"catmull"``,
   hold the session: a slot overflow at the smallest tile, or per-track
   buffers above :func:`per_track_limit_bytes`; the JAX package's
   ``bounce.py:444-629``): carve with ``slow_emit="blocks"``, the chunked
-  gather mix of ``ops/mix.py`` in ``chunk_frames`` chunks, the synth
+  gather mix of ``ops/mix.py`` in ``chunk_frames`` chunks (on the card one
+  launch of the gather kernel ``csrc/gather_mix.cu`` a chunk, or more with
+  the PDC fetch-ahead; ``stats.gather_chunks`` counts them), the synth
   added chunk by chunk, with the finishers' streaming forms
   (``finish_mix_chunk``, ``make_generic_chunk_fn``,
   ``make_routed_chunk_fn``) carrying their states from chunk to chunk.
@@ -465,8 +467,10 @@ def _render_gather(session, table, pool, sample_rate, channels, buffer_size, num
     stats.compile_seconds = watch.lap()
 
     outs, parts = [], []
+    starts = range(0, F + mlat, chunk)  # master latency: render further, trim the head
+    stats.gather_chunks = len(starts)
     with DeviceTimer(dev) as timer:
-        for start in range(0, F + mlat, chunk):  # master latency: render further, trim the head
+        for start in starts:
             if fx_chunk is None:
                 outs.append(render_chunk(pool_dev, jt, start, chunk, strict_order=strict_order,
                                          sinc_bank=sinc_bank, interp=interp))

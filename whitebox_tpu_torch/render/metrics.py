@@ -44,6 +44,9 @@ class RenderStats:
     #: which mix rendered: "kernel" (the CUDA mix kernel, or its plain twin
     #: on the CPU) or "gather" (the chunked gather mix, ``ops/mix.py``)
     mix_path: str = ""
+    #: chunks the gather path rendered (0 on the kernel path); on the card
+    #: each is one launch of the gather kernel or more
+    gather_chunks: int = 0
     #: device time of the sinc prerender's pool extension (0 without one);
     #: it runs before the mix, inside the window of ``carve_seconds``
     prerender_seconds: float = 0.0

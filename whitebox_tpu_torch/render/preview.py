@@ -19,7 +19,8 @@ package: ``render_chunk`` for a session without effects, or
 to pull (``render/bounce.py::window_finisher``, shared with the streamed
 bounce: the linear finisher's biquad cascade runs the hand CUDA kernel
 ``csrc/biquad_cascade.cu`` on the card; the generic and routed steps for
-every other chain). No mix kernel runs here.
+every other chain). The slot-plan mix kernel does not run here; on the
+card each window is one launch of the gather kernel (``csrc/gather_mix.cu``).
 """
 
 from __future__ import annotations

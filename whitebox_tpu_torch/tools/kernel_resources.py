@@ -24,6 +24,7 @@ from pathlib import Path
 from whitebox_tpu_torch.ops import cuda_build
 
 _INTERP = ("kLinear", "kCatmull", "kPoly", "kPoly6")
+_GATHER_INTERP = ("kLinear", "kCatmull", "kPoly", "kSinc")
 _DYN_KINDS = ("kOnePole", "kBallistics", "kCompressor", "kLimiter", "kGate")
 
 
@@ -37,6 +38,12 @@ def kernel_name(mangled: str) -> str:
     m = re.search(r"cascade_kernelILi(\d)E", mangled)
     if m:
         return f"cascade_kernel<S={m[1]}>"
+    m = re.search(r"gather_per_trackILi(\d)E", mangled)
+    if m:
+        return f"gather_per_track<{_GATHER_INTERP[int(m[1])]}>"
+    m = re.search(r"gather_sumILi(\d)ELb([01])E", mangled)
+    if m:
+        return f"gather_sum<{_GATHER_INTERP[int(m[1])]}, kClip={m[2]}>"
     m = re.search(r"dyn_kernelILi(\d)ELb([01])E", mangled)
     return f"dyn_kernel<{_DYN_KINDS[int(m[1])]}, kFw={m[2]}>" if m else mangled
 
@@ -45,7 +52,7 @@ def block_threads(src) -> int:
     """Threads per block of the kernels in ``src`` (each source launches
     all its kernels with one block size)."""
     text = src.read_text()
-    m = re.search(r"constexpr int kFramesPerBlock = (\d+);", text)
+    m = re.search(r"constexpr int kFrames(?:PerBlock)? = (\d+);", text)
     if m:
         return int(m[1])
     return 32 * int(re.search(r"constexpr int kWarps(?:PerBlock)? = (\d+);", text)[1])
