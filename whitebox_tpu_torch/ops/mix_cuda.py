@@ -394,16 +394,19 @@ class CudaMixRenderer:
         interp_mode(interp)  # linear, catmull or ("poly", coeffs); anything else raises
         self.interp = interp
         self.plan = plan or build_plan(table, pool, session, channels=channels, tile=tile)
-        if pool_device is None:
-            pool_device = torch.from_numpy(np.ascontiguousarray(pool.data, dtype=np.float32)).to(self.device)
-        elif pool_device.device.type != self.device.type:
-            raise ValueError(f"pool_device lies on {pool_device.device}, renderer on {self.device}")
-        check_pool_bounds(self.plan, pool_device.shape[0], interp)
-        # repeated renders of one session: samples stay device-resident
-        self.pool_device = pool_device
-        self.tables = {f: torch.from_numpy(np.ascontiguousarray(getattr(self.plan, f))).to(self.device)
-                       for f in TABLE_FIELDS}
-        self.auto = None if auto_tables is None else auto_tables_to_device(auto_tables, self.device)
+        from whitebox_tpu_torch.render.metrics import span  # render imports this module
+
+        with span("wb.upload"):
+            if pool_device is None:
+                pool_device = torch.from_numpy(np.ascontiguousarray(pool.data, dtype=np.float32)).to(self.device)
+            elif pool_device.device.type != self.device.type:
+                raise ValueError(f"pool_device lies on {pool_device.device}, renderer on {self.device}")
+            check_pool_bounds(self.plan, pool_device.shape[0], interp)
+            # repeated renders of one session: samples stay device-resident
+            self.pool_device = pool_device
+            self.tables = {f: torch.from_numpy(np.ascontiguousarray(getattr(self.plan, f))).to(self.device)
+                           for f in TABLE_FIELDS}
+            self.auto = None if auto_tables is None else auto_tables_to_device(auto_tables, self.device)
 
     def render_device(self) -> torch.Tensor:
         """Full render, output stays on the device: ``[C, n_tiles*tile]`` f32."""

@@ -20,7 +20,9 @@
 - ``preview``          : ``PreviewStream``, block-pull playback.
 - ``stream_pool``      : ``bounce_streamed``, a pool past the card's cap in windows.
 - ``roofline``         : the cost model (least bytes and operations of a render).
-- ``metrics``          : ``RenderStats``, ``Stopwatch``, ``DeviceTimer`` (CUDA events).
+- ``metrics``          : ``RenderStats``, ``span`` (the host legs, on the
+                         profiler's clock while it records), ``DeviceTimer``
+                         (CUDA events).
 - ``demo``             : ``make_demo_session``, the synthetic benchmark sessions.
 
 As in the JAX package, the package imports ``bounce`` and ``RenderStats``;

@@ -50,11 +50,11 @@ measures the final audio (``ops/loudness.py``, on the bounce's device);
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from whitebox_tpu_torch.core.formats import AudioFormat
 from whitebox_tpu_torch.device import resolve_device
@@ -83,7 +83,7 @@ from whitebox_tpu_torch.render.effects_pipeline import (
     prepare_automation_tables, prepare_automation_tables_host, prepare_effect_tables,
     session_has_effects,
 )
-from whitebox_tpu_torch.render.metrics import DeviceTimer, RenderStats, Stopwatch, device_name
+from whitebox_tpu_torch.render.metrics import DeviceTimer, RenderStats, collect_legs, device_name, span
 from whitebox_tpu_torch.render.roofline import device_peaks, estimate_bounce_cost, prerender_cost
 from whitebox_tpu_torch.render.routing import (
     init_routed_states, make_routed_chunk_fn, make_routed_finisher, prepare_routed_fx,
@@ -159,7 +159,7 @@ def _add_synth(per_track, synth: dict, chunk_start: int, frames: int):
     written (a finisher may be handed the same K4 buffer again)."""
     if not synth:
         return per_track
-    with record_function("wb.synth"):
+    with span("wb.synth"):
         sy = render_synth_chunk(synth["tables"], chunk_start, frames)  # [R, frames]
         idx = torch.as_tensor(synth["rows"], device=per_track.device)
         return per_track.index_add(0, idx, sy[:, None, :].expand(-1, per_track.shape[1], -1))
@@ -327,53 +327,62 @@ def _read_meters(stats, meters, T: int) -> None:
     stats.output_peak, stats.output_rms = op, orms
 
 
+def _load_kernels(dev, stats) -> None:
+    """nvcc at first use in the process, timed apart from the host legs and the mix."""
+    t0 = time.perf_counter()
+    if dev.type == "cuda":
+        cuda_build.load()
+    stats.compile_seconds = time.perf_counter() - t0
+
+
 def _render_kernel(session, table, pool, plan, interp, pre_pool_dev, sample_rate, channels,
                    effects_mode, meters, pdc, has_fx, routed_chunk, buffer_size, dev, stats,
-                   watch) -> np.ndarray:
-    """The mix kernel (or K4 and a finisher) over the slot plan."""
+                   call) -> np.ndarray:
+    """The mix kernel (or K4 and a finisher) over the slot plan; ``call``
+    is the bounce's span, whose clock ``stats.carve_seconds`` reads."""
     finish = None
     if has_fx:
         # per-track mode (K4): lanes evaluate in the finisher's gains
         renderer = CudaMixRenderer(table, pool, session, device=dev, channels=channels, plan=plan,
                                    interp=interp, pool_device=pre_pool_dev)
-        finish = _effects_finisher(session, renderer, plan, sample_rate, channels, effects_mode,
-                                   meters, dev, pdc=pdc, routed_chunk=routed_chunk,
-                                   buffer_size=buffer_size)
+        with span("wb.fx.prepare"):
+            finish = _effects_finisher(session, renderer, plan, sample_rate, channels, effects_mode,
+                                       meters, dev, pdc=pdc, routed_chunk=routed_chunk,
+                                       buffer_size=buffer_size)
     else:
         # automation-only sessions evaluate the volume/pan lanes in the kernel
         # (the JAX package's fused single pass, bounce.py:316-333)
         renderer = CudaMixRenderer(table, pool, session, device=dev, channels=channels, plan=plan,
                                    interp=interp, pool_device=pre_pool_dev,
                                    auto_tables=prepare_automation_tables_host(session, sample_rate))
-    stats.carve_seconds = watch.lap()
-    if dev.type == "cuda":
-        cuda_build.load()  # nvcc at first use in the process, not in the mix time
-    stats.compile_seconds = watch.lap()
+    stats.carve_seconds = call.elapsed()
+    _load_kernels(dev, stats)
 
     res = None
-    with DeviceTimer(dev) as timer:
+    with span("wb.mix"), DeviceTimer(dev) as timer:
         if finish is None:
             out_dev = renderer.render_device()
         else:
             pt = renderer.render_device_per_track()
-            with DeviceTimer(dev) as ftimer:
+            with span("wb.finish"), DeviceTimer(dev) as ftimer:
                 res = finish(pt)
             out_dev = res[0] if meters else res
     stats.device_seconds = timer.seconds
     if finish is not None:
         stats.finish_seconds = ftimer.seconds
-    watch.lap()
-    out = out_dev[:, : plan.total_frames].cpu().numpy()
-    if meters:
-        _read_meters(stats, res[1], len(session.tracks))
-    stats.readback_seconds = watch.lap()
+    with span("wb.readback") as readback:
+        out = out_dev[:, : plan.total_frames].cpu().numpy()
+        if meters:
+            _read_meters(stats, res[1], len(session.tracks))
+    stats.readback_seconds = readback.seconds
     return out
 
 
 def _render_gather(session, table, pool, sample_rate, channels, buffer_size, num_blocks, engine,
                    interpolation, sinc_bank, interp, pre_pool_dev, chunk_frames, strict_order,
-                   meters, pdc, has_midi, has_routing, dev, stats, watch) -> np.ndarray:
-    """The chunked gather mix (``whitebox_tpu/render/bounce.py:444-629``)."""
+                   meters, pdc, has_midi, has_routing, dev, stats, call) -> np.ndarray:
+    """The chunked gather mix (``whitebox_tpu/render/bounce.py:444-629``);
+    ``call`` as :func:`_render_kernel`'s."""
     if engine != "xla" and len(table) and (not table.fast.all() or pre_pool_dev is not None):
         # the table was carved with slow_emit="runs" for the slot plan; the
         # gather path's parity contract needs the blockwise sequentially
@@ -383,93 +392,94 @@ def _render_gather(session, table, pool, sample_rate, channels, buffer_size, num
         table, pool = carve_session(session, sample_rate, buffer_size=buffer_size, num_blocks=num_blocks,
                                     out_channels=channels, slow_emit="blocks")
         if sinc_bank is None and interpolation != "linear":
-            table, pool, interp = resolve_interpolation(table, pool, interpolation)
-    tables = pack_device_tables(table, pool, session, channels=channels)
-    jt = tables.as_torch(dev)
-    pool_dev = torch.from_numpy(pool.data).to(dev)
+            with span("wb.plan"):
+                table, pool, interp = resolve_interpolation(table, pool, interpolation)
+    with span("wb.upload"):
+        tables = pack_device_tables(table, pool, session, channels=channels)
+        jt = tables.as_torch(dev)
+        pool_dev = torch.from_numpy(pool.data).to(dev)
     F = tables.total_frames
     T = tables.num_tracks
     chunk = min(chunk_frames, max(F, 1))
 
-    synth = (_prepare_synth_tables(session, sample_rate, buffer_size, F // buffer_size, dev)
-             if has_midi else {})
+    with span("wb.fx.prepare"):
+        synth = (_prepare_synth_tables(session, sample_rate, buffer_size, F // buffer_size, dev)
+                 if has_midi else {})
 
-    def per_track(start, tab=jt, synth=synth):
-        pt = render_chunk_per_track(pool_dev, tab, start, chunk, sinc_bank=sinc_bank, interp=interp)
-        return _add_synth(pt, synth, start, chunk)
+        def per_track(start, tab=jt, synth=synth):
+            pt = render_chunk_per_track(pool_dev, tab, start, chunk, sinc_bank=sinc_bank, interp=interp)
+            return _add_synth(pt, synth, start, chunk)
 
-    ahead = []  # PDC fetch-ahead: the rows of latent chains, rendered lat frames ahead
+        ahead = []  # PDC fetch-ahead: the rows of latent chains, rendered lat frames ahead
 
-    def fetch_ahead(fx):
-        """The rows of ``fx``'s latent track chains by latency -> ``ahead``
-        (each with its row subset of the tables and of the synth's); the
-        master latency."""
-        glat, mlat = fx_latencies(fx)
-        by_lat: dict = {}
-        for g, lat in zip(fx.groups, glat):
-            if lat > 0:
-                by_lat.setdefault(lat, []).extend(np.asarray(g.track_idx).tolist())
-        for lat, rows in by_lat.items():
-            rows = sorted(rows)
-            idx = torch.as_tensor(rows, device=dev)
-            ahead.append((lat, idx, {k: v[idx] for k, v in jt.items()}, _synth_subset(synth, rows)))
-        return mlat
+        def fetch_ahead(fx):
+            """The rows of ``fx``'s latent track chains by latency -> ``ahead``
+            (each with its row subset of the tables and of the synth's); the
+            master latency."""
+            glat, mlat = fx_latencies(fx)
+            by_lat: dict = {}
+            for g, lat in zip(fx.groups, glat):
+                if lat > 0:
+                    by_lat.setdefault(lat, []).extend(np.asarray(g.track_idx).tolist())
+            for lat, rows in by_lat.items():
+                rows = sorted(rows)
+                idx = torch.as_tensor(rows, device=dev)
+                ahead.append((lat, idx, {k: v[idx] for k, v in jt.items()}, _synth_subset(synth, rows)))
+            return mlat
 
-    def per_track_ahead(start):
-        pt = per_track(start)
-        for lat, idx, sub, sub_synth in ahead:
-            pt[idx] = per_track(start + lat, sub, sub_synth)
-        return pt
+        def per_track_ahead(start):
+            pt = per_track(start)
+            for lat, idx, sub, sub_synth in ahead:
+                pt[idx] = per_track(start + lat, sub, sub_synth)
+            return pt
 
-    fx_chunk = None
-    mlat = 0
-    if session_has_effects(session) or session_has_automation(session) or meters or has_midi or has_routing:
-        auto = prepare_automation_tables(session, sample_rate, device=dev)
-        tg = jt["track_gain"]
-        if has_routing:
-            rfx = prepare_routed_fx(session, sample_rate, channels, device=dev)
-            if pdc:
-                if any(stage_latency_frames(g.stages) > 0 for g in rfx.bus_groups):
-                    raise ValueError("the streaming (gather) path does not carry bus-chain latency delay "
-                                     "lines; render with engine='auto'/'pallas' (the routed finisher "
-                                     "compensates bus latency), or move lookahead limiters to tracks or "
-                                     "the master")
-                mlat = fetch_ahead(rfx.fx)
-            chunk = routed_auto_chunk_frames(rfx, chunk, device=dev)
-            rstep = make_routed_chunk_fn(rfx, T, channels, chunk=chunk, with_meters=meters, device=dev)
-            states = init_routed_states(rfx, channels, dev)
+        fx_chunk = None
+        mlat = 0
+        if session_has_effects(session) or session_has_automation(session) or meters or has_midi or has_routing:
+            auto = prepare_automation_tables(session, sample_rate, device=dev)
+            tg = jt["track_gain"]
+            if has_routing:
+                rfx = prepare_routed_fx(session, sample_rate, channels, device=dev)
+                if pdc:
+                    if any(stage_latency_frames(g.stages) > 0 for g in rfx.bus_groups):
+                        raise ValueError("the streaming (gather) path does not carry bus-chain latency delay "
+                                         "lines; render with engine='auto'/'pallas' (the routed finisher "
+                                         "compensates bus latency), or move lookahead limiters to tracks or "
+                                         "the master")
+                    mlat = fetch_ahead(rfx.fx)
+                chunk = routed_auto_chunk_frames(rfx, chunk, device=dev)
+                rstep = make_routed_chunk_fn(rfx, T, channels, chunk=chunk, with_meters=meters, device=dev)
+                states = init_routed_states(rfx, channels, dev)
 
-            def fx_chunk(start, states):
-                res = rstep(per_track_ahead(start), states, start, tg, auto)
-                return res[0], res[1], res[2] if meters else None
-        elif not session_fx_packable(session):
-            gfx = prepare_generic_fx(session, sample_rate, channels)
-            if pdc:
-                mlat = fetch_ahead(gfx)
-            chunk = auto_chunk_frames(gfx, chunk, device=dev)
-            gstep = make_generic_chunk_fn(gfx, T, channels, chunk=chunk, with_meters=meters, device=dev)
-            states = init_generic_states(gfx, channels, dev)
+                def fx_chunk(start, states):
+                    res = rstep(per_track_ahead(start), states, start, tg, auto)
+                    return res[0], res[1], res[2] if meters else None
+            elif not session_fx_packable(session):
+                gfx = prepare_generic_fx(session, sample_rate, channels)
+                if pdc:
+                    mlat = fetch_ahead(gfx)
+                chunk = auto_chunk_frames(gfx, chunk, device=dev)
+                gstep = make_generic_chunk_fn(gfx, T, channels, chunk=chunk, with_meters=meters, device=dev)
+                states = init_generic_states(gfx, channels, dev)
 
-            def fx_chunk(start, states):
-                res = gstep(per_track_ahead(start), *states, start, tg, auto)
-                return res[0], res[1:3], res[3] if meters else None
-        else:
-            (S, coeffs), (Sm, mcoeffs) = prepare_effect_tables(session, sample_rate, channels, device=dev)
-            states = init_effect_states(T, channels, S, Sm, dev)
+                def fx_chunk(start, states):
+                    res = gstep(per_track_ahead(start), *states, start, tg, auto)
+                    return res[0], res[1:3], res[3] if meters else None
+            else:
+                (S, coeffs), (Sm, mcoeffs) = prepare_effect_tables(session, sample_rate, channels, device=dev)
+                states = init_effect_states(T, channels, S, Sm, dev)
 
-            def fx_chunk(start, states):
-                res = finish_mix_chunk(per_track(start), coeffs, mcoeffs, tg, *states, start, auto,
-                                       T=T, C=channels, S=S, Sm=Sm, with_meters=meters)
-                return res[0], res[1:3], res[3] if meters else None
-    stats.carve_seconds = watch.lap()
-    if dev.type == "cuda":
-        cuda_build.load()  # the cascade kernel of the linear finisher
-    stats.compile_seconds = watch.lap()
+                def fx_chunk(start, states):
+                    res = finish_mix_chunk(per_track(start), coeffs, mcoeffs, tg, *states, start, auto,
+                                           T=T, C=channels, S=S, Sm=Sm, with_meters=meters)
+                    return res[0], res[1:3], res[3] if meters else None
+    stats.carve_seconds = call.elapsed()
+    _load_kernels(dev, stats)  # the cascade kernel of the linear finisher
 
     outs, parts = [], []
     starts = range(0, F + mlat, chunk)  # master latency: render further, trim the head
     stats.gather_chunks = len(starts)
-    with DeviceTimer(dev) as timer:
+    with span("wb.mix"), DeviceTimer(dev) as timer:
         for start in starts:
             if fx_chunk is None:
                 outs.append(render_chunk(pool_dev, jt, start, chunk, strict_order=strict_order,
@@ -480,12 +490,12 @@ def _render_gather(session, table, pool, sample_rate, channels, buffer_size, num
                 parts.append(m)
         out_dev = torch.cat(outs, dim=1)[:, mlat:mlat + F]
     stats.device_seconds = timer.seconds
-    watch.lap()
-    out = out_dev.cpu().numpy()
-    if meters:
-        # the ragged last chunk renders at full length; its extra frames count
-        _read_meters(stats, meters_from_partials(parts, F), len(session.tracks))
-    stats.readback_seconds = watch.lap()
+    with span("wb.readback") as readback:
+        out = out_dev.cpu().numpy()
+        if meters:
+            # the ragged last chunk renders at full length; its extra frames count
+            _read_meters(stats, meters_from_partials(parts, F), len(session.tracks))
+    stats.readback_seconds = readback.seconds
     return out
 
 
@@ -568,70 +578,71 @@ def bounce(
 
     stats = RenderStats(channels=channels, sample_rate=float(sample_rate), tracks=len(session.tracks),
                         device=device_name(dev), peaks=device_peaks(dev))
-    watch = Stopwatch()
-    # the slot plan takes resampled passes as closed-form runs; the gather
-    # path the per-block rows that mirror the sampler's f64 accumulation
-    table, pool = carve_session(session, sample_rate, buffer_size=buffer_size, num_blocks=num_blocks,
-                                out_channels=channels, slow_emit="blocks" if engine == "xla" else "runs")
-    _log.debug("carved %d segment rows, %d frames, %d tracks",
-               len(table), table.total_frames, table.num_tracks)
+    with span("wb.bounce") as call, collect_legs(stats.host_legs):
+        # the slot plan takes resampled passes as closed-form runs; the gather
+        # path the per-block rows that mirror the sampler's f64 accumulation
+        table, pool = carve_session(session, sample_rate, buffer_size=buffer_size, num_blocks=num_blocks,
+                                    out_channels=channels, slow_emit="blocks" if engine == "xla" else "runs")
+        _log.debug("carved %d segment rows, %d frames, %d tracks",
+                   len(table), table.total_frames, table.num_tracks)
 
-    interp, pre_pool_dev, pplan, sinc_bank = "linear", None, None, None
-    slow_rows = bool(len(table)) and not table.fast.all()
-    if interpolation == "sinc" and engine != "xla" and slow_rows and prerender is not False:
-        # every coverable run rendered by polyphase products into a pool
-        # extension on the device; the residue through the oversampled pool
-        table, pool, interp, pre_pool_dev, pplan = resolve_sinc_device(table, pool, device=dev)
-        if pplan is not None:
-            stats.prerender_seconds = pplan.ext_seconds
-    elif interpolation == "sinc" and engine == "xla" and slow_rows:
-        # the direct 32-tap windowed sinc; the cutoff follows the fastest |speed|
-        max_ratio = float(np.max(np.abs(table.speed[~table.fast])))
-        sinc_bank = torch.from_numpy(design_sinc_bank(max(max_ratio, 1.0))).to(dev)
-    else:
-        # "catmull" runs in the kernel; "sinc" becomes a 4x oversampled copy
-        # of the resampled samples + six LS-optimal polynomial taps
-        pool0 = pool
-        table, pool, interp = resolve_interpolation(table, pool, interpolation)
-        if pool is not pool0 and engine != "xla":
-            pre_pool_dev = device_pool_cached(pool, dev)  # byte-identical render to render
-    stats.cost = estimate_bounce_cost(table, session, table.total_frames, channels)
-    for name, (b, f) in prerender_cost(pplan, channels).terms.items():
-        stats.cost.add(name, b, f)
+        with span("wb.plan"):
+            interp, pre_pool_dev, pplan, sinc_bank = "linear", None, None, None
+            slow_rows = bool(len(table)) and not table.fast.all()
+            if interpolation == "sinc" and engine != "xla" and slow_rows and prerender is not False:
+                # every coverable run rendered by polyphase products into a pool
+                # extension on the device; the residue through the oversampled pool
+                table, pool, interp, pre_pool_dev, pplan = resolve_sinc_device(table, pool, device=dev)
+                if pplan is not None:
+                    stats.prerender_seconds = pplan.ext_seconds
+            elif interpolation == "sinc" and engine == "xla" and slow_rows:
+                # the direct 32-tap windowed sinc; the cutoff follows the fastest |speed|
+                max_ratio = float(np.max(np.abs(table.speed[~table.fast])))
+                sinc_bank = torch.from_numpy(design_sinc_bank(max(max_ratio, 1.0))).to(dev)
+            else:
+                # "catmull" runs in the kernel; "sinc" becomes a 4x oversampled copy
+                # of the resampled samples + six LS-optimal polynomial taps
+                pool0 = pool
+                table, pool, interp = resolve_interpolation(table, pool, interpolation)
+                if pool is not pool0 and engine != "xla":
+                    pre_pool_dev = device_pool_cached(pool, dev)  # byte-identical render to render
+            stats.cost = estimate_bounce_cost(table, session, table.total_frames, channels)
+            for name, (b, f) in prerender_cost(pplan, channels).terms.items():
+                stats.cost.add(name, b, f)
 
-    # effect lanes ride the finisher of the chains they automate (the JAX
-    # package's rule: a lane on a slot no chain fills renders nothing)
-    has_fx = session_has_effects(session) or meters or has_midi or has_routing
-    plan = None
-    if engine != "xla" and sinc_bank is None:
-        try:
-            # oversampled rows advance U times faster -> shorter sub-slots ->
-            # more slots per (tile, track); allow more
-            plan = build_plan(table, pool, session, channels=channels,
-                              max_slots=16 if isinstance(interp, tuple) else 8)
-        except SlotOverflow as e:
-            if engine == "pallas":
-                raise SlotOverflow(f"{e} even at the smallest tile; engine='pallas' has no gather "
-                                   "fallback (engine='auto' takes it)") from e
-        if plan is not None and has_fx and (
-                plan.num_tracks * channels * plan.n_tiles * plan.tile * 4 > per_track_limit_bytes(dev)):
-            plan = None  # per-track buffers would not fit: the chunked gather path
-    if plan is not None:
-        stats.mix_path = "kernel"
-        out = _render_kernel(session, table, pool, plan, interp, pre_pool_dev, sample_rate, channels,
-                             effects_mode, meters, pdc, has_fx, routed_chunk, buffer_size, dev, stats,
-                             watch)
-    else:
-        stats.mix_path = "gather"
-        out = _render_gather(session, table, pool, sample_rate, channels, buffer_size, num_blocks,
-                             engine, interpolation, sinc_bank, interp, pre_pool_dev, chunk_frames,
-                             strict_order, meters, pdc, has_midi, has_routing, dev, stats, watch)
+            # effect lanes ride the finisher of the chains they automate (the JAX
+            # package's rule: a lane on a slot no chain fills renders nothing)
+            has_fx = session_has_effects(session) or meters or has_midi or has_routing
+            plan = None
+            if engine != "xla" and sinc_bank is None:
+                try:
+                    # oversampled rows advance U times faster -> shorter sub-slots ->
+                    # more slots per (tile, track); allow more
+                    plan = build_plan(table, pool, session, channels=channels,
+                                      max_slots=16 if isinstance(interp, tuple) else 8)
+                except SlotOverflow as e:
+                    if engine == "pallas":
+                        raise SlotOverflow(f"{e} even at the smallest tile; engine='pallas' has no gather "
+                                           "fallback (engine='auto' takes it)") from e
+                if plan is not None and has_fx and (
+                        plan.num_tracks * channels * plan.n_tiles * plan.tile * 4 > per_track_limit_bytes(dev)):
+                    plan = None  # per-track buffers would not fit: the chunked gather path
+        if plan is not None:
+            stats.mix_path = "kernel"
+            out = _render_kernel(session, table, pool, plan, interp, pre_pool_dev, sample_rate, channels,
+                                 effects_mode, meters, pdc, has_fx, routed_chunk, buffer_size, dev, stats,
+                                 call)
+        else:
+            stats.mix_path = "gather"
+            out = _render_gather(session, table, pool, sample_rate, channels, buffer_size, num_blocks,
+                                 engine, interpolation, sinc_bank, interp, pre_pool_dev, chunk_frames,
+                                 strict_order, meters, pdc, has_midi, has_routing, dev, stats, call)
 
-    if trim_frames is not None:
-        out = out[:, :trim_frames]
-    stats.frames = out.shape[1]
-    stats.wall_seconds = stats.carve_seconds + stats.device_seconds
-    out = _finalize_output(out, stats, sample_rate, loudness, normalize, dev)
-    if out_path is not None:
-        write_audio(out_path, out, int(sample_rate), out_format, dither=out_dither, encode=out_encode)
+        if trim_frames is not None:
+            out = out[:, :trim_frames]
+        stats.frames = out.shape[1]
+        stats.wall_seconds = stats.carve_seconds + stats.device_seconds
+        out = _finalize_output(out, stats, sample_rate, loudness, normalize, dev)
+        if out_path is not None:
+            write_audio(out_path, out, int(sample_rate), out_format, dither=out_dither, encode=out_encode)
     return BounceResult(audio=out, stats=stats)

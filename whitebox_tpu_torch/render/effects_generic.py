@@ -32,7 +32,6 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 import torch.nn.functional as tF
-from torch.profiler import record_function
 
 from whitebox_tpu_torch.effects import (
     Biquad, Chorus, Compressor, ConvolutionReverb, Delay, EffectChain, Gain, Limiter,
@@ -54,6 +53,7 @@ from whitebox_tpu_torch.ops.biquad_cuda import biquad_cascade
 from whitebox_tpu_torch.render.effects_pipeline import (
     _chains_of, _frame_gains, _ordered_sum, meters_from_partials,
 )
+from whitebox_tpu_torch.render.metrics import span
 
 _PACKABLE = ("gain", "biquad", "eq")
 
@@ -545,12 +545,12 @@ def _apply_stage(kind: str, static: tuple, params, x, state, n0: int, sample_rat
 
 def _apply_group(group: _Group, plist, x, states, n0: int, sample_rate: float, key=None,
                  scope: str = "track"):
-    """The group's stages in order; each runs inside a ``torch.profiler``
-    range ``wb.<scope>.<kind>``, so a profile of the finisher reads its
-    device time per stage kind."""
+    """The group's stages in order; each runs inside a span
+    ``wb.<scope>.<kind>`` (``render/metrics.py``), so a profile of the
+    finisher reads its device time per stage kind."""
     new_states = []
     for (kind, static, _), params, st in zip(group.stages, plist, states):
-        with record_function(f"wb.{scope}.{kind}"):
+        with span(f"wb.{scope}.{kind}"):
             x, ns = _apply_stage(kind, static, params, x, st, n0, sample_rate, key=key)
         new_states.append(ns)
     return x, new_states
@@ -676,7 +676,7 @@ def _chunk_step(fx: GenericFX, rows, xc, g_states, m_states, gparams, mparams, s
     chunk = xc.shape[-1]
     xc, new_g = _apply_groups(fx, rows, xc, g_states, gparams, start)
     gidx = start + torch.arange(chunk, dtype=torch.int32, device=xc.device)
-    with record_function("wb.gains_sum"):
+    with span("wb.gains_sum"):
         y = xc * _frame_gains(auto, track_gain, gidx, T, C)
         total = _ordered_sum(y)
     new_m = m_states

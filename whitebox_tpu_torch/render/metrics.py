@@ -9,15 +9,25 @@ plus track-sample throughput.
 Every result names the device it ran on. On a CUDA card ``device_seconds``
 is the kernel's time between two CUDA events; on the CPU it is the host
 clock around the plain PyTorch mix, and ``device`` says ``cpu``.
+
+The host legs of a render are spans (:class:`span`): named ``wb.<leg>``,
+timed by the host clock, summed into the legs that :func:`collect_legs`
+made current (``bounce`` collects into ``RenderStats.host_legs``), and,
+while a ``torch.profiler`` records, opened as its ``record_function``
+ranges, so the legs land on the device trace's clock. Nesting gives parent and
+child; a call's outermost span (``wb.bounce``, ``wb.stems``) identifies it.
 """
 
 from __future__ import annotations
 
+import contextvars
 import time
-from dataclasses import dataclass
+from contextlib import contextmanager
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 
 @dataclass
@@ -31,8 +41,10 @@ class RenderStats:
     #: carve_seconds + device_seconds (readback and the one-time kernel
     #: build are reported apart)
     wall_seconds: float = 0.0
-    #: host carve + interpolation resolve (a sinc bounce's prerender) +
-    #: slot plan + upload of the plan tables and the pool
+    #: host clock from the call to the end of the host legs: carve (the
+    #: pool flatten within), interpolation resolve (a sinc bounce's
+    #: prerender), cost estimate, slot plan, upload of the plan tables and
+    #: the pool, chain preparation; ``host_legs`` splits it
     carve_seconds: float = 0.0
     #: kernel build/load at first use in the process (0 once built)
     compile_seconds: float = 0.0
@@ -67,6 +79,10 @@ class RenderStats:
     #: EBU R128 measurement of the output (``bounce(loudness=True)``,
     #: ``ops/loudness.py::LoudnessStats``)
     loudness: object = None
+    #: host seconds of each span the call opened, by name, inclusive of the
+    #: spans nested in it (``wb.carve`` holds ``wb.pool.flatten``; the
+    #: finisher's per-stage ranges sit inside ``wb.finish`` or ``wb.mix``)
+    host_legs: dict = field(default_factory=dict)
 
     @property
     def roofline_fraction(self) -> float:
@@ -107,19 +123,64 @@ class RenderStats:
             f"[carve+plan {self.carve_seconds:.4f}s, build {self.compile_seconds:.3f}s, "
             f"mix {self.device_seconds:.4f}s, readback {self.readback_seconds:.4f}s, "
             f"{self.msamples_per_sec:.0f} Msamples/s]"
-        ) + (f" [{self.cost.summary(self.peaks, self.device_seconds + self.prerender_seconds)}]"
-             if self.cost is not None else "")
+        ) + (f" [host legs {', '.join(f'{k[3:]} {v:.4f}s' for k, v in self.host_legs.items())}]"
+             if self.host_legs else "") + (
+            f" [{self.cost.summary(self.peaks, self.device_seconds + self.prerender_seconds)}]"
+            if self.cost is not None else "")
 
 
-class Stopwatch:
-    def __init__(self) -> None:
+#: the legs dict that closing spans add their seconds to (None: no call collects)
+_LEGS: contextvars.ContextVar = contextvars.ContextVar("wb_legs", default=None)
+#: True while a ``torch.profiler`` records (a flag read, ~0.2 us; an
+#: unrecorded ``record_function`` costs ~11 us)
+_profiling = torch._C._autograd._profiler_enabled
+
+
+class span:
+    """``with span("wb.<leg>") as s: ...``: one host leg of a render.
+
+    Always times the block by the host clock (``s.seconds`` after it,
+    :meth:`elapsed` inside it) and adds the seconds to the legs of the
+    enclosing :func:`collect_legs`, if any; opens a ``record_function``
+    range of the same name only while a profiler records.
+    """
+
+    __slots__ = ("name", "t0", "seconds", "_range")
+
+    def __init__(self, name: str) -> None:
+        self.name = name
+        self.seconds = 0.0
+        self._range = None
+
+    def __enter__(self) -> span:
+        if _profiling():
+            self._range = record_function(self.name)
+            self._range.__enter__()
         self.t0 = time.perf_counter()
+        return self
 
-    def lap(self) -> float:
-        t = time.perf_counter()
-        dt = t - self.t0
-        self.t0 = t
-        return dt
+    def __exit__(self, *exc) -> None:
+        self.seconds = time.perf_counter() - self.t0
+        if self._range is not None:
+            self._range.__exit__(*exc)
+            self._range = None
+        legs = _LEGS.get()
+        if legs is not None:
+            legs[self.name] = legs.get(self.name, 0.0) + self.seconds
+
+    def elapsed(self) -> float:
+        """Host seconds since the span opened."""
+        return time.perf_counter() - self.t0
+
+
+@contextmanager
+def collect_legs(legs: dict):
+    """Spans closed inside the block add their seconds to ``legs`` (by name)."""
+    token = _LEGS.set(legs)
+    try:
+        yield
+    finally:
+        _LEGS.reset(token)
 
 
 def device_name(device: torch.device) -> str:

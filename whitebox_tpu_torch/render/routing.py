@@ -34,7 +34,6 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from whitebox_tpu_torch.effects.base import EffectChain
 from whitebox_tpu_torch.ops.automation import (
@@ -49,6 +48,7 @@ from whitebox_tpu_torch.render.effects_generic import (
 from whitebox_tpu_torch.render.effects_pipeline import (
     _chains_of, _frame_gains, _ordered_sum, meters_from_partials,
 )
+from whitebox_tpu_torch.render.metrics import span
 from whitebox_tpu_torch.session.bus import build_routing_matrices, session_has_routing
 
 __all__ = [
@@ -263,11 +263,11 @@ def _routed_chunk_step(prog: _Program, xc, states, start: int, track_gain, auto,
 
     xc, new_g = _apply_groups(fx, prog.rows, xc, g_states, gparams, start)
     gidx = start + torch.arange(chunk, dtype=torch.int32, device=xc.device)
-    with record_function("wb.gains"):
+    with span("wb.gains"):
         y = xc * _frame_gains(auto, track_gain, gidx, T, C)  # post-fader; xc is the pre-fader tap
     B = rfx.num_buses
     key_in = None
-    with record_function("wb.route.matmul"), full_f32_matmul():
+    with span("wb.route.matmul"), full_f32_matmul():
         routed = _route(prog.post, y)  # [1 + B (+ B keys), C, chunk]
         direct = routed[0]
         if B:
@@ -287,7 +287,7 @@ def _routed_chunk_step(prog: _Program, xc, states, start: int, track_gain, auto,
                                   key=None if key_in is None else key_in[r], scope="bus")
             bus_in.index_copy_(0, r, yb)
             new_b.append(ns)
-        with record_function("wb.bus.fader"):
+        with span("wb.bus.fader"):
             # the bus faders per frame: lanes where a bus has them, its
             # constant gain elsewhere
             bus_out = bus_in * _frame_gains(rfx.bus_auto, prog.bus_gain, gidx, B, C)

@@ -44,6 +44,7 @@ from whitebox_tpu_torch.render.effects_generic import (
 from whitebox_tpu_torch.render.effects_pipeline import (
     CPU_CHUNK, CUDA_CHUNK, _frame_gains, prepare_automation_tables, prepare_effect_tables,
 )
+from whitebox_tpu_torch.render.metrics import span
 from whitebox_tpu_torch.render.routing import (
     init_routed_states, make_routed_stems_chunk_fn, make_routed_stems_finisher, prepare_routed_fx,
     routed_auto_chunk_frames,
@@ -110,41 +111,45 @@ class _PerTrack:
             raise ValueError(f"engine must be 'auto', 'pallas' or 'xla', got {engine!r}")
         table, pool = carve_session(session, sample_rate, buffer_size=buffer_size,
                                     out_channels=channels, slow_emit="runs")
-        pre_pool_dev = None
-        if interpolation == "sinc" and len(table) and not table.fast.all():
-            # the same quality form as bounce: exact/Taylor polyphase
-            # prerender, the oversampled pool and poly taps for the residue
-            table, pool, interp, pre_pool_dev, _ = resolve_sinc_device(table, pool, device=dev)
-        else:
-            table, pool, interp = resolve_interpolation(table, pool, interpolation)
+        with span("wb.plan"):
+            pre_pool_dev = None
+            if interpolation == "sinc" and len(table) and not table.fast.all():
+                # the same quality form as bounce: exact/Taylor polyphase
+                # prerender, the oversampled pool and poly taps for the residue
+                table, pool, interp, pre_pool_dev, _ = resolve_sinc_device(table, pool, device=dev)
+            else:
+                table, pool, interp = resolve_interpolation(table, pool, interpolation)
+            plan = None
+            if engine != "xla":
+                try:
+                    plan = build_plan(table, pool, session, channels=channels,
+                                      max_slots=16 if isinstance(interp, tuple) else 8)
+                except SlotOverflow as e:
+                    if engine == "pallas":
+                        raise SlotOverflow(f"{e} even at the smallest tile; engine='pallas' has no gather "
+                                           "fallback (engine='auto' takes it)") from e
+                if plan is not None and (plan.num_tracks * channels * plan.n_tiles * plan.tile * 4
+                                         > per_track_limit_bytes(dev)):
+                    plan = None  # per-track buffers would not fit: the gather path, chunk by chunk
         T = len(session.tracks)
         self.frames, self.interp, self.buffer = table.total_frames, interp, None
-        self.synth = (_prepare_synth_tables(session, sample_rate, buffer_size,
-                                            max(self.frames // buffer_size, 1), dev)
-                      if session_has_midi(session) else {})
-        plan = None
-        if engine != "xla":
-            try:
-                plan = build_plan(table, pool, session, channels=channels,
-                                  max_slots=16 if isinstance(interp, tuple) else 8)
-            except SlotOverflow as e:
-                if engine == "pallas":
-                    raise SlotOverflow(f"{e} even at the smallest tile; engine='pallas' has no gather "
-                                       "fallback (engine='auto' takes it)") from e
-            if plan is not None and (plan.num_tracks * channels * plan.n_tiles * plan.tile * 4
-                                     > per_track_limit_bytes(dev)):
-                plan = None  # per-track buffers would not fit: the gather path, chunk by chunk
+        with span("wb.fx.prepare"):
+            self.synth = (_prepare_synth_tables(session, sample_rate, buffer_size,
+                                                max(self.frames // buffer_size, 1), dev)
+                          if session_has_midi(session) else {})
         self.kernel = plan is not None
         if self.kernel:
             renderer = CudaMixRenderer(table, pool, session, device=dev, channels=channels, plan=plan,
                                        interp=interp, pool_device=pre_pool_dev)
-            pt = renderer.render_device_per_track()[:T]
-            self.buffer = _add_synth(pt, self.synth, 0, pt.shape[-1])
+            with span("wb.mix"):
+                pt = renderer.render_device_per_track()[:T]
+                self.buffer = _add_synth(pt, self.synth, 0, pt.shape[-1])
         else:
-            self.tables = pack_device_tables(table, pool, session, channels=channels).as_torch(dev)
-            # a prerendered pool extension lives on the device only
-            self.pool = (pre_pool_dev.reshape(-1) if pre_pool_dev is not None
-                         else torch.from_numpy(pool.data).to(dev))
+            with span("wb.upload"):
+                self.tables = pack_device_tables(table, pool, session, channels=channels).as_torch(dev)
+                # a prerendered pool extension lives on the device only
+                self.pool = (pre_pool_dev.reshape(-1) if pre_pool_dev is not None
+                             else torch.from_numpy(pool.data).to(dev))
 
     def chunk(self, start: int, n: int) -> torch.Tensor:
         pt = render_chunk_per_track(self.pool, self.tables, start, n, interp=self.interp)
@@ -186,41 +191,47 @@ def render_stems(
     the blockwise sequentially-rounded ones — inside the 2.4e-7
     resampling contract, but not bit-parity with ``bounce(engine="xla")``.
     speed==1 stems are always bit-exact."""
-    dev = resolve_device(device)
-    T = len(session.tracks)
-    src = _PerTrack(session, sample_rate, buffer_size, channels, interpolation, engine, dev)
-    tg = _track_gains(session, channels, dev)
-    auto = prepare_automation_tables(session, sample_rate, device=dev)
-    F = src.frames
-    if session_fx_packable(session):
-        (S, coeffs), _ = prepare_effect_tables(session, sample_rate, channels, device=dev)
+    with span("wb.stems"):
+        dev = resolve_device(device)
+        T = len(session.tracks)
+        src = _PerTrack(session, sample_rate, buffer_size, channels, interpolation, engine, dev)
+        F = src.frames
+        packable = session_fx_packable(session)
+        with span("wb.fx.prepare"):
+            tg = _track_gains(session, channels, dev)
+            auto = prepare_automation_tables(session, sample_rate, device=dev)
+            if packable:
+                (S, coeffs), _ = prepare_effect_tables(session, sample_rate, channels, device=dev)
+            else:
+                gfx = prepare_generic_fx(session, sample_rate, channels)
+        with span("wb.finish"):
+            if packable and src.kernel:
+                stems = stems_finish(src.buffer[..., :F], coeffs, tg, auto, T=T, C=channels, S=S)
+            elif packable:
+                stems = np.empty((T, channels, F), dtype=np.float32)
+
+                def step(xc, states, start):
+                    y, states = stems_finish_chunk(xc, coeffs, tg, states, start, auto, T=T, C=channels)
+                    return (y,), states
+
+                init = [torch.zeros((T * channels, 2), dtype=torch.float32, device=dev) for _ in range(S)]
+                _gather_stems(src, GATHER_CHUNK, step, init, (stems,))
+            elif src.kernel:
+                stems = make_generic_stems_finisher(gfx, T, channels, device=dev)(src.buffer[..., :F], tg, auto)
+            else:
+                chunk = auto_chunk_frames(gfx, GATHER_CHUNK, device=dev)
+                gstep = make_generic_stems_chunk_fn(gfx, T, channels, chunk=chunk, device=dev)
+                stems = np.empty((T, channels, F), dtype=np.float32)
+
+                def step(xc, states, start):
+                    y, states = gstep(xc, states, start, tg, auto)
+                    return (y,), states
+
+                _gather_stems(src, chunk, step, init_generic_states(gfx, channels, dev)[0], (stems,))
         if src.kernel:
-            stems = stems_finish(src.buffer[..., :F], coeffs, tg, auto, T=T, C=channels, S=S)
-        else:
-            stems = np.empty((T, channels, F), dtype=np.float32)
-
-            def step(xc, states, start):
-                y, states = stems_finish_chunk(xc, coeffs, tg, states, start, auto, T=T, C=channels)
-                return (y,), states
-
-            init = [torch.zeros((T * channels, 2), dtype=torch.float32, device=dev) for _ in range(S)]
-            _gather_stems(src, GATHER_CHUNK, step, init, (stems,))
-    else:
-        gfx = prepare_generic_fx(session, sample_rate, channels)
-        if src.kernel:
-            stems = make_generic_stems_finisher(gfx, T, channels, device=dev)(src.buffer[..., :F], tg, auto)
-        else:
-            chunk = auto_chunk_frames(gfx, GATHER_CHUNK, device=dev)
-            gstep = make_generic_stems_chunk_fn(gfx, T, channels, chunk=chunk, device=dev)
-            stems = np.empty((T, channels, F), dtype=np.float32)
-
-            def step(xc, states, start):
-                y, states = gstep(xc, states, start, tg, auto)
-                return (y,), states
-
-            _gather_stems(src, chunk, step, init_generic_states(gfx, channels, dev)[0], (stems,))
-    names = [t.name or f"track{i}" for i, t in enumerate(session.tracks)]
-    return (stems.cpu().numpy() if src.kernel else stems), names
+            with span("wb.readback"):
+                stems = stems.cpu().numpy()
+    return stems, [t.name or f"track{i}" for i, t in enumerate(session.tracks)]
 
 
 def render_bus_stems(
@@ -244,21 +255,27 @@ def render_bus_stems(
     if not session_has_routing(session):
         raise ValueError("render_bus_stems needs a session with buses/sends "
                          "(use render_stems for per-track stems)")
-    dev = resolve_device(device)
-    T = len(session.tracks)
-    src = _PerTrack(session, sample_rate, buffer_size, channels, interpolation, engine, dev)
-    tg = _track_gains(session, channels, dev)
-    auto = prepare_automation_tables(session, sample_rate, device=dev)
-    rfx = prepare_routed_fx(session, sample_rate, channels, device=dev)
-    F = src.frames
-    names = [b.name or f"bus{i}" for i, b in enumerate(session.buses)]
-    if src.kernel:
-        direct, bus = make_routed_stems_finisher(rfx, T, channels, device=dev)(src.buffer[..., :F], tg, auto)
-        return direct.cpu().numpy(), bus.cpu().numpy(), names
-    chunk = routed_auto_chunk_frames(rfx, GATHER_CHUNK, device=dev)
-    rstep = make_routed_stems_chunk_fn(rfx, T, channels, chunk=chunk, device=dev)
-    direct = np.empty((channels, F), dtype=np.float32)
-    bus = np.empty((rfx.num_buses, channels, F), dtype=np.float32)
-    _gather_stems(src, chunk, lambda xc, states, start: rstep(xc, states, start, tg, auto),
-                  init_routed_states(rfx, channels, dev), (direct, bus))
-    return direct, bus, names
+    with span("wb.stems"):
+        dev = resolve_device(device)
+        T = len(session.tracks)
+        src = _PerTrack(session, sample_rate, buffer_size, channels, interpolation, engine, dev)
+        F = src.frames
+        with span("wb.fx.prepare"):
+            tg = _track_gains(session, channels, dev)
+            auto = prepare_automation_tables(session, sample_rate, device=dev)
+            rfx = prepare_routed_fx(session, sample_rate, channels, device=dev)
+        with span("wb.finish"):
+            if src.kernel:
+                finisher = make_routed_stems_finisher(rfx, T, channels, device=dev)
+                direct, bus = finisher(src.buffer[..., :F], tg, auto)
+            else:
+                chunk = routed_auto_chunk_frames(rfx, GATHER_CHUNK, device=dev)
+                rstep = make_routed_stems_chunk_fn(rfx, T, channels, chunk=chunk, device=dev)
+                direct = np.empty((channels, F), dtype=np.float32)
+                bus = np.empty((rfx.num_buses, channels, F), dtype=np.float32)
+                _gather_stems(src, chunk, lambda xc, states, start: rstep(xc, states, start, tg, auto),
+                              init_routed_states(rfx, channels, dev), (direct, bus))
+        if src.kernel:
+            with span("wb.readback"):
+                direct, bus = direct.cpu().numpy(), bus.cpu().numpy()
+    return direct, bus, [b.name or f"bus{i}" for i, b in enumerate(session.buses)]

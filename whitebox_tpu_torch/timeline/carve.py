@@ -496,120 +496,123 @@ def carve_session(
     ``native=None`` (the default) takes the C++ walk unless the environment
     sets ``WBTPU_NO_NATIVE_CARVE`` or ``WBTPU_NO_NATIVE``.
     """
-    start = session.playhead_start if playhead_start is None else playhead_start
-    transport = BlockTransport(float(sample_rate), int(buffer_size), session.beat_duration, start,
-                               tempo_map=getattr(session, "tempo_map", None))
-    if num_blocks is None:
-        num_blocks = max(transport.blocks_for_beats(session.end_time()), 1)
+    from whitebox_tpu_torch.render.metrics import span  # render imports this module
 
-    P = transport.playhead_grid(num_blocks)
-    S = transport.sample_position_grid(num_blocks)
-    # one edit-stamp computation serves both content caches (pool + the
-    # native flatten) — the stamp walk itself is ~1/3 of a warm carve
-    stamp = session.edit_stamp()
-    if pool is None:
-        pool = build_sample_pool(session, out_channels=out_channels, _stamp=stamp)
+    with span("wb.carve"):
+        start = session.playhead_start if playhead_start is None else playhead_start
+        transport = BlockTransport(float(sample_rate), int(buffer_size), session.beat_duration, start,
+                                   tempo_map=getattr(session, "tempo_map", None))
+        if num_blocks is None:
+            num_blocks = max(transport.blocks_for_beats(session.end_time()), 1)
 
-    if native is None:
-        native = not (os.environ.get("WBTPU_NO_NATIVE_CARVE") or os.environ.get("WBTPU_NO_NATIVE"))
-    native_out = None
-    if native:
-        # tempo-mapped sessions ride the C++ walk too: every beat->sample
-        # conversion is precomputed host-side by carve_native (the v3 ABI),
-        # so the walk itself is map-agnostic sample arithmetic
-        from whitebox_tpu_torch.timeline import carve_native
+        P = transport.playhead_grid(num_blocks)
+        S = transport.sample_position_grid(num_blocks)
+        # one edit-stamp computation serves both content caches (pool + the
+        # native flatten) — the stamp walk itself is ~1/3 of a warm carve
+        stamp = session.edit_stamp()
+        if pool is None:
+            pool = build_sample_pool(session, out_channels=out_channels, _stamp=stamp)
 
-        native_out = carve_native.carve_audio_tracks(
-            session, P, S, num_blocks, buffer_size, transport.sample_rate,
-            transport.beat_duration, pool, slow_emit, transport=transport,
-            _stamp=stamp)
+        if native is None:
+            native = not (os.environ.get("WBTPU_NO_NATIVE_CARVE") or os.environ.get("WBTPU_NO_NATIVE"))
+        native_out = None
+        if native:
+            # tempo-mapped sessions ride the C++ walk too: every beat->sample
+            # conversion is precomputed host-side by carve_native (the v3 ABI),
+            # so the walk itself is map-agnostic sample arithmetic
+            from whitebox_tpu_torch.timeline import carve_native
 
-    fast_arrays = None
-    slow_arrays = None
-    slow_cols: list = []
-    if native_out is not None:
-        fast_arrays, fast_flags, clamp_flags, slow_arrays = native_out
-    else:
-        rows: list = []
-        for t, track in enumerate(session.tracks):
-            _carve_track_audio(track, transport, P, S, num_blocks, pool, rows, slow_cols, t,
-                               slow_emit=slow_emit)
+            native_out = carve_native.carve_audio_tracks(
+                session, P, S, num_blocks, buffer_size, transport.sample_rate,
+                transport.beat_duration, pool, slow_emit, transport=transport,
+                _stamp=stamp)
 
-        # combine scalar fast rows + vectorized slow-row blocks, sort by (track, dst)
-        if rows:
-            rows.sort(key=lambda r: (r[0], r[1]))
-            c = list(zip(*rows))
-            fast_arrays = (
-                np.asarray(c[0], np.int32), np.asarray(c[1], np.int32), np.asarray(c[2], np.int32),
-                np.asarray(c[3], np.int32), np.asarray(c[4], np.int32), np.asarray(c[5], np.float64),
-                np.asarray(c[6], np.float64), np.asarray(c[7], np.float32),
-                np.asarray(c[10], np.int32),
-                np.asarray(c[11], np.int32), np.asarray(c[12], np.float32),
-                np.asarray(c[13], np.int32), np.asarray(c[14], np.float32),
-            )
-            fast_flags = np.asarray(c[8], bool)
-            clamp_flags = np.asarray(c[9], bool)
+        fast_arrays = None
+        slow_arrays = None
+        slow_cols: list = []
+        if native_out is not None:
+            fast_arrays, fast_flags, clamp_flags, slow_arrays = native_out
+        else:
+            rows: list = []
+            for t, track in enumerate(session.tracks):
+                _carve_track_audio(track, transport, P, S, num_blocks, pool, rows, slow_cols, t,
+                                   slow_emit=slow_emit)
 
-    if slow_cols or slow_arrays is not None or fast_arrays is not None:
-        # expand slow spans: per-row arrays concatenate; per-span scalars
-        # expand in one np.repeat per column (not one np.full per span)
-        if slow_cols:
-            counts = np.asarray([sc[0] for sc in slow_cols], np.int64)
-            scal = np.asarray([sc[5] for sc in slow_cols], np.float64)  # [S, 9]
-            rep = lambda col, dt: np.repeat(scal[:, col], counts).astype(dt)
-            slow_arrays = (
-                rep(0, np.int32),  # track
-                np.concatenate([sc[1] for sc in slow_cols]),  # dst_start
-                np.concatenate([sc[2] for sc in slow_cols]),  # length
-                rep(1, np.int32),  # sample_id
-                np.concatenate([sc[3] for sc in slow_cols]),  # src_int
-                np.concatenate([sc[4] for sc in slow_cols]),  # src_frac
-                rep(2, np.float64),  # speed
-                rep(3, np.float32),  # gain
-                rep(4, np.int32),  # clip_id
-                rep(5, np.int32),  # fin_start
-                rep(6, np.float32),  # fin_inv
-                rep(7, np.int32),  # fout_end
-                rep(8, np.float32),  # fout_inv
-            )
-        parts = []
-        if fast_arrays is not None:
-            parts.append(fast_arrays + (fast_flags, clamp_flags))
-        if slow_arrays is not None:
-            n = slow_arrays[0].shape[0]
-            # clamp flag for slow rows is irrelevant (linear path never
-            # clamps) but kept consistent
-            parts.append(slow_arrays + (np.zeros(n, bool), np.ones(n, bool)))
+            # combine scalar fast rows + vectorized slow-row blocks, sort by (track, dst)
+            if rows:
+                rows.sort(key=lambda r: (r[0], r[1]))
+                c = list(zip(*rows))
+                fast_arrays = (
+                    np.asarray(c[0], np.int32), np.asarray(c[1], np.int32), np.asarray(c[2], np.int32),
+                    np.asarray(c[3], np.int32), np.asarray(c[4], np.int32), np.asarray(c[5], np.float64),
+                    np.asarray(c[6], np.float64), np.asarray(c[7], np.float32),
+                    np.asarray(c[10], np.int32),
+                    np.asarray(c[11], np.int32), np.asarray(c[12], np.float32),
+                    np.asarray(c[13], np.int32), np.asarray(c[14], np.float32),
+                )
+                fast_flags = np.asarray(c[8], bool)
+                clamp_flags = np.asarray(c[9], bool)
 
-        def cat(i):
-            return np.concatenate([p[i] for p in parts]) if len(parts) > 1 else parts[0][i]
+        if slow_cols or slow_arrays is not None or fast_arrays is not None:
+            # expand slow spans: per-row arrays concatenate; per-span scalars
+            # expand in one np.repeat per column (not one np.full per span)
+            if slow_cols:
+                counts = np.asarray([sc[0] for sc in slow_cols], np.int64)
+                scal = np.asarray([sc[5] for sc in slow_cols], np.float64)  # [S, 9]
+                rep = lambda col, dt: np.repeat(scal[:, col], counts).astype(dt)
+                slow_arrays = (
+                    rep(0, np.int32),  # track
+                    np.concatenate([sc[1] for sc in slow_cols]),  # dst_start
+                    np.concatenate([sc[2] for sc in slow_cols]),  # length
+                    rep(1, np.int32),  # sample_id
+                    np.concatenate([sc[3] for sc in slow_cols]),  # src_int
+                    np.concatenate([sc[4] for sc in slow_cols]),  # src_frac
+                    rep(2, np.float64),  # speed
+                    rep(3, np.float32),  # gain
+                    rep(4, np.int32),  # clip_id
+                    rep(5, np.int32),  # fin_start
+                    rep(6, np.float32),  # fin_inv
+                    rep(7, np.int32),  # fout_end
+                    rep(8, np.float32),  # fout_inv
+                )
+            parts = []
+            if fast_arrays is not None:
+                parts.append(fast_arrays + (fast_flags, clamp_flags))
+            if slow_arrays is not None:
+                n = slow_arrays[0].shape[0]
+                # clamp flag for slow rows is irrelevant (linear path never
+                # clamps) but kept consistent
+                parts.append(slow_arrays + (np.zeros(n, bool), np.ones(n, bool)))
 
-        trk_a, dst_a = cat(0), cat(1)
-        order = np.lexsort((dst_a, trk_a))
-        cols15 = [cat(i)[order] for i in range(15)]
-        (trk_a, dst_a, len_a, sid_a, si_a, sf_a, sp_a, gn_a, cid_a,
-         fis_a, fii_a, foe_a, foi_a, fast_a, clamp_a) = cols15
-    else:
-        z = np.zeros(0)
-        trk_a = dst_a = len_a = sid_a = si_a = cid_a = fis_a = foe_a = z.astype(np.int32)
-        sf_a = sp_a = z.astype(np.float64)
-        gn_a = fii_a = foi_a = z.astype(np.float32)
-        fast_a = clamp_a = z.astype(bool)
+            def cat(i):
+                return np.concatenate([p[i] for p in parts]) if len(parts) > 1 else parts[0][i]
 
-    total_frames = num_blocks * buffer_size
-    if total_frames >= 2**31:
-        raise ValueError("render window exceeds int32 frame addressing")
+            trk_a, dst_a = cat(0), cat(1)
+            order = np.lexsort((dst_a, trk_a))
+            cols15 = [cat(i)[order] for i in range(15)]
+            (trk_a, dst_a, len_a, sid_a, si_a, sf_a, sp_a, gn_a, cid_a,
+             fis_a, fii_a, foe_a, foi_a, fast_a, clamp_a) = cols15
+        else:
+            z = np.zeros(0)
+            trk_a = dst_a = len_a = sid_a = si_a = cid_a = fis_a = foe_a = z.astype(np.int32)
+            sf_a = sp_a = z.astype(np.float64)
+            gn_a = fii_a = foi_a = z.astype(np.float32)
+            fast_a = clamp_a = z.astype(bool)
 
-    table = SegmentTable(
-        track=trk_a, dst_start=dst_a, length=len_a, sample_id=sid_a,
-        src_int=si_a, src_frac=sf_a, speed=sp_a, gain=gn_a,
-        fast=fast_a, clamp=clamp_a, clip_id=cid_a,
-        fin_start=fis_a, fin_inv=fii_a, fout_end=foe_a, fout_inv=foi_a,
-        num_tracks=len(session.tracks),
-        total_frames=total_frames,
-        buffer_size=buffer_size,
-    )
-    return table, pool
+        total_frames = num_blocks * buffer_size
+        if total_frames >= 2**31:
+            raise ValueError("render window exceeds int32 frame addressing")
+
+        table = SegmentTable(
+            track=trk_a, dst_start=dst_a, length=len_a, sample_id=sid_a,
+            src_int=si_a, src_frac=sf_a, speed=sp_a, gain=gn_a,
+            fast=fast_a, clamp=clamp_a, clip_id=cid_a,
+            fin_start=fis_a, fin_inv=fii_a, fout_end=foe_a, fout_inv=foi_a,
+            num_tracks=len(session.tracks),
+            total_frames=total_frames,
+            buffer_size=buffer_size,
+        )
+        return table, pool
 
 
 def render_segments_per_track_numpy(table: SegmentTable, pool: SamplePool, out_channels: int = 2,

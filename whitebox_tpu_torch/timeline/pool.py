@@ -58,59 +58,63 @@ def build_sample_pool(session: Session, out_channels: int = 2, pad: int = SAMPLE
     bands sized for the Pallas kernel's fixed windows (bases are pre-offset
     by the lead guard). Cached by edit stamp (see ``_POOL_CACHE``);
     ``_stamp`` lets carve_session share one stamp computation across the
-    pool and flatten caches (it IS session.edit_stamp() when given).
+    pool and flatten caches (it IS session.edit_stamp() when given). A
+    miss flattens inside the span ``wb.pool.flatten``; a hit opens none.
     """
     key = (id(session), _stamp if _stamp is not None else session.edit_stamp(),
            out_channels, pad, lane_align)
     hit = _POOL_CACHE.get(key)
     if hit is not None:
         return hit
-    assets = []
-    seen = set()
-    for track in session.tracks:
-        for clip in track.clips:
-            if clip.is_audio() and clip.audio is not None and clip.audio.asset is not None:
-                a = clip.audio.asset
-                if id(a) not in seen:
-                    seen.add(id(a))
-                    assets.append(a)
+    from whitebox_tpu_torch.render.metrics import span  # render imports this module
 
-    chunks: list[np.ndarray] = []
-    channel_base = np.zeros((max(len(assets), 1), out_channels), dtype=np.int64)
-    counts = np.zeros(max(len(assets), 1), dtype=np.int64)
-    rates = np.full(max(len(assets), 1), 48000.0, dtype=np.float64)
-    index_of: dict = {}
+    with span("wb.pool.flatten"):
+        assets = []
+        seen = set()
+        for track in session.tracks:
+            for clip in track.clips:
+                if clip.is_audio() and clip.audio is not None and clip.audio.asset is not None:
+                    a = clip.audio.asset
+                    if id(a) not in seen:
+                        seen.add(id(a))
+                        assets.append(a)
 
-    chunks.append(np.zeros(_GUARD, dtype=np.float32))  # lead guard
-    offset = _GUARD
-    for sid, asset in enumerate(assets):
-        sample: Sample = asset.sample
-        index_of[id(asset)] = sid
-        counts[sid] = sample.count
-        rates[sid] = float(sample.sample_rate)
-        stride = sample.count + pad
-        stride += (-stride) % lane_align
-        ch_offsets = []
-        for c in range(sample.channels):
-            buf = np.zeros(stride, dtype=np.float32)
-            buf[: sample.count + pad] = sample.normalized_f32(c, pad)
-            chunks.append(buf)
-            ch_offsets.append(offset)
-            offset += stride
-        for oc in range(out_channels):
-            channel_base[sid, oc] = ch_offsets[oc % sample.channels]
+        chunks: list[np.ndarray] = []
+        channel_base = np.zeros((max(len(assets), 1), out_channels), dtype=np.int64)
+        counts = np.zeros(max(len(assets), 1), dtype=np.int64)
+        rates = np.full(max(len(assets), 1), 48000.0, dtype=np.float64)
+        index_of: dict = {}
 
-    chunks.append(np.zeros(_GUARD, dtype=np.float32))  # tail guard
-    data = np.concatenate(chunks)
-    if channel_base.max(initial=0) + (counts.max(initial=0) + pad) >= 2**31:
-        raise ValueError("sample pool exceeds int32 addressing (>2^31 elements)")
-    pool = SamplePool(
-        data=data,
-        channel_base=channel_base.astype(np.int32),
-        counts=counts,
-        rates=rates,
-        index_of=index_of,
-    )
+        chunks.append(np.zeros(_GUARD, dtype=np.float32))  # lead guard
+        offset = _GUARD
+        for sid, asset in enumerate(assets):
+            sample: Sample = asset.sample
+            index_of[id(asset)] = sid
+            counts[sid] = sample.count
+            rates[sid] = float(sample.sample_rate)
+            stride = sample.count + pad
+            stride += (-stride) % lane_align
+            ch_offsets = []
+            for c in range(sample.channels):
+                buf = np.zeros(stride, dtype=np.float32)
+                buf[: sample.count + pad] = sample.normalized_f32(c, pad)
+                chunks.append(buf)
+                ch_offsets.append(offset)
+                offset += stride
+            for oc in range(out_channels):
+                channel_base[sid, oc] = ch_offsets[oc % sample.channels]
+
+        chunks.append(np.zeros(_GUARD, dtype=np.float32))  # tail guard
+        data = np.concatenate(chunks)
+        if channel_base.max(initial=0) + (counts.max(initial=0) + pad) >= 2**31:
+            raise ValueError("sample pool exceeds int32 addressing (>2^31 elements)")
+        pool = SamplePool(
+            data=data,
+            channel_base=channel_base.astype(np.int32),
+            counts=counts,
+            rates=rates,
+            index_of=index_of,
+        )
     _POOL_CACHE[key] = pool
     while len(_POOL_CACHE) > _POOL_CACHE_MAX:
         _POOL_CACHE.pop(next(iter(_POOL_CACHE)))
