@@ -507,11 +507,11 @@ def carve_session(
 
         P = transport.playhead_grid(num_blocks)
         S = transport.sample_position_grid(num_blocks)
-        # one edit-stamp computation serves both content caches (pool + the
-        # native flatten) — the stamp walk itself is ~1/3 of a warm carve
+        # the native flatten's cache key (the pool keys on its asset set) —
+        # the stamp walk itself is ~1/3 of a warm carve
         stamp = session.edit_stamp()
         if pool is None:
-            pool = build_sample_pool(session, out_channels=out_channels, _stamp=stamp)
+            pool = build_sample_pool(session, out_channels=out_channels)
 
         if native is None:
             native = not (os.environ.get("WBTPU_NO_NATIVE_CARVE") or os.environ.get("WBTPU_NO_NATIVE"))
