@@ -776,3 +776,39 @@ def test_gather_kernel_has_no_fallback(card, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc failed"):
         mix_mod.render_chunk_per_track(pool_dev, tables, 0, 4096)
     assert gather_cuda.gather_launches == before
+
+
+@pytest.mark.parametrize("shape", [(1, 5), (7, 3, 1001), (128, 2, (1 << 18) + 3), (300, 2, 4096)],
+                         ids=["one_row", "odd", "chunk_128trk", "tracks_300"])
+def test_ordered_sum_kernel_bit_equal_to_the_adds(card, shape):
+    """``csrc/ordered_sum.cu``: one launch, bit-equal to ``total + y[t]`` in
+    track order from +0.0, with -0.0, Inf and NaN among the inputs."""
+    from whitebox_tpu_torch.ops import sum_cuda
+
+    g = torch.Generator(device="cpu").manual_seed(sum(shape))
+    y = (torch.randn(shape, generator=g) * 10.0 ** torch.randint(-6, 6, shape, generator=g)).to(card)
+    flat = y.view(shape[0], -1)
+    flat[:, :4] = -0.0
+    flat[shape[0] // 2, 1] = float("inf")
+    flat[0, 2] = float("nan")
+    want = torch.zeros(shape[1:], device=card)
+    for t in range(shape[0]):
+        want = want + y[t]
+    before = sum_cuda.ordered_sum_launches
+    got = sum_cuda.ordered_sum_cuda(y)
+    assert sum_cuda.ordered_sum_launches == before + 1
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_generic_bounce_sums_in_one_launch_a_chunk(card):
+    """The generic finisher (compressors, the lookahead limiter) sums each
+    chunk's tracks with one ordered-sum launch, and renders as the CPU does."""
+    from whitebox_tpu_torch.ops import sum_cuda
+
+    s = chip_smoke.generic_fx_128trk(duration=3.0)
+    before = sum_cuda.ordered_sum_launches
+    got = bounce(s, 48000.0, device=card)
+    assert got.stats.finisher == "generic"
+    assert sum_cuda.ordered_sum_launches - before == got.stats.finish_chunks
+    cpu = bounce(s, 48000.0, device="cpu")
+    assert chip_smoke.rel_rms(got.audio, cpu.audio) < chip_smoke.GENERIC_REL_RMS

@@ -1,5 +1,5 @@
 """Build and bind the port's CUDA kernels (``csrc/*.cu``: the mix kernel,
-the gather mix, the biquad cascade, the dynamics kernel).
+the gather mix, the biquad cascade, the dynamics kernel, the ordered sum).
 
 Counterpart of ``whitebox_tpu/io/native.py:23-110``, the repo's make +
 ctypes idiom for native code: the sources are compiled at first use by
@@ -99,5 +99,8 @@ def load() -> ctypes.CDLL:
     # wb_gather_mix: the address of a WbGatherArgs (ops/gather_cuda.py), stream
     lib.wb_gather_mix.restype = ci
     lib.wb_gather_mix.argtypes = [vp, vp]
+    # wb_ordered_sum: y, out, T, n, row_stride (int64 each), stream
+    lib.wb_ordered_sum.restype = ci
+    lib.wb_ordered_sum.argtypes = [vp, vp] + [ctypes.c_longlong] * 3 + [vp]
     _LIB = lib
     return _LIB

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from whitebox_tpu_torch.device import resolve_device
-from whitebox_tpu_torch.ops import gather_cuda
+from whitebox_tpu_torch.ops import gather_cuda, sum_cuda
 from whitebox_tpu_torch.ops.dsarith import phase_eval, split_f64
 
 _I32_SENTINEL = np.int32(2**31 - 1)
@@ -239,7 +239,10 @@ def track_contrib_plain(pool: torch.Tensor, tables: dict, g: torch.Tensor, sinc_
 
 def _ordered_sum(y: torch.Tensor) -> torch.Tensor:
     """``y[0] + y[1] + ...`` from zeros, in track order (``[T, ...]`` ->
-    ``[...]``)."""
+    ``[...]``): one launch of ``csrc/ordered_sum.cu`` for an f32 CUDA tensor
+    (bit-equal), else one add a track."""
+    if y.device.type == "cuda" and y.dtype == torch.float32:
+        return sum_cuda.ordered_sum_cuda(y)
     total = torch.zeros(y.shape[1:], dtype=y.dtype, device=y.device)
     for t in range(y.shape[0]):
         total = total + y[t]

@@ -83,7 +83,9 @@ from whitebox_tpu_torch.render.effects_pipeline import (
     prepare_automation_tables, prepare_automation_tables_host, prepare_effect_tables,
     session_has_effects,
 )
-from whitebox_tpu_torch.render.metrics import DeviceTimer, RenderStats, collect_legs, device_name, span
+from whitebox_tpu_torch.render.metrics import (
+    DeviceTimer, RenderStats, collect_legs, current_stats, device_name, span,
+)
 from whitebox_tpu_torch.render.roofline import device_peaks, estimate_bounce_cost, prerender_cost
 from whitebox_tpu_torch.render.routing import (
     init_routed_states, make_routed_chunk_fn, make_routed_finisher, prepare_routed_fx,
@@ -295,21 +297,28 @@ def _effects_finisher(session, renderer, plan, sample_rate, channels, effects_mo
     chain the linear finishers cannot take, or any effect lane) or grouped
     stages and routing matrices (routed), the lane tables and the MIDI
     tracks' synth tables, on ``dev``. ``finish`` adds the synth to a copy
-    of ``per_track`` first (``whitebox_tpu/render/bounce.py:344-405``)."""
+    of ``per_track`` first (``whitebox_tpu/render/bounce.py:344-405``). The
+    finisher's name goes to the collecting bounce's ``RenderStats.finisher``."""
     auto = prepare_automation_tables(session, sample_rate, device=dev)
     tg = renderer.tables["track_gain"]
     T = plan.num_tracks
-    if effects_mode == "routed":
+    name = ("routed" if effects_mode == "routed" else
+            "generic" if effects_mode == "generic" or not session_fx_packable(session) else
+            "fir" if effects_mode == "fir" else "scan")
+    stats = current_stats()
+    if stats is not None:
+        stats.finisher = name
+    if name == "routed":
         rfx = prepare_routed_fx(session, sample_rate, channels, device=dev)
         rfinish = make_routed_finisher(rfx, T, channels, chunk=routed_chunk, with_meters=meters,
                                        valid_frames=plan.total_frames, pdc=pdc, device=dev)
         finish = lambda pt: rfinish(pt, tg, auto)  # noqa: E731
-    elif effects_mode == "generic" or not session_fx_packable(session):
+    elif name == "generic":
         fx = prepare_generic_fx(session, sample_rate, channels)
         gfinish = make_generic_finisher(fx, T, channels, with_meters=meters,
                                         valid_frames=plan.total_frames, pdc=pdc, device=dev)
         finish = lambda pt: gfinish(pt, tg, auto)  # noqa: E731
-    elif effects_mode == "fir":
+    elif name == "fir":
         finish = prepare_fir_finish(session, sample_rate, tg, auto, channels, device=dev)
     else:
         (S, coeffs), (Sm, mcoeffs) = prepare_effect_tables(session, sample_rate, channels, device=dev)
@@ -439,6 +448,7 @@ def _render_gather(session, table, pool, sample_rate, channels, buffer_size, num
             auto = prepare_automation_tables(session, sample_rate, device=dev)
             tg = jt["track_gain"]
             if has_routing:
+                stats.finisher = "routed"
                 rfx = prepare_routed_fx(session, sample_rate, channels, device=dev)
                 if pdc:
                     if any(stage_latency_frames(g.stages) > 0 for g in rfx.bus_groups):
@@ -455,6 +465,7 @@ def _render_gather(session, table, pool, sample_rate, channels, buffer_size, num
                     res = rstep(per_track_ahead(start), states, start, tg, auto)
                     return res[0], res[1], res[2] if meters else None
             elif not session_fx_packable(session):
+                stats.finisher = "generic"
                 gfx = prepare_generic_fx(session, sample_rate, channels)
                 if pdc:
                     mlat = fetch_ahead(gfx)
@@ -466,6 +477,7 @@ def _render_gather(session, table, pool, sample_rate, channels, buffer_size, num
                     res = gstep(per_track_ahead(start), *states, start, tg, auto)
                     return res[0], res[1:3], res[3] if meters else None
             else:
+                stats.finisher = "scan"
                 (S, coeffs), (Sm, mcoeffs) = prepare_effect_tables(session, sample_rate, channels, device=dev)
                 states = init_effect_states(T, channels, S, Sm, dev)
 
@@ -578,7 +590,7 @@ def bounce(
 
     stats = RenderStats(channels=channels, sample_rate=float(sample_rate), tracks=len(session.tracks),
                         device=device_name(dev), peaks=device_peaks(dev))
-    with span("wb.bounce") as call, collect_legs(stats.host_legs):
+    with span("wb.bounce") as call, collect_legs(stats.host_legs, stats):
         # the slot plan takes resampled passes as closed-form runs; the gather
         # path the per-block rows that mirror the sampler's f64 accumulation
         table, pool = carve_session(session, sample_rate, buffer_size=buffer_size, num_blocks=num_blocks,

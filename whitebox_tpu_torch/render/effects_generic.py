@@ -53,9 +53,11 @@ from whitebox_tpu_torch.ops.biquad_cuda import biquad_cascade
 from whitebox_tpu_torch.render.effects_pipeline import (
     _chains_of, _frame_gains, _ordered_sum, meters_from_partials,
 )
-from whitebox_tpu_torch.render.metrics import span
+from whitebox_tpu_torch.render.metrics import count, span
 
 _PACKABLE = ("gain", "biquad", "eq")
+#: the stage kinds of the dynamics kernel (``ops/dynamics_cuda.py``), counted in ``RenderStats.dynamics_calls``
+_DYNAMICS = ("compressor", "limiter", "gate")
 
 #: raw automatable parameter names per effect kind (a plugin's parameter
 #: list, plugin_interface.h:77-90). Elementwise params evaluate per frame;
@@ -547,11 +549,14 @@ def _apply_group(group: _Group, plist, x, states, n0: int, sample_rate: float, k
                  scope: str = "track"):
     """The group's stages in order; each runs inside a span
     ``wb.<scope>.<kind>`` (``render/metrics.py``), so a profile of the
-    finisher reads its device time per stage kind."""
+    finisher reads its device time per stage kind; each dynamics stage counts
+    one call (``RenderStats.dynamics_calls``)."""
     new_states = []
     for (kind, static, _), params, st in zip(group.stages, plist, states):
         with span(f"wb.{scope}.{kind}"):
             x, ns = _apply_stage(kind, static, params, x, st, n0, sample_rate, key=key)
+        if kind in _DYNAMICS:
+            count("dynamics_calls")
         new_states.append(ns)
     return x, new_states
 
@@ -673,6 +678,7 @@ def _chunk_step(fx: GenericFX, rows, xc, g_states, m_states, gparams, mparams, s
                 track_gain, auto, T: int, C: int, with_meters: bool, Fv):
     """One [T, C, chunk] slice: chains -> gains -> ordered sum -> master ->
     clip (+ meter partials). Returns (total, new_g, new_m, meters)."""
+    count("finish_chunks")
     chunk = xc.shape[-1]
     xc, new_g = _apply_groups(fx, rows, xc, g_states, gparams, start)
     gidx = start + torch.arange(chunk, dtype=torch.int32, device=xc.device)

@@ -39,6 +39,7 @@ from whitebox_tpu_torch.ops.automation import (
 from whitebox_tpu_torch.ops.biquad import biquad_sequential, pack_chain_sections
 from whitebox_tpu_torch.ops.biquad_cuda import biquad_cascade
 from whitebox_tpu_torch.ops.mix import _ordered_sum  # noqa: F401 - the finishers import it from here
+from whitebox_tpu_torch.render.metrics import count
 
 #: frames per finisher chunk on the card and on the CPU (finish_mix's
 #: default): on the card the cascade kernel takes any length and each
@@ -100,6 +101,7 @@ def _finish_chunk(xc, coeffs, mcoeffs, track_gain, states, mstates, g, auto, T, 
     """One chunk ``xc`` ``[T*C, Fc]`` at global frames ``g``: chains, gains,
     ordered sum, master chain, clip; meters over frames ``< valid_frames``
     (all frames when None)."""
+    count("finish_chunks")
     xc, new_states = biquad_cascade(xc, coeffs, states)
     y = xc.reshape(T, C, -1) * _frame_gains(auto, track_gain, g, T, C)
     total, new_mstates = biquad_cascade(_ordered_sum(y), mcoeffs, mstates)

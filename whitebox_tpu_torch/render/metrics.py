@@ -16,6 +16,8 @@ made current (``bounce`` collects into ``RenderStats.host_legs``), and,
 while a ``torch.profiler`` records, opened as its ``record_function``
 ranges, so the legs land on the device trace's clock. Nesting gives parent and
 child; a call's outermost span (``wb.bounce``, ``wb.stems``) identifies it.
+The finishers' counters (:func:`count`) add to the stats that the same
+:func:`collect_legs` names.
 """
 
 from __future__ import annotations
@@ -79,6 +81,13 @@ class RenderStats:
     #: EBU R128 measurement of the output (``bounce(loudness=True)``,
     #: ``ops/loudness.py::LoudnessStats``)
     loudness: object = None
+    #: which effects finisher ran: "scan", "generic", "fir" or "routed" ("" without one)
+    finisher: str = ""
+    #: chunks the finisher's step ran (on the gather path one per gather chunk)
+    finish_chunks: int = 0
+    #: dynamics stage calls (compressor, limiter, gate; one a group and chunk),
+    #: counted on the host on either device
+    dynamics_calls: int = 0
     #: host seconds of each span the call opened, by name, inclusive of the
     #: spans nested in it (``wb.carve`` holds ``wb.pool.flatten``; the
     #: finisher's per-stage ranges sit inside ``wb.finish`` or ``wb.mix``)
@@ -125,12 +134,16 @@ class RenderStats:
             f"{self.msamples_per_sec:.0f} Msamples/s]"
         ) + (f" [host legs {', '.join(f'{k[3:]} {v:.4f}s' for k, v in self.host_legs.items())}]"
              if self.host_legs else "") + (
+            f" [finisher {self.finisher}: {self.finish_chunks} chunks, {self.dynamics_calls} dynamics calls]"
+            if self.finisher else "") + (
             f" [{self.cost.summary(self.peaks, self.device_seconds + self.prerender_seconds)}]"
             if self.cost is not None else "")
 
 
 #: the legs dict that closing spans add their seconds to (None: no call collects)
 _LEGS: contextvars.ContextVar = contextvars.ContextVar("wb_legs", default=None)
+#: the stats whose counters :func:`count` adds to (None: no call collects)
+_STATS: contextvars.ContextVar = contextvars.ContextVar("wb_stats", default=None)
 #: True while a ``torch.profiler`` records (a flag read, ~0.2 us; an
 #: unrecorded ``record_function`` costs ~11 us)
 _profiling = torch._C._autograd._profiler_enabled
@@ -174,13 +187,27 @@ class span:
 
 
 @contextmanager
-def collect_legs(legs: dict):
-    """Spans closed inside the block add their seconds to ``legs`` (by name)."""
-    token = _LEGS.set(legs)
+def collect_legs(legs: dict, stats: RenderStats | None = None):
+    """Spans closed inside the block add their seconds to ``legs`` (by name),
+    and :func:`count` to the counters of ``stats``."""
+    token, stoken = _LEGS.set(legs), _STATS.set(stats)
     try:
         yield
     finally:
+        _STATS.reset(stoken)
         _LEGS.reset(token)
+
+
+def current_stats() -> RenderStats | None:
+    """The stats of the enclosing :func:`collect_legs`, if any."""
+    return _STATS.get()
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` of :func:`current_stats`, if any."""
+    stats = _STATS.get()
+    if stats is not None:
+        setattr(stats, name, getattr(stats, name) + n)
 
 
 def device_name(device: torch.device) -> str:

@@ -48,7 +48,7 @@ from whitebox_tpu_torch.render.effects_generic import (
 from whitebox_tpu_torch.render.effects_pipeline import (
     _chains_of, _frame_gains, _ordered_sum, meters_from_partials,
 )
-from whitebox_tpu_torch.render.metrics import span
+from whitebox_tpu_torch.render.metrics import count, span
 from whitebox_tpu_torch.session.bus import build_routing_matrices, session_has_routing
 
 __all__ = [
@@ -251,6 +251,7 @@ def _routed_chunk_step(prog: _Program, xc, states, start: int, track_gain, auto,
     gains -> routing products -> bus chains -> bus gains -> master chain ->
     clip. -> (total, new_states, meter partials or None); with
     ``emit_parts`` (direct, bus_out) instead of the total."""
+    count("finish_chunks")
     rfx = prog.rfx
     fx = rfx.fx
     sample_rate = fx.sample_rate

@@ -44,6 +44,8 @@ def kernel_name(mangled: str) -> str:
     m = re.search(r"gather_sumILi(\d)ELb([01])E", mangled)
     if m:
         return f"gather_sum<{_GATHER_INTERP[int(m[1])]}, kClip={m[2]}>"
+    if "ordered_sum_kernel" in mangled:
+        return "ordered_sum_kernel"
     m = re.search(r"dyn_kernelILi(\d)ELb([01])E", mangled)
     return f"dyn_kernel<{_DYN_KINDS[int(m[1])]}, kFw={m[2]}>" if m else mangled
 
@@ -52,7 +54,7 @@ def block_threads(src) -> int:
     """Threads per block of the kernels in ``src`` (each source launches
     all its kernels with one block size)."""
     text = src.read_text()
-    m = re.search(r"constexpr int kFrames(?:PerBlock)? = (\d+);", text)
+    m = re.search(r"constexpr int (?:kFrames(?:PerBlock)?|kThreads) = (\d+);", text)
     if m:
         return int(m[1])
     return 32 * int(re.search(r"constexpr int kWarps(?:PerBlock)? = (\d+);", text)[1])
