@@ -42,7 +42,10 @@ the cascade kernel launched) and on two ranks sharing the card over gloo;
 the eleven feature checks of ``whitebox_tpu_torch/tools/verify.py``; the
 gather kernel (``csrc/gather_mix.cu``) bit-equal to its plain version in
 every form and interpolation mode, the bounce through ``engine="xla"``
-launching it once a chunk and no slot-plan kernel, a failed build raising.
+launching it once a chunk and no slot-plan kernel, a failed build raising;
+the staged readback (``ops/readback.py``) giving the bytes of
+``.cpu().numpy()`` in stems and bounce, kept exports independent, one ring
+allocation, and the size threshold.
 """
 
 import importlib
@@ -568,6 +571,77 @@ def test_stems_on_the_card_match_the_cpu(card):
     r = chip_smoke.routed_small()
     for g, w in zip(render_bus_stems(r, 48000.0, device=card)[:2], render_bus_stems(r, 48000.0, device="cpu")[:2]):
         assert g.shape == w.shape and chip_smoke.rel_rms(g, w) < 1e-5
+
+
+def _eq_session(seed=4):
+    s = make_demo_session(n_tracks=6, duration_seconds=3.0, seed=seed)
+    chip_smoke.add_eq_chains(s)
+    return s
+
+
+@pytest.fixture
+def fresh_ring(monkeypatch):
+    """``ops/readback.py`` with no ring yet, 1 MiB pieces (so a small
+    session's stems take several), and the staging threshold at 0."""
+    from whitebox_tpu_torch.ops import readback
+
+    monkeypatch.setattr(readback, "_RINGS", {})
+    monkeypatch.setattr(readback, "PIECE_BYTES", 1 << 20)
+    monkeypatch.setattr(readback, "STAGE_MIN_BYTES", 0)
+    return readback
+
+
+def test_staged_readback_gives_the_pageable_bytes(card, fresh_ring, monkeypatch):
+    """``render_stems`` and ``bounce`` on an EQ session: the staged readback
+    returns the bytes of ``.cpu().numpy()``, with its dtype and shape."""
+    from whitebox_tpu_torch.render.stems import render_stems
+
+    s = _eq_session()
+    before = fresh_ring.staged_readbacks
+    staged = (render_stems(s, 48000.0, device=card)[0], bounce(s, 48000.0, device=card).audio)
+    assert fresh_ring.staged_readbacks == before + 2
+    monkeypatch.setattr(fresh_ring, "STAGE_MIN_BYTES", 1 << 62)
+    plain = (render_stems(s, 48000.0, device=card)[0], bounce(s, 48000.0, device=card).audio)
+    assert fresh_ring.staged_readbacks == before + 2
+    assert staged[0].nbytes > 2 * fresh_ring.PIECE_BYTES
+    for got, want in zip(staged, plain):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+def test_staged_stems_exports_stay_independent(card, fresh_ring):
+    """Three stems exports in a row through one ring, all three arrays kept:
+    each is the caller's own (no memory shared with another or with the
+    staging), an earlier one is unchanged by a later export, and the ring
+    was allocated once."""
+    from whitebox_tpu_torch.render.stems import render_stems
+
+    allocations = fresh_ring.staging_allocations
+    outs = [render_stems(_eq_session(seed), 48000.0, device=card)[0] for seed in (4, 5, 4)]
+    assert fresh_ring.staging_allocations == allocations + 1
+    kept = outs[0].copy()
+    np.testing.assert_array_equal(outs[2].view(np.int32), kept.view(np.int32))
+    assert not np.array_equal(outs[1], kept)
+    (ring,) = fresh_ring._RINGS.values()
+    for i, a in enumerate(outs):
+        assert a.flags.writeable
+        assert not any(np.shares_memory(a, slot.numpy()) for slot in ring.slots)
+        assert not any(np.shares_memory(a, b) for b in outs[i + 1:])
+
+
+def test_readback_threshold_on_the_card(card):
+    """Below ``STAGE_MIN_BYTES`` a CUDA tensor takes ``.cpu().numpy()``; at
+    it, the ring."""
+    from whitebox_tpu_torch.ops import readback
+
+    small = torch.arange(readback.STAGE_MIN_BYTES // 4 - 1, dtype=torch.float32, device=card)
+    large = torch.arange(readback.STAGE_MIN_BYTES // 4, dtype=torch.float32, device=card)
+    before = (readback.staged_readbacks, readback.staged_bytes)
+    np.testing.assert_array_equal(readback.to_host(small), small.cpu().numpy())
+    assert (readback.staged_readbacks, readback.staged_bytes) == before
+    np.testing.assert_array_equal(readback.to_host(large), large.cpu().numpy())
+    assert (readback.staged_readbacks, readback.staged_bytes) == (before[0] + 1, before[1] + large.numel() * 4)
+    assert readback.RING_SLOTS * readback.PIECE_BYTES <= 256 << 20
 
 
 def test_loudness_on_the_card_matches_the_cpu_and_f64(card):

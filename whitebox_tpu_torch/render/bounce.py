@@ -72,6 +72,7 @@ from whitebox_tpu_torch.ops.loudness import measure_loudness
 from whitebox_tpu_torch.ops.mix import pack_device_tables, render_chunk, render_chunk_per_track
 from whitebox_tpu_torch.ops.mix_cuda import CudaMixRenderer
 from whitebox_tpu_torch.ops.mix_plan import SlotOverflow, build_plan
+from whitebox_tpu_torch.ops.readback import to_host
 from whitebox_tpu_torch.ops.resample import design_sinc_bank
 from whitebox_tpu_torch.render.effects_fir import prepare_fir_finish
 from whitebox_tpu_torch.render.effects_generic import (
@@ -380,7 +381,7 @@ def _render_kernel(session, table, pool, plan, interp, pre_pool_dev, sample_rate
     if finish is not None:
         stats.finish_seconds = ftimer.seconds
     with span("wb.readback") as readback:
-        out = out_dev[:, : plan.total_frames].cpu().numpy()
+        out = to_host(out_dev[:, : plan.total_frames])
         if meters:
             _read_meters(stats, res[1], len(session.tracks))
     stats.readback_seconds = readback.seconds

@@ -34,6 +34,7 @@ from whitebox_tpu_torch.ops.biquad_cuda import biquad_cascade
 from whitebox_tpu_torch.ops.mix import pack_device_tables, render_chunk_per_track
 from whitebox_tpu_torch.ops.mix_cuda import CudaMixRenderer
 from whitebox_tpu_torch.ops.mix_plan import SlotOverflow, build_plan
+from whitebox_tpu_torch.ops.readback import to_host
 from whitebox_tpu_torch.render.bounce import (
     _add_synth, _prepare_synth_tables, per_track_limit_bytes, session_has_midi,
 )
@@ -230,7 +231,7 @@ def render_stems(
                 _gather_stems(src, chunk, step, init_generic_states(gfx, channels, dev)[0], (stems,))
         if src.kernel:
             with span("wb.readback"):
-                stems = stems.cpu().numpy()
+                stems = to_host(stems)
     return stems, [t.name or f"track{i}" for i, t in enumerate(session.tracks)]
 
 
