@@ -1982,6 +1982,7 @@ def phase_effects(torch) -> dict:
     from whitebox_tpu_torch.render import effects_pipeline
     from whitebox_tpu_torch.render.bounce import _effects_finisher, bounce
     from whitebox_tpu_torch.render.effects_fir import prepare_fir_finish
+    from whitebox_tpu_torch.render.finisher import make_finisher, run
     from whitebox_tpu_torch.timeline.carve import carve_session
 
     name, duration = "effects_eq_128trk", 60.0
@@ -2059,7 +2060,7 @@ def phase_effects(torch) -> dict:
             r = mix_cuda.CudaMixRenderer(t_, p_, session, device="cuda", plan=plan,
                                          pool_device=warm.pool_device)
             t3 = time.perf_counter()
-            finish = _effects_finisher(session, r, plan, RATE, p.channels, mode, False, dev)
+            finish = _effects_finisher(session, r, plan, RATE, mode, False, dev)
             t4 = time.perf_counter()
             finish(r.render_device_per_track())
             torch.cuda.synchronize()
@@ -2072,8 +2073,8 @@ def phase_effects(torch) -> dict:
     args = (warm.pool_device, warm.tables, p.n_tiles, p.tile, p.channels)
     fir_finish = prepare_fir_finish(session, RATE, warm.tables["track_gain"], None, p.channels,
                                     device="cuda")
-    scan_finish = _effects_finisher(session, warm, p, RATE, p.channels, "scan", False, dev)
-    metered_finish = _effects_finisher(session, warm, p, RATE, p.channels, "scan", True, dev)
+    scan_finish = _effects_finisher(session, warm, p, RATE, "scan", False, dev)
+    metered_finish = _effects_finisher(session, warm, p, RATE, "scan", True, dev)
     kernel_ms, kernel_all = _event_ms(torch, lambda: mix_cuda.mix_per_track_cuda(*args), 20)
     fir_ms, _ = _event_ms(torch, lambda: fir_finish(pt), 5)
     scan_ms, scan_all = _event_ms(torch, lambda: scan_finish(pt), 5)
@@ -2090,22 +2091,22 @@ def phase_effects(torch) -> dict:
     metered = metered_finish(pt)
     effects_pipeline.biquad_cascade = biquad_cuda.biquad_cascade_reference
     try:
-        (S, coeffs), (Sm, mcoeffs) = effects_pipeline.prepare_effect_tables(session, RATE, p.channels, device=dev)
+        plain_fin = make_finisher("scan", session, RATE, warm.tables["track_gain"], meters=True,
+                                  chunk=effects_pipeline.CPU_CHUNK, device=dev)
+        S, coeffs, Sm, mcoeffs = plain_fin.S, plain_fin.coeffs, plain_fin.Sm, plain_fin.mcoeffs
         held = {}
 
         def plain_metered():
-            held["out"] = effects_pipeline.finish_mix(
-                pt, coeffs, mcoeffs, warm.tables["track_gain"], T=p.num_tracks, C=p.channels, S=S,
-                Sm=Sm, chunk=effects_pipeline.CPU_CHUNK, with_meters=True, valid_frames=p.total_frames)
+            held["out"] = run(plain_fin, pt, pt.shape[-1], valid_frames=p.total_frames)
 
         plain_scan_ms, _ = _event_ms(torch, plain_metered, 1)
         plain_out = held.pop("out")
     finally:
         effects_pipeline.biquad_cascade = biquad_cuda.biquad_cascade
     meter_err = max(float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
-                    for a, b in zip(metered[1], plain_out[1]))
+                    for a, b in zip(metered.meters, plain_out.meters))
     check(meter_err <= 1e-5, f"{name}: meters {meter_err:.3g} (relative) off the plain finisher's")
-    mix_rr = rel_rms(metered[0].cpu().numpy(), plain_out[0].cpu().numpy())
+    mix_rr = rel_rms(metered.out.cpu().numpy(), plain_out.out.cpu().numpy())
     print(f"[{name}] metered scan finisher vs the plain one (Hillis scan): meters max relative "
           f"{meter_err:.3g} (<= 1e-05), mix relative RMS {mix_rr:.3g}")
     del metered, plain_out
@@ -2617,7 +2618,7 @@ def generic_kind_vs_cpu_and_f64(torch, name, chain, lanes, frames=16 * 512, chun
     from whitebox_tpu_torch.ops import biquad_cuda, dynamics_cuda
     from whitebox_tpu_torch.ops.automation import TrackAutomation
     from whitebox_tpu_torch.render import effects_generic as gen
-    from whitebox_tpu_torch.render.effects_pipeline import prepare_automation_tables
+    from whitebox_tpu_torch.render.finisher import make_finisher, run
     from whitebox_tpu_torch.session import Session
 
     s = Session(bpm=120.0)
@@ -2634,10 +2635,8 @@ def generic_kind_vs_cpu_and_f64(torch, name, chain, lanes, frames=16 * 512, chun
     outs = {}
     before, dyn_before = biquad_cuda.biquad_cascade_launches, dynamics_cuda.dynamics_fused_launches
     for dev in ("cuda", "cpu"):
-        fx = gen.prepare_generic_fx(s, RATE)
-        fin = gen.make_generic_finisher(fx, 3, 2, chunk=chunk, device=dev)
-        outs[dev] = fin(torch.from_numpy(pt).to(dev), torch.from_numpy(tg).to(dev),
-                        prepare_automation_tables(s, RATE, device=dev)).cpu().numpy()
+        fin = make_finisher("generic", s, RATE, torch.from_numpy(tg).to(dev), chunk=chunk, device=dev)
+        outs[dev] = run(fin, torch.from_numpy(pt).to(dev), frames).out.cpu().numpy()
     cascades = biquad_cuda.biquad_cascade_launches - before
     dynamics = dynamics_cuda.dynamics_fused_launches - dyn_before
     ref = gen.reference_generic_finish(pt, s, RATE)
@@ -2909,6 +2908,7 @@ def phase_generic(torch) -> dict:
     from whitebox_tpu_torch.render import effects_generic as gen
     from whitebox_tpu_torch.render.bounce import _effects_finisher, bounce
     from whitebox_tpu_torch.render.effects_pipeline import _chains_of
+    from whitebox_tpu_torch.render.finisher import make_finisher, run
     from whitebox_tpu_torch.render.roofline import fx_cost
     from whitebox_tpu_torch.timeline.carve import carve_session
 
@@ -2960,10 +2960,10 @@ def phase_generic(torch) -> dict:
                                  col["attack"], zrow, zrow)
     del xg, r_db
     t0 = time.perf_counter()
-    on_card = gen.make_generic_finisher(fx, T, C, chunk=chunk, device=dev, valid_frames=f10)(
-        pt[:, :, :f10], tg).cpu().numpy()
-    on_cpu = gen.make_generic_finisher(fx, T, C, chunk=chunk, device="cpu", valid_frames=f10)(
-        pt[:, :, :f10].cpu(), tg.cpu()).numpy()
+    on_card = run(make_finisher("generic", session, RATE, tg, chunk=chunk, device=dev), pt[:, :, :f10], f10,
+                  valid_frames=f10).out.cpu().numpy()
+    on_cpu = run(make_finisher("generic", session, RATE, tg.cpu(), chunk=chunk), pt[:, :, :f10].cpu(), f10,
+                 valid_frames=f10).out.numpy()
     cpu_s = time.perf_counter() - t0
     rr_cpu = rel_rms(on_card, on_cpu)
     check(rr_cpu < GENERIC_REL_RMS, f"{name}: finisher on the card {rr_cpu:.3g} off the CPU's")
@@ -2974,7 +2974,8 @@ def phase_generic(torch) -> dict:
     # one track of each signature (an EQ group track, a compressor group
     # track) and the master against the f64 chains over the first 2 s
     chains, master = _chains_of(session)
-    stems = gen.make_generic_stems_finisher(fx, T, C, chunk=chunk, device=dev)(pt[:, :, :f2], tg)
+    stems = run(make_finisher("generic", session, RATE, tg, form="stems", chunk=chunk, device=dev),
+                pt[:, :, :f2], f2).out
     stems = stems.cpu().double().numpy()
     x = pt[:, :, :f2].cpu().double().numpy()
     tgh = tg.cpu().double().numpy()
@@ -2991,8 +2992,8 @@ def phase_generic(torch) -> dict:
           f"{ {t: f'{v:.3g}' for t, v in sig.items()} }, master {rr_master:.3g} (< {GENERIC_F64_REL_RMS})")
     del stems, x, on_cpu
 
-    legs = _finisher_rows(torch, session, pool, warm.pool_device, C, "scan")
-    finish = _effects_finisher(session, warm, p, RATE, C, "scan", False, dev)
+    legs = _finisher_rows(torch, session, pool, warm.pool_device, "scan")
+    finish = _effects_finisher(session, warm, p, RATE, "scan", False, dev)
     k4_ms, _ = _event_ms(torch, lambda: mix_cuda.mix_per_track_cuda(warm.pool_device, warm.tables, p.n_tiles,
                                                                     p.tile, C), 10)
     finish_ms, finish_all = _event_ms(torch, lambda: finish(pt), 3)
@@ -3003,8 +3004,8 @@ def phase_generic(torch) -> dict:
     for c in GENERIC_CHUNK_SWEEP:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        fin = gen.make_generic_finisher(fx, T, C, chunk=c, device=dev, valid_frames=p.total_frames)
-        ms, _ = _event_ms(torch, lambda: fin(pt, tg), 3)
+        fin = make_finisher("generic", session, RATE, tg, chunk=c, device=dev)
+        ms, _ = _event_ms(torch, lambda: run(fin, pt, pt.shape[-1], valid_frames=p.total_frames), 3)
         sweep[c] = {"ms": ms, "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
     fcost = fx_cost(session, p.total_frames, C)
     stats = {
@@ -3120,7 +3121,7 @@ def _long_rows(torch, bounce_mod, session, n=3):
     return rows
 
 
-def _finisher_rows(torch, session, pool, pool_dev, C, effects_mode, n=5):
+def _finisher_rows(torch, session, pool, pool_dev, effects_mode, n=5):
     """``n`` warm carve+plan+upload+preparation+K4+finisher iterations ->
     medians and best (seconds): carve, plan, upload, prep, launch-to-sync, e2e."""
     from whitebox_tpu_torch.ops import mix_cuda
@@ -3139,7 +3140,7 @@ def _finisher_rows(torch, session, pool, pool_dev, C, effects_mode, n=5):
         t2 = time.perf_counter()
         r = mix_cuda.CudaMixRenderer(t_, p_, session, device="cuda", plan=plan, pool_device=pool_dev)
         t3 = time.perf_counter()
-        finish = _effects_finisher(session, r, plan, RATE, C, effects_mode, False, dev)
+        finish = _effects_finisher(session, r, plan, RATE, effects_mode, False, dev)
         t4 = time.perf_counter()
         finish(r.render_device_per_track())
         torch.cuda.synchronize()
@@ -3160,7 +3161,7 @@ def phase_routed_small(torch) -> None:
 
     from whitebox_tpu_torch.render import routing as rt
     from whitebox_tpu_torch.render.bounce import bounce
-    from whitebox_tpu_torch.render.effects_pipeline import prepare_automation_tables
+    from whitebox_tpu_torch.render.finisher import make_finisher, run
     from whitebox_tpu_torch.timeline.carve import carve_session, render_segments_per_track_numpy
 
     s = routed_small()
@@ -3170,10 +3171,8 @@ def phase_routed_small(torch) -> None:
                     for c in range(2)] for t in s.tracks], np.float32)
     outs = {}
     for dev in ("cuda", "cpu"):
-        rfx = rt.prepare_routed_fx(s, RATE, 2, device=dev)
-        fin = rt.make_routed_finisher(rfx, len(s.tracks), 2, chunk=4096, pdc=True, device=dev)
-        outs[dev] = fin(torch.from_numpy(pt).to(dev), torch.from_numpy(tg).to(dev),
-                        prepare_automation_tables(s, RATE, device=dev)).cpu().numpy()
+        fin = make_finisher("routed", s, RATE, torch.from_numpy(tg).to(dev), pdc=True, chunk=4096, device=dev)
+        outs[dev] = run(fin, torch.from_numpy(pt).to(dev), pt.shape[-1]).out.cpu().numpy()
     ref = rt.reference_routed_finish(pt, s, RATE, pdc=True)
     rr_cpu, rr_f64 = rel_rms(outs["cuda"], outs["cpu"]), rel_rms(outs["cuda"], ref)
     check(float(np.abs(ref).max()) > 0.01, "routed_small: silent reference")
@@ -3213,7 +3212,7 @@ def phase_routed(torch) -> dict:
     from whitebox_tpu_torch.ops import biquad_cuda, dynamics_cuda, mix_cuda
     from whitebox_tpu_torch.render import routing as rt
     from whitebox_tpu_torch.render.bounce import _effects_finisher, bounce
-    from whitebox_tpu_torch.render.effects_pipeline import prepare_automation_tables
+    from whitebox_tpu_torch.render.finisher import make_finisher, run
     from whitebox_tpu_torch.render.roofline import fx_cost, routing_cost
     from whitebox_tpu_torch.timeline.carve import carve_session
 
@@ -3249,11 +3248,10 @@ def phase_routed(torch) -> dict:
     chunk = rt.routed_auto_chunk_frames(rfx, device=dev)
     f10, f2 = int(10 * RATE), int(2 * RATE)
     t0 = time.perf_counter()
-    on_card = rt.make_routed_finisher(rfx, T, C, chunk=chunk, device=dev, valid_frames=f10)(
-        pt[:, :, :f10], tg).cpu().numpy()
-    rfx_cpu = rt.prepare_routed_fx(session, RATE, C)
-    on_cpu = rt.make_routed_finisher(rfx_cpu, T, C, chunk=chunk, valid_frames=f10)(
-        pt[:, :, :f10].cpu(), tg.cpu()).numpy()
+    on_card = run(make_finisher("routed", session, RATE, tg, chunk=chunk, device=dev), pt[:, :, :f10], f10,
+                  valid_frames=f10).out.cpu().numpy()
+    on_cpu = run(make_finisher("routed", session, RATE, tg.cpu(), chunk=chunk), pt[:, :, :f10].cpu(), f10,
+                 valid_frames=f10).out.numpy()
     cpu_s = time.perf_counter() - t0
     rr_cpu = rel_rms(on_card, on_cpu)
     check(rr_cpu < GENERIC_REL_RMS, f"{name}: routed finisher on the card {rr_cpu:.3g} off the CPU's")
@@ -3262,7 +3260,8 @@ def phase_routed(torch) -> dict:
     t0 = time.perf_counter()
     ref = rt.reference_routed_finish(pt[:, :, :f2].cpu().numpy(), session, RATE, C)
     ref_s = time.perf_counter() - t0
-    short = rt.make_routed_finisher(rfx, T, C, chunk=chunk, device=dev)(pt[:, :, :f2], tg).cpu().numpy()
+    short = run(make_finisher("routed", session, RATE, tg, chunk=chunk, device=dev), pt[:, :, :f2],
+                f2).out.cpu().numpy()
     rr_f64 = rel_rms(short, ref)
     check(rr_f64 < GENERIC_F64_REL_RMS, f"{name}: first 2 s {rr_f64:.3g} off reference_routed_finish")
     print(f"[{name}] routed finisher's first 10 s on the card vs the CPU relative RMS {rr_cpu:.3g} (< "
@@ -3284,22 +3283,21 @@ def phase_routed(torch) -> dict:
           f"(< 1e-06)")
 
     torch.cuda.reset_peak_memory_stats()
-    legs = _finisher_rows(torch, session, pool, warm.pool_device, C, "routed")
+    legs = _finisher_rows(torch, session, pool, warm.pool_device, "routed")
     peak = torch.cuda.max_memory_allocated() / 1e9
-    finish = _effects_finisher(session, warm, p, RATE, C, "routed", False, dev)
+    finish = _effects_finisher(session, warm, p, RATE, "routed", False, dev)
     k4_ms, _ = _event_ms(torch, lambda: mix_cuda.mix_per_track_cuda(warm.pool_device, warm.tables, p.n_tiles,
                                                                     p.tile, C), 10)
     finish_ms, finish_all = _event_ms(torch, lambda: finish(pt), 3)
     names = {}
     busy_ms, parts = card_busy_ms(torch, lambda: finish(pt), names)
     dyn_stages = dynamics_stages(name, parts, names)
-    auto = prepare_automation_tables(session, RATE, device=dev)
     sweep = {}
     for c in ROUTED_CHUNK_SWEEP:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        fin = rt.make_routed_finisher(rfx, T, C, chunk=c, device=dev, valid_frames=p.total_frames)
-        ms, _ = _event_ms(torch, lambda: fin(pt, tg, auto), 3)
+        fin = make_finisher("routed", session, RATE, tg, chunk=c, device=dev)
+        ms, _ = _event_ms(torch, lambda: run(fin, pt, pt.shape[-1], valid_frames=p.total_frames), 3)
         sweep[c] = {"ms": ms, "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
     cost = fx_cost(session, p.total_frames, C)
     for k, (b, f) in routing_cost(session, p.total_frames, C).terms.items():
@@ -3390,10 +3388,10 @@ def phase_midi(torch) -> dict:
     del cpu, rows
 
     torch.cuda.reset_peak_memory_stats()
-    legs = _finisher_rows(torch, session, pool, warm.pool_device, p.channels, "scan")
+    legs = _finisher_rows(torch, session, pool, warm.pool_device, "scan")
     peak = torch.cuda.max_memory_allocated() / 1e9
     pt = warm.render_device_per_track()
-    finish = _effects_finisher(session, warm, p, RATE, p.channels, "scan", False, dev)
+    finish = _effects_finisher(session, warm, p, RATE, "scan", False, dev)
     k4_ms, _ = _event_ms(torch, lambda: mix_cuda.mix_per_track_cuda(warm.pool_device, warm.tables, p.n_tiles,
                                                                     p.tile, p.channels), 10)
     synth_ms, _ = _event_ms(torch, lambda: _add_synth(pt, synth, 0, F), 5)
@@ -3536,19 +3534,15 @@ def _k4_buffer(torch, session):
     return r.render_device_per_track()[..., :p.total_frames], k4_ms
 
 
-def _stems_finisher(session, kind: str, device):
+def _stems_finisher(session, kind: str, track_gain):
     """The stems finisher ``render_stems`` runs for ``kind`` ("eq": the
-    cascade and gains, ``stems_finish``; "generic": the generic stems form)
-    -> fn(per_track, track_gain, auto) -> [T, C, F]."""
-    from whitebox_tpu_torch.render import effects_generic as gen
-    from whitebox_tpu_torch.render.effects_pipeline import prepare_effect_tables
-    from whitebox_tpu_torch.render.stems import stems_finish
+    scan's stems form, cascade and gains; "generic": the generic stems
+    form), on ``track_gain``'s device -> fn(per_track) -> [T, C, F]."""
+    from whitebox_tpu_torch.render.finisher import make_finisher, run
 
-    T, C = len(session.tracks), 2
-    if kind == "eq":
-        (S, coeffs), _ = prepare_effect_tables(session, RATE, C, device=device)
-        return lambda pt, tg, auto=None: stems_finish(pt, coeffs, tg, auto, T=T, C=C, S=S)
-    return gen.make_generic_stems_finisher(gen.prepare_generic_fx(session, RATE, C), T, C, device=device)
+    fin = make_finisher("scan" if kind == "eq" else "generic", session, RATE, track_gain, form="stems",
+                        device=track_gain.device)
+    return lambda pt: run(fin, pt, pt.shape[-1]).out
 
 
 def stems_cell(torch, name: str, session, kind: str, rows: list) -> dict:
@@ -3564,7 +3558,6 @@ def stems_cell(torch, name: str, session, kind: str, rows: list) -> dict:
 
     from whitebox_tpu_torch.ops import biquad_cuda, dynamics_cuda
     from whitebox_tpu_torch.render.bounce import bounce
-    from whitebox_tpu_torch.render.effects_pipeline import prepare_automation_tables
     from whitebox_tpu_torch.render.stems import _track_gains, render_stems
 
     reset_launches()
@@ -3594,7 +3587,7 @@ def stems_cell(torch, name: str, session, kind: str, rows: list) -> dict:
     sub = copy.copy(session)
     sub.tracks = [session.tracks[t] for t in rows]
     t0 = time.perf_counter()
-    on_cpu = _stems_finisher(sub, kind, "cpu")(pt[rows, :, :f10].cpu(), tg[rows].cpu()).numpy()
+    on_cpu = _stems_finisher(sub, kind, tg[rows].cpu())(pt[rows, :, :f10].cpu()).numpy()
     cpu_s = time.perf_counter() - t0
     rr = max(rel_rms(stems[t, :, :f10], on_cpu[i]) for i, t in enumerate(rows))
     check(rr < GENERIC_REL_RMS, f"{name}: the stems' first 10 s {rr:.3g} off the CPU's")
@@ -3605,15 +3598,14 @@ def stems_cell(torch, name: str, session, kind: str, rows: list) -> dict:
     del stems, on_cpu
 
     e2e_ms, e2e_all, _ = _wall_ms(torch, lambda: render_stems(session, RATE, device="cuda")[0].shape)
-    auto = prepare_automation_tables(session, RATE, device="cuda")
-    finish = _stems_finisher(session, kind, "cuda")
-    fin_ms, fin_all = _event_ms(torch, lambda: finish(pt, tg, auto), 3)
+    finish = _stems_finisher(session, kind, tg)
+    fin_ms, fin_all = _event_ms(torch, lambda: finish(pt), 3)
     dyn_stages = None
     if kind == "generic":
         names = {}
-        _, parts = card_busy_ms(torch, lambda: finish(pt, tg, auto), names)
+        _, parts = card_busy_ms(torch, lambda: finish(pt), names)
         dyn_stages = dynamics_stages(name, parts, names)
-    out = finish(pt, tg, auto)
+    out = finish(pt)
     read_ms, _, _ = _wall_ms(torch, lambda: out.cpu().shape)
     pinned = _pinned_readback(torch, out)
     stats = {"cell": name, "tracks": T, "audio_seconds": F / RATE, "frames": F,
@@ -3629,8 +3621,8 @@ def stems_cell(torch, name: str, session, kind: str, rows: list) -> dict:
 
 
 def phase_stems(torch) -> tuple[dict, dict]:
-    """``stems_eq_128trk`` (config 5's chains: K4, then ``stems_finish``
-    through the cascade kernel) and ``stems_generic_128trk`` (config 6's
+    """``stems_eq_128trk`` (config 5's chains: K4, then the scan's stems
+    form through the cascade kernel) and ``stems_generic_128trk`` (config 6's
     chains on the flat mix: K4, then the generic stems form): one track of
     each chain signature against the CPU (the CPU's plain scans take
     seconds per track)."""
@@ -3646,10 +3638,8 @@ def phase_bus_stems(torch) -> dict:
     routed bounce, the first 2 s within 1e-5 of the same finisher on the
     CPU; e2e, K4, finisher, readback and peak memory."""
     from whitebox_tpu_torch.ops import biquad_cuda
-    from whitebox_tpu_torch.render import effects_generic as gen
-    from whitebox_tpu_torch.render import routing as rt
     from whitebox_tpu_torch.render.bounce import bounce
-    from whitebox_tpu_torch.render.effects_pipeline import prepare_automation_tables
+    from whitebox_tpu_torch.render.finisher import make_finisher, run
     from whitebox_tpu_torch.render.stems import _track_gains, render_bus_stems
     from whitebox_tpu_torch.session.session import Session
 
@@ -3671,8 +3661,8 @@ def phase_bus_stems(torch) -> dict:
     one.add_track("sum")
     one.master_effects = session.master_effects
     total = torch.from_numpy(direct).cuda() + torch.from_numpy(bus).cuda().sum(dim=0)
-    master = gen.make_generic_finisher(gen.prepare_generic_fx(one, RATE, C), 1, C, device="cuda")
-    recon = master(total[None], torch.ones((1, C), device="cuda")).cpu().numpy()
+    master = make_finisher("generic", one, RATE, torch.ones((1, C), device="cuda"), device="cuda")
+    recon = run(master, total[None], F).out.cpu().numpy()
     mix = bounce(session, RATE, device="cuda").audio
     rr_mix = rel_rms(recon, mix)
     check(rr_mix < GENERIC_REL_RMS, f"{name}: master(direct + buses) {rr_mix:.3g} off the routed bounce")
@@ -3681,9 +3671,8 @@ def phase_bus_stems(torch) -> dict:
     tg = _track_gains(session, C, "cuda")
     f2 = int(BUS_STEMS_CPU_SECONDS * RATE)
     t0 = time.perf_counter()
-    rfx_cpu = rt.prepare_routed_fx(session, RATE, C)
-    d_cpu, b_cpu = rt.make_routed_stems_finisher(rfx_cpu, len(session.tracks), C)(
-        pt[..., :f2].cpu(), tg.cpu(), prepare_automation_tables(session, RATE))
+    d_cpu, b_cpu = run(make_finisher("routed", session, RATE, tg.cpu(), form="stems"), pt[..., :f2].cpu(),
+                       f2).out
     cpu_s = time.perf_counter() - t0
     rr_cpu = max(rel_rms(direct[:, :f2], d_cpu.numpy()), rel_rms(bus[:, :, :f2], b_cpu.numpy()))
     check(rr_cpu < GENERIC_REL_RMS, f"{name}: the first 2 s {rr_cpu:.3g} off the CPU's")
@@ -3694,11 +3683,9 @@ def phase_bus_stems(torch) -> dict:
     del direct, bus, recon, mix
 
     e2e_ms, e2e_all, _ = _wall_ms(torch, lambda: render_bus_stems(session, RATE, device="cuda")[1].shape)
-    rfx = rt.prepare_routed_fx(session, RATE, C, device="cuda")
-    auto = prepare_automation_tables(session, RATE, device="cuda")
-    finish = rt.make_routed_stems_finisher(rfx, len(session.tracks), C, device="cuda")
-    fin_ms, fin_all = _event_ms(torch, lambda: finish(pt, tg, auto), 3)
-    d, b = finish(pt, tg, auto)
+    finish = make_finisher("routed", session, RATE, tg, form="stems", device="cuda")
+    fin_ms, fin_all = _event_ms(torch, lambda: run(finish, pt, pt.shape[-1]), 3)
+    d, b = run(finish, pt, pt.shape[-1]).out
     read_ms, _, _ = _wall_ms(torch, lambda: [t.cpu().shape for t in (d, b)])
     stats = {"cell": name, "tracks": len(session.tracks), "buses": B, "audio_seconds": F / RATE, "frames": F,
              "e2e_ms_median": e2e_ms, "e2e_ms_all": e2e_all, "rtf_median": F / RATE / (e2e_ms / 1e3),
@@ -3979,7 +3966,7 @@ def phase_preview(torch) -> dict:
     from whitebox_tpu_torch.ops import biquad_cuda
     from whitebox_tpu_torch.ops.mix import pack_device_tables, render_chunk_per_track
     from whitebox_tpu_torch.render.bounce import bounce
-    from whitebox_tpu_torch.render.effects_pipeline import init_effect_states, prepare_effect_tables
+    from whitebox_tpu_torch.render.finisher import make_finisher
     from whitebox_tpu_torch.render.preview import PreviewStream
     from whitebox_tpu_torch.timeline.carve import carve_session
 
@@ -4005,8 +3992,9 @@ def phase_preview(torch) -> dict:
     table, pool = carve_session(s, RATE, buffer_size=bs, out_channels=2)
     tables = pack_device_tables(table, pool, s, channels=2).as_torch("cuda")
     pt = render_chunk_per_track(torch.from_numpy(pool.data).cuda(), tables, 0, 2 * ps.lookahead)
-    (S, coeffs), (Sm, mcoeffs) = prepare_effect_tables(s, RATE, 2, device="cuda")
-    states, mstates = init_effect_states(len(s.tracks), 2, S, Sm, "cuda")
+    scan = make_finisher("scan", s, RATE, torch.ones((len(s.tracks), 2), device="cuda"), device="cuda")
+    coeffs, mcoeffs = scan.coeffs, scan.mcoeffs
+    states, mstates = scan.init()
     vs_plain = {"tracks": cascade_vs_plain("preview_tracks_two_windows", torch, pt.reshape(-1, pt.shape[-1]),
                                        coeffs, states, pieces=(ps.lookahead,)),
                 "master": cascade_vs_plain("preview_master_two_windows", torch, pt.sum(0), mcoeffs, mstates,
@@ -4068,7 +4056,7 @@ def phase_stream(torch) -> dict:
     from whitebox_tpu_torch.effects import Biquad, EffectChain
     from whitebox_tpu_torch.ops import biquad_cuda
     from whitebox_tpu_torch.render.bounce import bounce
-    from whitebox_tpu_torch.render.effects_pipeline import init_effect_states, prepare_effect_tables
+    from whitebox_tpu_torch.render.finisher import make_finisher
     from whitebox_tpu_torch.render.stream_pool import bounce_streamed
 
     name, cap, window = "stream_takes_128trk", 256 << 20, 1 << 17
@@ -4128,8 +4116,9 @@ def phase_stream(torch) -> dict:
     # states carried from the first to the second
     x = torch.from_numpy(np.stack([ch[: 2 * window] for a in s.sample_table.samples.values()
                                    for ch in a.sample.data])).cuda()
-    (S, coeffs), (Sm, mcoeffs) = prepare_effect_tables(s, RATE, 2, device="cuda")
-    states, mstates = init_effect_states(len(s.tracks), 2, S, Sm, "cuda")
+    scan = make_finisher("scan", s, RATE, torch.ones((len(s.tracks), 2), device="cuda"), device="cuda")
+    coeffs, mcoeffs = scan.coeffs, scan.mcoeffs
+    states, mstates = scan.init()
     vs_plain = {"tracks": cascade_vs_plain("stream_tracks_two_windows", torch, x, coeffs, states, pieces=(window,)),
                 "master": cascade_vs_plain("stream_master_two_windows", torch,
                                            x.view(len(s.tracks), 2, -1).sum(0), mcoeffs, mstates,

@@ -411,23 +411,22 @@ def test_bounces_run_the_dynamics_kernel(card, kind):
 
 
 def test_finisher_stream_alternates_kernel_and_plain_states(card):
-    from whitebox_tpu_torch.render import effects_pipeline as pipe
+    from whitebox_tpu_torch.render.finisher import make_finisher, run
 
     s = _eq_session()
     T, C, F, chunk = len(s.tracks), 2, 40000, 8192
     x = torch.from_numpy((np.random.default_rng(3).standard_normal((T, C, F)) * 0.2).astype(np.float32))
     tg = torch.from_numpy(np.random.default_rng(4).uniform(0.2, 1.2, (T, C)).astype(np.float32))
-    (S, pc), (Sm, pm) = pipe.prepare_effect_tables(s, 48000.0, C)
-    whole = pipe.finish_mix(x, pc, pm, tg, T=T, C=C, S=S, Sm=Sm, chunk=chunk)
-    states, mstates = pipe.init_effect_states(T, C, S, Sm)
+    whole = run(make_finisher("scan", s, 48000.0, tg, chunk=chunk), x, F).out
+    cpu = torch.device("cpu")
+    fins = {d: make_finisher("scan", s, 48000.0, tg.to(d), chunk=chunk, device=d) for d in (card, cpu)}
+    states, mstates = fins[cpu].init()
     before = biquad_cuda.biquad_cascade_launches
     parts = []
     for i, start in enumerate(range(0, F, chunk)):
-        dev = card if i % 2 == 0 else torch.device("cpu")
+        dev = card if i % 2 == 0 else cpu
         states, mstates = [q.to(dev) for q in states], [q.to(dev) for q in mstates]
-        out, states, mstates = pipe.finish_mix_chunk(
-            x[..., start:start + chunk].to(dev), pc.to(dev), pm.to(dev), tg.to(dev), states, mstates,
-            start, T=T, C=C, S=S, Sm=Sm)
+        out, (states, mstates), _ = fins[dev].step(x[..., start:start + chunk].to(dev), (states, mstates), start)
         parts.append(out.cpu())
     assert biquad_cuda.biquad_cascade_launches == before + 2 * 3  # tracks and master, chunks 0, 2, 4
     assert chip_smoke.rel_rms(torch.cat(parts, dim=1).numpy(), whole.numpy()) < chip_smoke.CASCADE_REL_RMS

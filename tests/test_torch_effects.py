@@ -30,6 +30,7 @@ from whitebox_tpu_torch.ops import biquad as pbq
 from whitebox_tpu_torch.ops.scan_util import hillis_scan
 from whitebox_tpu_torch.render import effects_fir as pfir
 from whitebox_tpu_torch.render import effects_pipeline as ppipe
+from whitebox_tpu_torch.render.finisher import make_finisher, run
 from whitebox_tpu_torch.session.convert import from_reference
 
 RATE = 48000.0
@@ -215,7 +216,10 @@ def test_finish_mix_matches_jax(case):
     assert (jauto is None) == (pauto is None) == (not lanes)
     kw = dict(T=T, C=C, chunk=8192, with_meters=meters, valid_frames=F - 3000 if meters else None)
     want = jpipe.finish_mix(jnp.asarray(x), jc, jm, jnp.asarray(tg), jauto, S=jS, Sm=jSm, **kw)
-    got = ppipe.finish_mix(torch.from_numpy(x), pc, pm, torch.from_numpy(tg), pauto, S=S, Sm=Sm, **kw)
+    fin = make_finisher("scan", s, RATE, torch.from_numpy(tg), meters=meters, chunk=8192)
+    res = run(fin, torch.from_numpy(x), F, valid_frames=kw["valid_frames"])
+    assert (fin.S, fin.Sm) == (S, Sm) and torch.equal(fin.coeffs, pc) and torch.equal(fin.mcoeffs, pm)
+    got = (res.out, res.meters) if meters else res.out
     if meters:
         (want, wm), (got, gm) = want, got
         for a, b in zip(gm, wm):
@@ -228,13 +232,12 @@ def test_finish_mix_chunk_streams_like_finish_mix():
     js, s = fx_pair(seed=13)
     T, F, chunk = len(s.tracks), 16384, 4096
     x, tg = torch.from_numpy(_per_track(T, F)), torch.from_numpy(_gains(T))
-    (S, pc), (Sm, pm) = ppipe.prepare_effect_tables(s, RATE, C)
-    whole = ppipe.finish_mix(x, pc, pm, tg, T=T, C=C, S=S, Sm=Sm, chunk=chunk)
-    states, mstates = ppipe.init_effect_states(T, C, S, Sm)
+    whole = run(make_finisher("scan", s, RATE, tg, chunk=chunk), x, F).out
+    fin = make_finisher("scan", s, RATE, tg, meters=True, chunk=chunk)
+    states = fin.init()
     parts = []
     for i in range(0, F, chunk):
-        out, states, mstates, m = ppipe.finish_mix_chunk(x[..., i:i + chunk], pc, pm, tg, states, mstates,
-                                                          i, T=T, C=C, S=S, Sm=Sm, with_meters=True)
+        out, states, m = fin.step(x[..., i:i + chunk], states, i)
         parts.append(out)
         assert m[0].shape == (T, C) and m[2].shape == (C,)
     torch.testing.assert_close(torch.cat(parts, dim=1), whole, rtol=0, atol=0)

@@ -33,6 +33,7 @@ from whitebox_tpu.session.project import write_project as jax_write_project
 from whitebox_tpu_torch.ops import biquad as pbq
 from whitebox_tpu_torch.render import effects_generic as gen
 from whitebox_tpu_torch.render.bounce import bounce
+from whitebox_tpu_torch.render.finisher import make_finisher, run
 from whitebox_tpu_torch.session.convert import from_reference
 from whitebox_tpu_torch.session.project import read_project, write_project
 
@@ -91,15 +92,11 @@ def _track_gain(s, C=2):
 
 
 def _finish(s, pt, chunk=2048, pdc=False, meters=False):
-    fx = gen.prepare_generic_fx(s, RATE)
     T, C, F = pt.shape
-    fin = gen.make_generic_finisher(fx, T, C, chunk=chunk, pdc=pdc, with_meters=meters,
-                                    valid_frames=F)
-    auto = None
-    if any(t.automation is not None and t.automation.has_track_lanes() for t in s.tracks):
-        from whitebox_tpu_torch.render.effects_pipeline import prepare_automation_tables
-        auto = prepare_automation_tables(s, RATE)
-    return fin(torch.from_numpy(pt), torch.from_numpy(_track_gain(s, C)), auto)
+    fin = make_finisher("generic", s, RATE, torch.from_numpy(_track_gain(s, C)), chunk=chunk, pdc=pdc,
+                        meters=meters)
+    res = run(fin, torch.from_numpy(pt), F, valid_frames=F)
+    return (res.out, res.meters) if meters else res.out
 
 
 def test_prepare_generic_fx_groups_equal_jax():
@@ -348,11 +345,10 @@ def test_stems_finisher_sums_to_the_premaster_mix():
     js = _kind_session("delay", n_tracks=3, master=False)
     s = from_reference(js)
     pt = _noise((3, 2, PB * 8), seed=49, scale=0.2)
-    fx = gen.prepare_generic_fx(s, RATE)
     tg = torch.from_numpy(_track_gain(s))
-    stems = gen.make_generic_stems_finisher(fx, 3, 2, chunk=1024)(torch.from_numpy(pt), tg)
+    stems = run(make_finisher("generic", s, RATE, tg, form="stems", chunk=1024), torch.from_numpy(pt), PB * 8).out
     total = stems[0] + stems[1] + stems[2]
-    mixed = gen.make_generic_finisher(fx, 3, 2, chunk=1024)(torch.from_numpy(pt), tg)
+    mixed = run(make_finisher("generic", s, RATE, tg, chunk=1024), torch.from_numpy(pt), PB * 8).out
     np.testing.assert_allclose(torch.clamp(total, -1.0, 1.0).numpy(), mixed.numpy(), atol=1e-6)
 
 

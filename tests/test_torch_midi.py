@@ -319,10 +319,10 @@ def test_midi_in_every_finisher_mode(mode):
 
     table, pool = carve_session(s, RATE, buffer_size=512, slow_emit="runs")
     r = CudaMixRenderer(table, pool, s, device="cpu")
-    finish = _effects_finisher(s, r, r.plan, RATE, 2, mode, False, torch.device("cpu"))
+    finish = _effects_finisher(s, r, r.plan, RATE, mode, False, torch.device("cpu"))
     pt = r.render_device_per_track()
     before = pt.clone()
-    a, b = finish(pt), finish(pt)
+    a, b = finish(pt).out, finish(pt).out
     assert torch.equal(pt, before) and torch.equal(a, b)
 
 

@@ -39,6 +39,7 @@ from whitebox_tpu_torch.ops.resample import full_f32_matmul
 from whitebox_tpu_torch.render import routing as rt
 from whitebox_tpu_torch.render.bounce import bounce
 from whitebox_tpu_torch.render.effects_generic import reference_generic_finish
+from whitebox_tpu_torch.render.finisher import make_finisher, run
 from whitebox_tpu_torch.session.convert import from_reference
 
 RATE = 32768.0
@@ -206,10 +207,9 @@ def _auto(s):
 
 
 def _finish(s, pt, chunk=4096, pdc=False, meters=False, C=2):
-    rfx = rt.prepare_routed_fx(s, RATE, C)
-    fin = rt.make_routed_finisher(rfx, len(s.tracks), C, chunk=chunk, pdc=pdc, with_meters=meters,
-                                  valid_frames=pt.shape[-1])
-    return fin(torch.from_numpy(pt), torch.from_numpy(_tg(s, C)), _auto(s))
+    fin = make_finisher("routed", s, RATE, torch.from_numpy(_tg(s, C)), chunk=chunk, pdc=pdc, meters=meters)
+    res = run(fin, torch.from_numpy(pt), pt.shape[-1], valid_frames=pt.shape[-1])
+    return (res.out, res.meters) if meters else res.out
 
 
 def _np(x):
@@ -286,10 +286,8 @@ def test_routed_finisher_matches_jax(jax_case):
 def test_routed_stems_finisher_matches_jax_and_sums_to_the_mix(jax_case):
     js, pt, _, _, (want_direct, want_bus) = jax_case
     s = from_reference(js)
-    rfx = rt.prepare_routed_fx(s, RATE, 2)
-    T = len(s.tracks)
-    direct, bus = rt.make_routed_stems_finisher(rfx, T, 2, chunk=4096)(
-        torch.from_numpy(pt), torch.from_numpy(_tg(s)), _auto(s))
+    direct, bus = run(make_finisher("routed", s, RATE, torch.from_numpy(_tg(s)), form="stems", chunk=4096),
+                      torch.from_numpy(pt), pt.shape[-1]).out
     assert bus.shape == want_bus.shape == (2, 2, pt.shape[-1])
     assert rel_rms(direct.numpy(), want_direct) < 1e-5
     assert rel_rms(bus.numpy(), want_bus) < 1e-5
@@ -335,15 +333,13 @@ def test_routed_chunk_fn_equals_one_chunk(name):
     Fc = 2048
     F = (pt.shape[-1] // Fc) * Fc
     pt = np.ascontiguousarray(pt[:, :, :F])
-    T, C = pt.shape[:2]
-    rfx = rt.prepare_routed_fx(s, RATE, C)
     tg = torch.from_numpy(_tg(s))
-    one = rt.make_routed_finisher(rfx, T, C, chunk=F)(torch.from_numpy(pt), tg, _auto(s))
-    step = rt.make_routed_chunk_fn(rfx, T, C, chunk=Fc)
-    states = rt.init_routed_states(rfx, C)
+    one = run(make_finisher("routed", s, RATE, tg, chunk=F), torch.from_numpy(pt), F).out
+    fin = make_finisher("routed", s, RATE, tg, chunk=Fc)
+    states = fin.init()
     pieces = []
     for start in range(0, F, Fc):
-        piece, states = step(torch.from_numpy(pt[:, :, start:start + Fc]), states, start, tg, _auto(s))
+        piece, states, _ = fin.step(torch.from_numpy(pt[:, :, start:start + Fc]), states, start)
         pieces.append(piece)
     assert float((torch.cat(pieces, dim=-1) - one).abs().max()) < 1e-6
 
@@ -416,10 +412,9 @@ def test_bus_pdc_aligns_a_latent_bus():
     s = from_reference(js)
     pt = _per_track(js)
     L = int(round(0.004 * RATE))
-    rfx = rt.prepare_routed_fx(s, RATE, 2)
     tg = torch.ones((2, 2))
-    on = rt.make_routed_finisher(rfx, 2, 2, chunk=4096, pdc=True)(torch.from_numpy(pt), tg).numpy()
-    off = rt.make_routed_finisher(rfx, 2, 2, chunk=4096, pdc=False)(torch.from_numpy(pt), tg).numpy()
+    on, off = (run(make_finisher("routed", s, RATE, tg, chunk=4096, pdc=pdc), torch.from_numpy(pt),
+                   pt.shape[-1]).out.numpy() for pdc in (True, False))
     ref = rt.reference_routed_finish(pt, s, RATE, 2, pdc=True)
     assert rel_rms(on, ref) < 5e-5
     assert abs(float(on[0, 900])) > 0.9 and abs(float(off[0, 900])) < 0.6 and abs(float(off[0, 900 + L])) > 0.4

@@ -108,7 +108,7 @@ def test_stems_sum_to_the_premaster_mix(name):
 
 
 def _limit_zero(monkeypatch):
-    monkeypatch.setattr(stems_mod, "per_track_limit_bytes", lambda dev: 0)
+    monkeypatch.setattr(bounce_mod, "per_track_limit_bytes", lambda dev: 0)
 
 
 @pytest.mark.parametrize("name,route", [("plain", "xla"), ("eq", "xla"), ("eq", "limit"),

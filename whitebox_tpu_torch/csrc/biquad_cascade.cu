@@ -2,7 +2,7 @@
 // finisher's per-row section cascade in "scan" mode.
 //
 // Replaces, on the card, the eager torch ops of
-// whitebox_tpu_torch/render/effects_pipeline.py::_finish_chunk: one
+// whitebox_tpu_torch/render/effects_pipeline.py::ScanFinisher.step: one
 // ops/biquad.py::biquad_scan_batched per section, each a Hillis-Steele
 // prefix scan of the affine maps z -> M z + Bv x (16 doubling steps over six
 // [B, F] tensors per 65,536-frame chunk). It is not a TPU kernel: the JAX

@@ -34,7 +34,7 @@ import torch
 
 from whitebox_tpu_torch.midi.synth import render_synth_chunk
 from whitebox_tpu_torch.ops.automation import session_has_automation
-from whitebox_tpu_torch.ops.mix import _clip, pack_device_tables, render_chunk, render_chunk_per_track
+from whitebox_tpu_torch.ops.mix import _clip, _ordered_sum, pack_device_tables, render_chunk, render_chunk_per_track
 from whitebox_tpu_torch.ops.resample import full_f32_matmul
 from whitebox_tpu_torch.parallel.collectives import all_gather, gather_frames, ordered_sum
 from whitebox_tpu_torch.parallel.effects_sharded import chain_group, chain_program, chain_shard
@@ -42,7 +42,7 @@ from whitebox_tpu_torch.render.bounce import _prepare_synth_tables, session_has_
 from whitebox_tpu_torch.render.effects_generic import (
     device_params, fx_latencies, prepare_generic_fx, stage_latency_frames,
 )
-from whitebox_tpu_torch.render.effects_pipeline import _frame_gains, _ordered_sum, prepare_automation_tables
+from whitebox_tpu_torch.render.effects_pipeline import _frame_gains, prepare_automation_tables
 from whitebox_tpu_torch.render.routing import _route, prepare_routed_fx, routed_device_params
 from whitebox_tpu_torch.session.bus import session_has_routing
 from whitebox_tpu_torch.timeline.carve import carve_session
@@ -223,7 +223,7 @@ def _exchange_group(src, rows: np.ndarray, row0: int, T_local: int, mesh):
 def _bounce_sharded_fx_2d(session, sample_rate: float, mesh, *, buffer_size: int, channels: int,
                           master_effects=None, pdc: bool = False, interpolation: str = "linear"):
     """Effectful sharded bounce on a ('tracks', 'frames') mesh, in the
-    single-device pipeline's order (``render/effects_generic.py::_chunk_step``):
+    single-device pipeline's order (``render/effects_generic.py::GenericFinisher.step``):
 
     1. per-track contributions (+ MIDI synth voices) of the rank's tile;
        PDC renders latent groups' tracks that many frames ahead;

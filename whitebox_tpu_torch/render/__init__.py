@@ -4,17 +4,22 @@
                          kernel: automation lanes in the kernel; effect
                          chains and meters through its per-track mode and
                          a finisher; the gather mix where the plan cannot
-                         hold the session.
-- ``effects_pipeline`` : the scan finisher (chains, gains, ordered sum,
+                         hold the session (``kernel_plan`` decides).
+- ``finisher``         : the finisher seam: ``choose_finisher`` (which
+                         family), ``make_finisher`` (its chunk step) and
+                         ``run`` (the one chunk loop: a buffer or a chunk
+                         callable in, one destination out).
+- ``effects_pipeline`` : the scan finisher's step (chains, gains), the
+                         tail every chunked finisher shares (ordered sum,
                          master, clip, meters), the lane tables, and the
                          f64 host reference of the finish stage.
 - ``effects_fir``      : the FFT-FIR finisher (chain impulse responses,
-                         overlap-save in ``torch.fft``).
-- ``effects_generic``  : the generic finisher (dynamics, delays, reverb,
-                         shaping, effect lanes) and which chains the
+                         overlap-save in ``torch.fft``), a whole buffer a step.
+- ``effects_generic``  : the generic finisher's step (dynamics, delays,
+                         reverb, shaping, effect lanes) and which chains the
                          linear finishers take.
-- ``routing``          : the routed finisher (buses, sends, sidechain keys,
-                         bus lanes, bus PDC).
+- ``routing``          : the routed finisher's step (buses, sends, sidechain
+                         keys, bus lanes, bus PDC).
 - ``stems``            : per-track and per-bus stems.
 - ``cached``           : ``SessionRenderCache``, re-renders of an edited session.
 - ``preview``          : ``PreviewStream``, block-pull playback.

@@ -21,23 +21,22 @@ interpolation modes of resampled clips (``"linear"``, ``"catmull"``,
   the CUDA mix kernel (its automation variant when a track has lanes) or,
   for a session with effects, effect lanes, meters, MIDI clips or
   routing, one launch of the per-track mode (K4) into ``[T, C, F]``
-  buffers, the MIDI tracks' synth added to their rows, and a finisher:
-  ``effects_mode="scan"`` (the biquad cascade kernel,
-  ``effects_pipeline.finish_mix``) or ``"fir"`` (``effects_fir``) for
-  linear chains, ``"generic"`` (``effects_generic``) for every other
-  chain or any effect-parameter lane, ``"routed"`` (``routing``) for
-  every session with buses in use; meters force the scan, routing the
-  routed finisher;
+  buffers, the MIDI tracks' synth added to their rows, and the finisher
+  that ``render/finisher.py::choose_finisher`` names, run over the whole
+  buffer: ``effects_mode="scan"`` (the biquad cascade kernel) or
+  ``"fir"`` for linear chains, ``"generic"`` for every other chain or
+  any effect-parameter lane, ``"routed"`` for every session with buses
+  in use; meters force the scan, routing the routed finisher;
 - the gather path (``engine="xla"``, and ``"auto"`` where the plan cannot
   hold the session: a slot overflow at the smallest tile, or per-track
   buffers above :func:`per_track_limit_bytes`; the JAX package's
   ``bounce.py:444-629``): carve with ``slow_emit="blocks"``, the chunked
   gather mix of ``ops/mix.py`` in ``chunk_frames`` chunks (on the card one
   launch of the gather kernel ``csrc/gather_mix.cu`` a chunk, or more with
-  the PDC fetch-ahead; ``stats.gather_chunks`` counts them), the synth
-  added chunk by chunk, with the finishers' streaming forms
-  (``finish_mix_chunk``, ``make_generic_chunk_fn``,
-  ``make_routed_chunk_fn``) carrying their states from chunk to chunk.
+  the PDC fetch-ahead; ``stats.gather_chunks`` counts the chunks), the synth
+  added chunk by chunk, the same finishers fed those chunks by
+  ``render/finisher.py::run`` (linear chains take the scan there, whatever
+  ``effects_mode`` names), their states carried from chunk to chunk.
   ``engine="xla"`` with ``interpolation="sinc"`` is the direct 32-tap
   windowed sinc. ``engine="pallas"`` raises on a slot overflow, as the
   JAX package does.
@@ -74,24 +73,14 @@ from whitebox_tpu_torch.ops.mix_cuda import CudaMixRenderer
 from whitebox_tpu_torch.ops.mix_plan import SlotOverflow, build_plan
 from whitebox_tpu_torch.ops.readback import to_host
 from whitebox_tpu_torch.ops.resample import design_sinc_bank
-from whitebox_tpu_torch.render.effects_fir import prepare_fir_finish
-from whitebox_tpu_torch.render.effects_generic import (
-    auto_chunk_frames, fx_latencies, init_generic_states, make_generic_chunk_fn,
-    make_generic_finisher, prepare_generic_fx, session_fx_packable, stage_latency_frames,
-)
 from whitebox_tpu_torch.render.effects_pipeline import (
-    _chains_of, finish_mix, finish_mix_chunk, init_effect_states, meters_from_partials,
-    prepare_automation_tables, prepare_automation_tables_host, prepare_effect_tables,
-    session_has_effects,
+    _chains_of, prepare_automation_tables_host, session_has_effects,
 )
+from whitebox_tpu_torch.render.finisher import choose_finisher, make_finisher, run
 from whitebox_tpu_torch.render.metrics import (
     DeviceTimer, RenderStats, collect_legs, current_stats, device_name, span,
 )
 from whitebox_tpu_torch.render.roofline import device_peaks, estimate_bounce_cost, prerender_cost
-from whitebox_tpu_torch.render.routing import (
-    init_routed_states, make_routed_chunk_fn, make_routed_finisher, prepare_routed_fx,
-    routed_auto_chunk_frames,
-)
 from whitebox_tpu_torch.session.bus import session_has_routing
 from whitebox_tpu_torch.session.session import Session
 from whitebox_tpu_torch.timeline.carve import carve_session
@@ -135,6 +124,8 @@ def _prepare_synth_tables(session, sample_rate, buffer_size, num_blocks, device)
     ``device``: {"rows": their track indices, "tables": [R, slots, S]
     tensors} (empty without a sounding MIDI track;
     ``whitebox_tpu/render/bounce.py:32-45``)."""
+    if not session_has_midi(session):
+        return {}
     rows, host = [], []
     for t, evs in carve_midi_events(session, sample_rate, buffer_size, num_blocks).items():
         ns, segs = build_slot_segments(evs)
@@ -166,61 +157,6 @@ def _add_synth(per_track, synth: dict, chunk_start: int, frames: int):
         sy = render_synth_chunk(synth["tables"], chunk_start, frames)  # [R, frames]
         idx = torch.as_tensor(synth["rows"], device=per_track.device)
         return per_track.index_add(0, idx, sy[:, None, :].expand(-1, per_track.shape[1], -1))
-
-
-def window_finisher(session, sample_rate, buffer_size, channels, T, F, window_frames, dev, chunk=None):
-    """The finisher of one window's per-track buffers ``[T, C, window]`` ->
-    ``step(pt, start, track_gain) -> [C, window]``, for the renders that
-    pull a timeline window by window (``render/preview.py``,
-    ``render/stream_pool.py``): the MIDI synth added, then the routed, the
-    packable (the cascade kernel on the card) or the generic step, its
-    states carried from window to window
-    (``whitebox_tpu/render/stream_pool.py:196-245,268-299``). The routed
-    and generic steps run ``chunk`` frames at a time (default: their
-    ``*_auto_chunk_frames`` choice, capped at the window), which must
-    divide ``window_frames``."""
-    routed = session_has_routing(session)
-    auto = prepare_automation_tables(session, sample_rate, device=dev)
-    synth = (_prepare_synth_tables(session, sample_rate, buffer_size, max(F // buffer_size, 1), dev)
-             if session_has_midi(session) else {})
-    if routed:
-        rfx = prepare_routed_fx(session, sample_rate, channels, device=dev)
-        wchunk = chunk or min(routed_auto_chunk_frames(rfx, window_frames, device=dev), window_frames)
-        rstep = make_routed_chunk_fn(rfx, T, channels, chunk=wchunk, device=dev)
-        states = [init_routed_states(rfx, channels, dev)]
-
-        def finish(pt, w0, tg):
-            pieces = []
-            for off in range(0, window_frames, wchunk):
-                piece, states[0] = rstep(pt[:, :, off:off + wchunk], states[0], w0 + off, tg, auto)
-                pieces.append(piece)
-            return torch.cat(pieces, dim=-1)
-    elif session_fx_packable(session):
-        (S, coeffs), (Sm, mcoeffs) = prepare_effect_tables(session, sample_rate, channels, device=dev)
-        states = list(init_effect_states(T, channels, S, Sm, dev))
-        wchunk = window_frames
-
-        def finish(pt, w0, tg):
-            total, states[0], states[1] = finish_mix_chunk(pt, coeffs, mcoeffs, tg, *states, w0, auto,
-                                                           T=T, C=channels, S=S, Sm=Sm)
-            return total
-    else:
-        gfx = prepare_generic_fx(session, sample_rate, channels)
-        wchunk = chunk or min(auto_chunk_frames(gfx, window_frames, device=dev), window_frames)
-        gstep = make_generic_chunk_fn(gfx, T, channels, chunk=wchunk, device=dev)
-        states = list(init_generic_states(gfx, channels, dev))
-
-        def finish(pt, w0, tg):
-            pieces = []
-            for off in range(0, window_frames, wchunk):
-                piece, states[0], states[1] = gstep(pt[:, :, off:off + wchunk], *states, w0 + off, tg, auto)
-                pieces.append(piece)
-            return torch.cat(pieces, dim=-1)
-    if window_frames % wchunk:
-        raise ValueError(f"window_frames {window_frames} must be a multiple of the finisher's "
-                         f"chunk ({wchunk})")
-
-    return lambda pt, w0, tg: finish(_add_synth(pt, synth, w0, window_frames), w0, tg)
 
 
 def write_audio(out_path, out: np.ndarray, sample_rate: int, out_format: AudioFormat,
@@ -291,44 +227,24 @@ class BounceResult:
         return self.audio.shape[1]
 
 
-def _effects_finisher(session, renderer, plan, sample_rate, channels, effects_mode, meters, dev,
-                      pdc=False, routed_chunk=None, buffer_size=512):
-    """Host preparation of the finisher -> ``finish(per_track)``: the chain
-    tables (scan), impulse responses (fir), grouped stages (generic: any
-    chain the linear finishers cannot take, or any effect lane) or grouped
-    stages and routing matrices (routed), the lane tables and the MIDI
-    tracks' synth tables, on ``dev``. ``finish`` adds the synth to a copy
-    of ``per_track`` first (``whitebox_tpu/render/bounce.py:344-405``). The
-    finisher's name goes to the collecting bounce's ``RenderStats.finisher``."""
-    auto = prepare_automation_tables(session, sample_rate, device=dev)
-    tg = renderer.tables["track_gain"]
-    T = plan.num_tracks
-    name = ("routed" if effects_mode == "routed" else
-            "generic" if effects_mode == "generic" or not session_fx_packable(session) else
-            "fir" if effects_mode == "fir" else "scan")
+def _effects_finisher(session, renderer, plan, sample_rate, effects_mode, meters, dev, pdc=False,
+                      routed_chunk=None, buffer_size=512):
+    """Host preparation of the kernel path's finisher -> ``finish(per_track)
+    -> finisher.Run``: the family that :func:`choose_finisher` names, built
+    on ``dev`` (``routed_chunk`` frames a routed chunk), and the MIDI
+    tracks' synth tables. ``finish`` adds the synth to a copy of
+    ``per_track`` (``whitebox_tpu/render/bounce.py:344-405``), then runs
+    the finisher over it, the meters over the plan's frames. The family's
+    name goes to the collecting bounce's ``RenderStats.finisher``."""
+    name = choose_finisher(session, effects_mode, meters)
     stats = current_stats()
     if stats is not None:
         stats.finisher = name
-    if name == "routed":
-        rfx = prepare_routed_fx(session, sample_rate, channels, device=dev)
-        rfinish = make_routed_finisher(rfx, T, channels, chunk=routed_chunk, with_meters=meters,
-                                       valid_frames=plan.total_frames, pdc=pdc, device=dev)
-        finish = lambda pt: rfinish(pt, tg, auto)  # noqa: E731
-    elif name == "generic":
-        fx = prepare_generic_fx(session, sample_rate, channels)
-        gfinish = make_generic_finisher(fx, T, channels, with_meters=meters,
-                                        valid_frames=plan.total_frames, pdc=pdc, device=dev)
-        finish = lambda pt: gfinish(pt, tg, auto)  # noqa: E731
-    elif name == "fir":
-        finish = prepare_fir_finish(session, sample_rate, tg, auto, channels, device=dev)
-    else:
-        (S, coeffs), (Sm, mcoeffs) = prepare_effect_tables(session, sample_rate, channels, device=dev)
-        finish = lambda pt: finish_mix(pt, coeffs, mcoeffs, tg, auto, T=T, C=channels,  # noqa: E731
-                                       S=S, Sm=Sm, with_meters=meters, valid_frames=plan.total_frames)
-    if not session_has_midi(session):
-        return finish
+    fin = make_finisher(name, session, sample_rate, renderer.tables["track_gain"], meters=meters, pdc=pdc,
+                        chunk=routed_chunk if name == "routed" else None, device=dev)
     synth = _prepare_synth_tables(session, sample_rate, buffer_size, plan.total_frames // buffer_size, dev)
-    return lambda pt: finish(_add_synth(pt, synth, 0, pt.shape[-1]))
+    return lambda pt: run(fin, _add_synth(pt, synth, 0, pt.shape[-1]), pt.shape[-1],
+                          valid_frames=plan.total_frames)
 
 
 def _read_meters(stats, meters, T: int) -> None:
@@ -356,9 +272,8 @@ def _render_kernel(session, table, pool, plan, interp, pre_pool_dev, sample_rate
         renderer = CudaMixRenderer(table, pool, session, device=dev, channels=channels, plan=plan,
                                    interp=interp, pool_device=pre_pool_dev)
         with span("wb.fx.prepare"):
-            finish = _effects_finisher(session, renderer, plan, sample_rate, channels, effects_mode,
-                                       meters, dev, pdc=pdc, routed_chunk=routed_chunk,
-                                       buffer_size=buffer_size)
+            finish = _effects_finisher(session, renderer, plan, sample_rate, effects_mode, meters, dev, pdc=pdc,
+                                       routed_chunk=routed_chunk, buffer_size=buffer_size)
     else:
         # automation-only sessions evaluate the volume/pan lanes in the kernel
         # (the JAX package's fused single pass, bounce.py:316-333)
@@ -376,14 +291,14 @@ def _render_kernel(session, table, pool, plan, interp, pre_pool_dev, sample_rate
             pt = renderer.render_device_per_track()
             with span("wb.finish"), DeviceTimer(dev) as ftimer:
                 res = finish(pt)
-            out_dev = res[0] if meters else res
+            out_dev = res.out
     stats.device_seconds = timer.seconds
     if finish is not None:
         stats.finish_seconds = ftimer.seconds
     with span("wb.readback") as readback:
         out = to_host(out_dev[:, : plan.total_frames])
         if meters:
-            _read_meters(stats, res[1], len(session.tracks))
+            _read_meters(stats, res.meters, len(session.tracks))
     stats.readback_seconds = readback.seconds
     return out
 
@@ -413,103 +328,77 @@ def _render_gather(session, table, pool, sample_rate, channels, buffer_size, num
     chunk = min(chunk_frames, max(F, 1))
 
     with span("wb.fx.prepare"):
-        synth = (_prepare_synth_tables(session, sample_rate, buffer_size, F // buffer_size, dev)
-                 if has_midi else {})
+        synth = _prepare_synth_tables(session, sample_rate, buffer_size, F // buffer_size, dev)
+        subsets: dict = {}
 
-        def per_track(start, tab=jt, synth=synth):
-            pt = render_chunk_per_track(pool_dev, tab, start, chunk, sinc_bank=sinc_bank, interp=interp)
-            return _add_synth(pt, synth, start, chunk)
+        def per_track(start, n, rows=None):
+            """``n`` frames of the per-track mix from ``start`` (of ``rows``
+            alone, with their rows of the tables and the synth: the PDC
+            fetch-ahead), the synth added."""
+            tab, syn = jt, synth
+            if rows is not None:
+                if tuple(rows) not in subsets:
+                    idx = torch.as_tensor(rows, device=dev)
+                    subsets[tuple(rows)] = ({k: v[idx] for k, v in jt.items()}, _synth_subset(synth, rows))
+                tab, syn = subsets[tuple(rows)]
+            pt = render_chunk_per_track(pool_dev, tab, start, n, sinc_bank=sinc_bank, interp=interp)
+            return _add_synth(pt, syn, start, n)
 
-        ahead = []  # PDC fetch-ahead: the rows of latent chains, rendered lat frames ahead
-
-        def fetch_ahead(fx):
-            """The rows of ``fx``'s latent track chains by latency -> ``ahead``
-            (each with its row subset of the tables and of the synth's); the
-            master latency."""
-            glat, mlat = fx_latencies(fx)
-            by_lat: dict = {}
-            for g, lat in zip(fx.groups, glat):
-                if lat > 0:
-                    by_lat.setdefault(lat, []).extend(np.asarray(g.track_idx).tolist())
-            for lat, rows in by_lat.items():
-                rows = sorted(rows)
-                idx = torch.as_tensor(rows, device=dev)
-                ahead.append((lat, idx, {k: v[idx] for k, v in jt.items()}, _synth_subset(synth, rows)))
-            return mlat
-
-        def per_track_ahead(start):
-            pt = per_track(start)
-            for lat, idx, sub, sub_synth in ahead:
-                pt[idx] = per_track(start + lat, sub, sub_synth)
-            return pt
-
-        fx_chunk = None
-        mlat = 0
+        fin = None
         if session_has_effects(session) or session_has_automation(session) or meters or has_midi or has_routing:
-            auto = prepare_automation_tables(session, sample_rate, device=dev)
-            tg = jt["track_gain"]
-            if has_routing:
-                stats.finisher = "routed"
-                rfx = prepare_routed_fx(session, sample_rate, channels, device=dev)
-                if pdc:
-                    if any(stage_latency_frames(g.stages) > 0 for g in rfx.bus_groups):
-                        raise ValueError("the streaming (gather) path does not carry bus-chain latency delay "
-                                         "lines; render with engine='auto'/'pallas' (the routed finisher "
-                                         "compensates bus latency), or move lookahead limiters to tracks or "
-                                         "the master")
-                    mlat = fetch_ahead(rfx.fx)
-                chunk = routed_auto_chunk_frames(rfx, chunk, device=dev)
-                rstep = make_routed_chunk_fn(rfx, T, channels, chunk=chunk, with_meters=meters, device=dev)
-                states = init_routed_states(rfx, channels, dev)
-
-                def fx_chunk(start, states):
-                    res = rstep(per_track_ahead(start), states, start, tg, auto)
-                    return res[0], res[1], res[2] if meters else None
-            elif not session_fx_packable(session):
-                stats.finisher = "generic"
-                gfx = prepare_generic_fx(session, sample_rate, channels)
-                if pdc:
-                    mlat = fetch_ahead(gfx)
-                chunk = auto_chunk_frames(gfx, chunk, device=dev)
-                gstep = make_generic_chunk_fn(gfx, T, channels, chunk=chunk, with_meters=meters, device=dev)
-                states = init_generic_states(gfx, channels, dev)
-
-                def fx_chunk(start, states):
-                    res = gstep(per_track_ahead(start), *states, start, tg, auto)
-                    return res[0], res[1:3], res[3] if meters else None
-            else:
-                stats.finisher = "scan"
-                (S, coeffs), (Sm, mcoeffs) = prepare_effect_tables(session, sample_rate, channels, device=dev)
-                states = init_effect_states(T, channels, S, Sm, dev)
-
-                def fx_chunk(start, states):
-                    res = finish_mix_chunk(per_track(start), coeffs, mcoeffs, tg, *states, start, auto,
-                                           T=T, C=channels, S=S, Sm=Sm, with_meters=meters)
-                    return res[0], res[1:3], res[3] if meters else None
+            # the finishers' streaming forms: linear chains take the scan,
+            # whatever effects_mode names for a whole buffer
+            stats.finisher = choose_finisher(session, "scan", meters)
+            fin = make_finisher(stats.finisher, session, sample_rate, jt["track_gain"], meters=meters, pdc=pdc,
+                                max_chunk=chunk, device=dev)
+            if getattr(fin, "bus_pdc", None) is not None:
+                raise ValueError("the streaming (gather) path does not carry bus-chain latency delay "
+                                 "lines; render with engine='auto'/'pallas' (the routed finisher "
+                                 "compensates bus latency), or move lookahead limiters to tracks or "
+                                 "the master")
     stats.carve_seconds = call.elapsed()
     _load_kernels(dev, stats)  # the cascade kernel of the linear finisher
 
-    outs, parts = [], []
-    starts = range(0, F + mlat, chunk)  # master latency: render further, trim the head
-    stats.gather_chunks = len(starts)
     with span("wb.mix"), DeviceTimer(dev) as timer:
-        for start in starts:
-            if fx_chunk is None:
-                outs.append(render_chunk(pool_dev, jt, start, chunk, strict_order=strict_order,
-                                         sinc_bank=sinc_bank, interp=interp))
-            else:
-                total, states, m = fx_chunk(start, states)
-                outs.append(total)
-                parts.append(m)
-        out_dev = torch.cat(outs, dim=1)[:, mlat:mlat + F]
+        if fin is None:
+            starts = range(0, F, chunk)
+            stats.gather_chunks = len(starts)
+            out_dev = torch.cat([render_chunk(pool_dev, jt, a, chunk, strict_order=strict_order, sinc_bank=sinc_bank,
+                                              interp=interp) for a in starts], dim=1)[:, :F]
+        else:
+            # master latency: the finisher renders further and trims the head
+            res = run(fin, per_track, F)
+            stats.gather_chunks = res.chunks
+            out_dev = res.out
     stats.device_seconds = timer.seconds
     with span("wb.readback") as readback:
-        out = out_dev.cpu().numpy()
+        out = to_host(out_dev)
         if meters:
             # the ragged last chunk renders at full length; its extra frames count
-            _read_meters(stats, meters_from_partials(parts, F), len(session.tracks))
+            _read_meters(stats, res.meters, len(session.tracks))
     stats.readback_seconds = readback.seconds
     return out
+
+
+def kernel_plan(table, pool, session, channels: int, interp, engine: str, dev, per_track: bool):
+    """The slot plan of the kernel path, or None for the gather path:
+    ``engine="xla"``, a slot overflow at the smallest tile (which
+    ``engine="pallas"`` raises), or, with ``per_track``, per-track buffers
+    above :func:`per_track_limit_bytes`."""
+    if engine == "xla":
+        return None
+    try:
+        # oversampled rows advance U times faster -> shorter sub-slots ->
+        # more slots per (tile, track); allow more
+        plan = build_plan(table, pool, session, channels=channels, max_slots=16 if isinstance(interp, tuple) else 8)
+    except SlotOverflow as e:
+        if engine == "pallas":
+            raise SlotOverflow(f"{e} even at the smallest tile; engine='pallas' has no gather "
+                               "fallback (engine='auto' takes it)") from e
+        return None
+    if per_track and plan.num_tracks * channels * plan.n_tiles * plan.tile * 4 > per_track_limit_bytes(dev):
+        return None  # per-track buffers would not fit: the chunked gather path
+    return plan
 
 
 def bounce(
@@ -576,13 +465,7 @@ def bounce(
     """
     dev = resolve_device(device)
     _check_supported(session, engine, interpolation, effects_mode)
-    if meters:
-        effects_mode = "scan"  # the spectral FIR sum never holds per-track audio
     has_midi, has_routing = session_has_midi(session), session_has_routing(session)
-    if has_routing:
-        # buses, groups and sends replace the flat ordered track sum: the
-        # routed finisher hosts every chain (render/routing.py)
-        effects_mode = "routed"
     if num_blocks is None and tail_seconds > 0.0:
         tr_ = BlockTransport(float(sample_rate), int(buffer_size), session.beat_duration,
                              session.playhead_start, tempo_map=getattr(session, "tempo_map", None))
@@ -626,20 +509,7 @@ def bounce(
             # effect lanes ride the finisher of the chains they automate (the JAX
             # package's rule: a lane on a slot no chain fills renders nothing)
             has_fx = session_has_effects(session) or meters or has_midi or has_routing
-            plan = None
-            if engine != "xla" and sinc_bank is None:
-                try:
-                    # oversampled rows advance U times faster -> shorter sub-slots ->
-                    # more slots per (tile, track); allow more
-                    plan = build_plan(table, pool, session, channels=channels,
-                                      max_slots=16 if isinstance(interp, tuple) else 8)
-                except SlotOverflow as e:
-                    if engine == "pallas":
-                        raise SlotOverflow(f"{e} even at the smallest tile; engine='pallas' has no gather "
-                                           "fallback (engine='auto' takes it)") from e
-                if plan is not None and has_fx and (
-                        plan.num_tracks * channels * plan.n_tiles * plan.tile * 4 > per_track_limit_bytes(dev)):
-                    plan = None  # per-track buffers would not fit: the chunked gather path
+            plan = kernel_plan(table, pool, session, channels, interp, engine, dev, per_track=has_fx)
         if plan is not None:
             stats.mix_path = "kernel"
             out = _render_kernel(session, table, pool, plan, interp, pre_pool_dev, sample_rate, channels,

@@ -22,7 +22,8 @@ import torch
 
 from whitebox_tpu_torch.effects import Biquad, EffectChain, Gain, ParametricEQ
 from whitebox_tpu_torch.ops.biquad import biquad_sequential
-from whitebox_tpu_torch.render.effects_pipeline import _chains_of, _frame_gains, _ordered_sum
+from whitebox_tpu_torch.ops.mix import _clip, _ordered_sum
+from whitebox_tpu_torch.render.effects_pipeline import _chains_of, _frame_gains, prepare_automation_tables
 
 
 def _biquad_impulse(c, length: int) -> np.ndarray:
@@ -225,8 +226,7 @@ def finish_mix_fir_spectral(per_track, h_rows, *, T, C, B, G):
         Ys = _ordered_sum(Yf.reshape(T, C, G, -1))  # [C, G, K], the spectral track sum
         ys.append(torch.fft.irfft(Ys, n=B, dim=-1)[:, :, Lh - 1:])  # [C, G, H]
     total = torch.cat(ys, dim=1).reshape(C, n_groups * G * H)[:, :F]
-    total = torch.where(total > 1.0, 1.0, total)
-    return torch.where(total < -1.0, -1.0, total)
+    return _clip(total)
 
 
 def finish_mix_fir(per_track, h_rows, master_h, track_gain, auto=None, *, T, C, B, Bm):
@@ -238,8 +238,7 @@ def finish_mix_fir(per_track, h_rows, master_h, track_gain, auto=None, *, T, C, 
     total = _ordered_sum(y * _frame_gains(auto, track_gain, g, T, C))
     if master_h is not None:
         total = _overlap_save(total, torch.broadcast_to(master_h, (C, master_h.shape[-1])), Bm)
-    total = torch.where(total > 1.0, 1.0, total)
-    return torch.where(total < -1.0, -1.0, total)
+    return _clip(total)
 
 
 def prepare_fir_finish(session, sample_rate: float, track_gain, auto, channels: int = 2, device="cpu"):
@@ -270,3 +269,28 @@ def prepare_fir_finish(session, sample_rate: float, track_gain, auto, channels: 
     hj = torch.from_numpy(h_rows).to(device)
     return lambda per_track: finish_mix_fir(per_track, hj, mh, track_gain, auto, T=T, C=channels,
                                             B=B, Bm=Bm)
+
+
+class FirFinisher:
+    """The FIR family (``render/finisher.py`` sets out the shape): a whole
+    buffer in one step (``chunk`` None) through :func:`prepare_fir_finish`;
+    the mix form only, without meters (the spectral sum never holds
+    per-track audio) and without PDC (its chains have no latency)."""
+
+    chunk = None
+    fixed = False
+    trim = 0
+    ahead = ()
+
+    def __init__(self, session, sample_rate: float, track_gain, *, form="mix", meters=False, pdc=False,
+                 chunk=None, max_chunk=None, device="cpu"):
+        if form != "mix" or meters:
+            raise ValueError("the FIR finisher renders the mix of a whole buffer, without meters")
+        auto = prepare_automation_tables(session, sample_rate, device=device)
+        self._finish = prepare_fir_finish(session, sample_rate, track_gain, auto, track_gain.shape[1], device=device)
+
+    def init(self):
+        return ()
+
+    def step(self, x, states, start: int, valid=None):
+        return self._finish(x), states, None

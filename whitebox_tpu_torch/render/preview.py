@@ -16,8 +16,8 @@ Track::refresh_voice / internal_state_changed, track.cpp:289-345).
 A window renders through the gather mix (``ops/mix.py``), as in the JAX
 package: ``render_chunk`` for a session without effects, or
 ``render_chunk_per_track`` and the finisher whose state carries from pull
-to pull (``render/bounce.py::window_finisher``, shared with the streamed
-bounce: the linear finisher's biquad cascade runs the hand CUDA kernel
+to pull (``render/finisher.py``, a window a step, as the streamed bounce
+runs it: the scan's biquad cascade runs the hand CUDA kernel
 ``csrc/biquad_cascade.cu`` on the card; the generic and routed steps for
 every other chain). The slot-plan mix kernel does not run here; on the
 card each window is one launch of the gather kernel (``csrc/gather_mix.cu``).
@@ -34,8 +34,9 @@ from whitebox_tpu_torch.core.math import beat_to_samples
 from whitebox_tpu_torch.device import resolve_device
 from whitebox_tpu_torch.ops.automation import session_has_automation
 from whitebox_tpu_torch.ops.mix import pack_device_tables, render_chunk, render_chunk_per_track
-from whitebox_tpu_torch.render.bounce import session_has_midi, window_finisher
+from whitebox_tpu_torch.render.bounce import _add_synth, _prepare_synth_tables, session_has_midi
 from whitebox_tpu_torch.render.effects_pipeline import session_has_effects
+from whitebox_tpu_torch.render.finisher import choose_finisher, make_finisher, run
 from whitebox_tpu_torch.session.bus import session_has_routing
 from whitebox_tpu_torch.session.session import Session
 from whitebox_tpu_torch.timeline.carve import carve_session
@@ -93,11 +94,15 @@ class PreviewStream:
 
         has_fx = (session_has_effects(session) or session_has_automation(session)
                   or session_has_midi(session) or session_has_routing(session))
-        # the JAX package's preview steps the generic and routed chains a
-        # whole window at a time (chunk = lookahead)
-        self._finish = (window_finisher(session, sample_rate, self.buffer_size, channels, tables.num_tracks,
-                                        self._total, self.lookahead, dev, chunk=self.lookahead)
-                        if has_fx else None)
+        # the JAX package's preview steps every finisher a whole window at a
+        # time (chunk = lookahead); the states carry from pull to pull
+        self._fin = self._states = None
+        if has_fx:
+            self._fin = make_finisher(choose_finisher(session), session, sample_rate, self._tables["track_gain"],
+                                      chunk=self.lookahead, device=dev)
+            self._states = self._fin.init()
+            self._synth = _prepare_synth_tables(session, sample_rate, self.buffer_size,
+                                                max(self._total // self.buffer_size, 1), dev)
 
         self._window: np.ndarray | None = None
         self._win_start = 0
@@ -112,11 +117,14 @@ class PreviewStream:
         measurement (the JAX package's benchmark config 8) uses to time
         the per-block device cost without the host readback leg."""
         frames = self.lookahead
-        if self._finish is None:
+        if self._fin is None:
             return render_chunk(self._pool, self._tables, start, frames, strict_order=True,
                                 interp=self._interp)
-        pt = render_chunk_per_track(self._pool, self._tables, start, frames, interp=self._interp)
-        return self._finish(pt, start, self._tables["track_gain"])
+        pt = _add_synth(render_chunk_per_track(self._pool, self._tables, start, frames, interp=self._interp),
+                        self._synth, start, frames)
+        res = run(self._fin, pt, frames, start=start, states=self._states)
+        self._states = res.states
+        return res.out
 
     def _fetch_window(self, start: int) -> None:
         self._window = self.fetch_window_device(start).cpu().numpy()

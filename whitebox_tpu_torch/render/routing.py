@@ -21,11 +21,12 @@ bit-parity ordered track sum for them. Routed sessions trade it for the
 routing product (f32, deterministic) and are held to the f64 host
 oracle :func:`reference_routed_finish`, the JAX package's, copied.
 
-The JAX package scans chunks inside one jitted ``lax.scan``; here a
-Python loop carries the states from chunk to chunk, as in
-``make_generic_finisher``. Each routing product runs inside a
-``torch.profiler`` range ``wb.route.matmul`` and each bus stage inside
-``wb.bus.<kind>``, beside the track and master stages' ``wb.<scope>.<kind>``.
+The JAX package scans chunks inside one jitted ``lax.scan``; here
+:class:`RoutedFinisher` is one chunk step, which ``render/finisher.py::
+run`` feeds, the states carried from chunk to chunk. Each routing product
+runs inside a ``torch.profiler`` range ``wb.route.matmul`` and each bus
+stage inside ``wb.bus.<kind>``, beside the track and master stages'
+``wb.<scope>.<kind>``.
 """
 
 from __future__ import annotations
@@ -39,25 +40,22 @@ from whitebox_tpu_torch.effects.base import EffectChain
 from whitebox_tpu_torch.ops.automation import (
     eval_lane_numpy, lane_frame_table, pack_session_automation, session_has_automation,
 )
+from whitebox_tpu_torch.ops.mix import _ordered_sum
 from whitebox_tpu_torch.ops.resample import full_f32_matmul
 from whitebox_tpu_torch.render.effects_generic import (
-    PARAM_BLOCK_MIN, GenericFX, _apply_group, _apply_groups, _chain_stages, _chunk_input, _group_rows, _group_stages,
+    PARAM_BLOCK_MIN, GenericFX, _apply_group, _apply_groups, _chain_stages, _group_rows, _group_stages,
     _Group, _slot_auto_names, _stage_sig_entry, _with_ir_ffts, auto_chunk_frames, device_params,
-    fx_latencies, init_generic_states, prepare_generic_fx, reference_run_chain, stage_latency_frames,
+    fetch_ahead, init_generic_states, master_step, prepare_generic_fx, reference_run_chain,
+    stage_latency_frames,
 )
-from whitebox_tpu_torch.render.effects_pipeline import (
-    _chains_of, _frame_gains, _ordered_sum, meters_from_partials,
-)
-from whitebox_tpu_torch.render.metrics import count, span
+from whitebox_tpu_torch.render.effects_pipeline import _chains_of, _frame_gains, mix_tail, prepare_automation_tables
+from whitebox_tpu_torch.render.metrics import span
 from whitebox_tpu_torch.session.bus import build_routing_matrices, session_has_routing
 
 __all__ = [
     "RoutedFX",
+    "RoutedFinisher",
     "prepare_routed_fx",
-    "make_routed_finisher",
-    "make_routed_chunk_fn",
-    "make_routed_stems_finisher",
-    "init_routed_states",
     "reference_routed_finish",
     "routed_auto_chunk_frames",
     "session_has_routing",
@@ -206,13 +204,6 @@ def routed_device_params(rfx: RoutedFX, device="cpu"):
     return gp, bp, mp, routing
 
 
-def init_routed_states(rfx: RoutedFX, C: int, device="cpu"):
-    """(track group states, bus group states, master states), zero."""
-    g_states, m_states = init_generic_states(rfx.fx, C, device)
-    b_states, _ = init_generic_states(_bus_fx(rfx), C, device)
-    return g_states, b_states, m_states
-
-
 def _with_ir_ffts_routed(rfx: RoutedFX, gparams, bparams, mparams, chunk: int):
     gp, mp = _with_ir_ffts(rfx.fx, gparams, mparams, chunk)
     bp, _ = _with_ir_ffts(_bus_fx(rfx), bparams, [], chunk)
@@ -226,220 +217,133 @@ def _route(r: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.matmul(r, x.reshape(T, C * F)).reshape(r.shape[0], C, F)
 
 
-class _Program:
-    """What every chunk step of one routed program reads: the prepared fx,
-    the group rows, the parameters (IR spectra at the chunk's FFT size)
-    and the routing matrices, on one device. With sidechain sends the key
-    matrices ride under the audio ones (``[r_post; k_post]`` and
-    ``[r_pre; k_pre]``), so each chunk is read by two products, not four."""
+class RoutedFinisher:
+    """The routed family (``render/finisher.py`` sets out the shape): track
+    chains -> gains -> routing products -> bus chains -> bus gains, then
+    ``effects_pipeline.mix_tail`` over the master-direct sum plus the
+    buses; the stems form stops before that sum and returns ``(direct [C,
+    n], bus_out [B, C, n])``, the pre-master components (direct + the sum
+    of bus_out, then the master chain, is the mix). Chunks are fixed:
+    ``chunk``, else :func:`routed_auto_chunk_frames` up to ``max_chunk``.
+    With sidechain sends the key matrices ride under the audio ones
+    (``[r_post; k_post]`` and ``[r_pre; k_pre]``), so each chunk is read by
+    two products, not four.
 
-    def __init__(self, rfx: RoutedFX, chunk: int, device):
-        gp, bp, mp, routing = routed_device_params(rfx, device)
-        self.params = _with_ir_ffts_routed(rfx, gp, bp, mp, chunk)
+    ``pdc=True``: track-chain latency is compensated by fetch-ahead;
+    bus-chain latency by delaying every master input to the largest bus
+    latency (bus inputs are made within the step, so fetch-ahead cannot
+    apply; delay-to-align and a head trim is exact instead), ``bus_pdc``;
+    master latency by rendering further and trimming the head."""
+
+    fixed = True
+
+    def __init__(self, session, sample_rate: float, track_gain, *, form="mix", meters=False, pdc=False,
+                 chunk=None, max_chunk=None, device="cpu"):
+        self.device = torch.device(device)
+        self.track_gain, self.form, self.meters = track_gain, form, meters
+        self.rfx = rfx = prepare_routed_fx(session, sample_rate, track_gain.shape[1], device=self.device)
+        self.auto = prepare_automation_tables(session, sample_rate, device=self.device)
+        self.chunk = chunk or routed_auto_chunk_frames(rfx, max_chunk, device=self.device)
+        self.ahead, mlat = fetch_ahead(rfx.fx) if pdc else ((), 0)
+        B = rfx.num_buses
+        blat = np.zeros(B, np.int64)
+        if pdc:
+            for g in rfx.bus_groups:
+                blat[np.asarray(g.track_idx)] = stage_latency_frames(g.stages)
+        BL = int(blat.max()) if (pdc and B) else 0
+        #: (largest bus latency, each bus's delay to it), or None
+        self.bus_pdc = (BL, tuple(int(BL - blat[b]) for b in range(B))) if BL > 0 else None
+        self.trim = mlat + BL
+        gp, bp, mp, routing = routed_device_params(rfx, self.device)
+        self.params = _with_ir_ffts_routed(rfx, gp, bp, mp, self.chunk)
         r_post, r_pre, self.bus_gain, k_post, k_pre = routing
         if rfx.has_key:
             r_post, r_pre = torch.cat([r_post, k_post]), torch.cat([r_pre, k_pre])
         self.post, self.pre = r_post, r_pre
-        self.rfx = rfx
-        self.rows = _group_rows(rfx.fx, device)
-        self.brows = [torch.as_tensor(g.track_idx, device=device) for g in rfx.bus_groups]
+        self.rows = _group_rows(rfx.fx, self.device)
+        self.brows = [torch.as_tensor(g.track_idx, device=self.device) for g in rfx.bus_groups]
 
+    def init(self):
+        """(track group states, bus group states (with the bus PDC delay
+        lines' carries), master states), zero."""
+        C, dev = self.track_gain.shape[1], self.device
+        g_states, m_states = init_generic_states(self.rfx.fx, C, dev)
+        b_states, _ = init_generic_states(_bus_fx(self.rfx), C, dev)
+        if self.bus_pdc is not None:
+            BL, dbs = self.bus_pdc
+            d0 = {"direct": torch.zeros((C, BL), dtype=torch.float32, device=dev)}
+            for b, d in enumerate(dbs):
+                if d > 0:
+                    d0[f"bus{b}"] = torch.zeros((C, d), dtype=torch.float32, device=dev)
+            b_states = (b_states, d0)
+        return g_states, b_states, m_states
 
-def _routed_chunk_step(prog: _Program, xc, states, start: int, track_gain, auto, T: int, C: int,
-                       with_meters: bool, Fv, emit_parts: bool = False, bus_pdc=None):
-    """One ``[T, C, chunk]`` slice (read, not written): track chains ->
-    gains -> routing products -> bus chains -> bus gains -> master chain ->
-    clip. -> (total, new_states, meter partials or None); with
-    ``emit_parts`` (direct, bus_out) instead of the total."""
-    count("finish_chunks")
-    rfx = prog.rfx
-    fx = rfx.fx
-    sample_rate = fx.sample_rate
-    chunk = xc.shape[-1]
-    g_states, b_states, m_states = states
-    dstates = None
-    if bus_pdc is not None:  # the delay-line carries ride with the bus states
-        b_states, dstates = b_states
-    gparams, bparams, mparams = prog.params
+    def step(self, x, states, start: int, valid=None):
+        rfx = self.rfx
+        fx = rfx.fx
+        sample_rate = fx.sample_rate
+        T, C, chunk = x.shape
+        g_states, b_states, m_states = states
+        dstates = None
+        if self.bus_pdc is not None:  # the delay-line carries ride with the bus states
+            b_states, dstates = b_states
+        gparams, bparams, mparams = self.params
 
-    xc, new_g = _apply_groups(fx, prog.rows, xc, g_states, gparams, start)
-    gidx = start + torch.arange(chunk, dtype=torch.int32, device=xc.device)
-    with span("wb.gains"):
-        y = xc * _frame_gains(auto, track_gain, gidx, T, C)  # post-fader; xc is the pre-fader tap
-    B = rfx.num_buses
-    key_in = None
-    with span("wb.route.matmul"), full_f32_matmul():
-        routed = _route(prog.post, y)  # [1 + B (+ B keys), C, chunk]
-        direct = routed[0]
-        if B:
-            pre = _route(prog.pre, xc)  # [B (+ B keys), C, chunk]
-            bus_in = routed[1:1 + B] + pre[:B]
-            if rfx.has_key:  # the buses' sidechain key inputs [B, C, chunk]
-                key_in = routed[1 + B:] + pre[B:]
-    if not B:
-        new_b = b_states
-        total = direct
-        if emit_parts:
-            return (direct, direct.new_zeros((0, C, chunk))), (new_g, new_b, m_states), None
-    else:
-        new_b = []
-        for g, r, pl, sts in zip(rfx.bus_groups, prog.brows, bparams, b_states):
-            yb, ns = _apply_group(g, pl, bus_in[r], sts, start, sample_rate,
-                                  key=None if key_in is None else key_in[r], scope="bus")
-            bus_in.index_copy_(0, r, yb)
-            new_b.append(ns)
-        with span("wb.bus.fader"):
-            # the bus faders per frame: lanes where a bus has them, its
-            # constant gain elsewhere
-            bus_out = bus_in * _frame_gains(rfx.bus_auto, prog.bus_gain, gidx, B, C)
-        if emit_parts:  # bus-stem export: the pre-master components
-            return (direct, bus_out), (new_g, new_b, m_states), None
-        if bus_pdc is not None:
-            # bus-chain latency compensation: every master input is delayed
-            # to the largest bus latency BL (direct by BL, bus b by
-            # BL - lat_b) so all paths align; the finisher trims BL off the
-            # head. Each delay line is concat(carry, x) and keep-the-tail.
-            BL, dbs = bus_pdc
-            new_d = dict(dstates)
-            if BL > 0:
-                seq = torch.cat([dstates["direct"], direct], dim=-1)
-                direct, new_d["direct"] = seq[:, :chunk], seq[:, chunk:]
-            rows = []
-            for b in range(B):
-                row = bus_out[b]
-                if dbs[b] > 0:
-                    seq = torch.cat([dstates[f"bus{b}"], row], dim=-1)
-                    row, new_d[f"bus{b}"] = seq[:, :chunk], seq[:, chunk:]
-                rows.append(row)
-            bus_out = torch.stack(rows)
-            new_b = (new_b, new_d)
-        total = direct + _ordered_sum(bus_out)
-
-    new_m = m_states
-    if fx.master is not None:
-        tm, new_m = _apply_group(fx.master, mparams, total[None], m_states, start, sample_rate,
-                                 scope="master")
-        total = tm[0]
-    total = torch.where(total > 1.0, 1.0, total)
-    total = torch.where(total < -1.0, -1.0, total)
-    meters = None
-    if with_meters:
-        ym, tmm = y, total
-        if Fv is not None:  # the pad tail is ring-out, not audio
-            valid = gidx < Fv
-            ym = torch.where(valid, y, 0.0)
-            tmm = torch.where(valid, total, 0.0)
-        meters = (ym.abs().amax(dim=-1), (ym * ym).sum(dim=-1),
-                  tmm.abs().amax(dim=-1), (tmm * tmm).sum(dim=-1))
-    return total, (new_g, new_b, new_m), meters
-
-
-def make_routed_finisher(rfx: RoutedFX, T: int, C: int, *, chunk: int | None = None,
-                         with_meters: bool = False, valid_frames: int | None = None,
-                         pdc: bool = False, device="cpu"):
-    """fn(per_track [T, C, F], track_gain, auto) -> mixed [C, F] (or
-    (mixed, meters)), chunk by chunk with the states carried; ``chunk``
-    defaults to :func:`routed_auto_chunk_frames`. ``per_track`` is read,
-    not written.
-
-    ``pdc=True``: track-chain latency is compensated by input fetch-ahead;
-    bus-chain latency by delaying every master input to the largest bus
-    latency (bus inputs are made within the step, so fetch-ahead cannot
-    apply; delay-to-align and a head trim is exact instead); master
-    latency by rendering further and trimming the head."""
-    if chunk is None:
-        chunk = routed_auto_chunk_frames(rfx, device=device)
-    glat, mlat = fx_latencies(rfx.fx) if pdc else ([0] * len(rfx.fx.groups), 0)
-    B = rfx.num_buses
-    blat = np.zeros(B, np.int64)
-    if pdc:
-        for g in rfx.bus_groups:
-            blat[np.asarray(g.track_idx)] = stage_latency_frames(g.stages)
-    BL = int(blat.max()) if (pdc and B) else 0
-    dbs = tuple(int(BL - blat[b]) for b in range(B))
-    bus_pdc = (BL, dbs) if (pdc and BL > 0) else None
-    shift = mlat + BL  # the output's head trim
-    prog = _Program(rfx, chunk, device)
-    shifted = [(r, lat) for r, lat in zip(prog.rows, glat) if lat > 0]
-
-    def finish(per_track, track_gain, auto=None):
-        F = per_track.shape[-1]
-        Fv = F if valid_frames is None else int(valid_frames)
-        g0, b0, m0 = init_routed_states(rfx, C, device)
-        if bus_pdc is not None:
-            d0 = {"direct": torch.zeros((C, BL), dtype=torch.float32, device=device)}
-            for b in range(B):
-                if dbs[b] > 0:
-                    d0[f"bus{b}"] = torch.zeros((C, dbs[b]), dtype=torch.float32, device=device)
-            b0 = (b0, d0)
-        states = (g0, b0, m0)
-        outs, parts = [], []
-        for start in range(0, F + shift, chunk):
-            xc = _chunk_input(per_track, start, chunk, shifted)
-            total, states, m = _routed_chunk_step(prog, xc, states, start, track_gain, auto, T, C,
-                                                  with_meters, Fv, bus_pdc=bus_pdc)
-            outs.append(total)
-            parts.append(m)
-        mixed = torch.cat(outs, dim=-1)[:, shift:shift + F]
-        return (mixed, meters_from_partials(parts, Fv)) if with_meters else mixed
-
-    return finish
-
-
-def make_routed_chunk_fn(rfx: RoutedFX, T: int, C: int, *, chunk: int, with_meters: bool = False,
-                         device="cpu"):
-    """Streaming form: fn(pt_chunk, states, start, track_gain, auto) ->
-    (total, new_states[, meters]); ``states = init_routed_states(rfx, C,
-    device)``. Carries no bus delay lines (no bus PDC)."""
-    prog = _Program(rfx, chunk, device)
-
-    def call(pt_chunk, states, start, track_gain, auto=None):
-        total, new_states, meters = _routed_chunk_step(prog, pt_chunk, states, int(start), track_gain,
-                                                       auto, T, C, with_meters, None)
-        return (total, new_states, meters) if with_meters else (total, new_states)
-
-    return call
-
-
-def make_routed_stems_chunk_fn(rfx: RoutedFX, T: int, C: int, *, chunk: int, device="cpu"):
-    """Streaming bus-stems form: fn(pt_chunk [T, C, chunk], states, start,
-    track_gain, auto) -> ((direct [C, chunk], bus_out [B, C, chunk]), new
-    states), the states :func:`init_routed_states` at the first chunk."""
-    prog = _Program(rfx, chunk, device)
-
-    def call(pt_chunk, states, start, track_gain, auto=None):
-        parts, states, _ = _routed_chunk_step(prog, pt_chunk, states, int(start), track_gain, auto, T, C,
-                                              False, None, emit_parts=True)
-        return parts, states
-
-    return call
-
-
-def make_routed_stems_finisher(rfx: RoutedFX, T: int, C: int, *, chunk: int | None = None,
-                               device="cpu"):
-    """fn(per_track [T, C, F], track_gain, auto) -> (direct [C, F],
-    bus_out [B, C, F]): the pre-master routed components for bus-stem
-    export, written chunk by chunk into one buffer each. ``direct`` is the
-    master-direct track sum, ``bus_out`` each bus post-chain and
-    post-fader; direct + sum(bus_out), then the master chain, is the full
-    mix."""
-    if chunk is None:
-        chunk = routed_auto_chunk_frames(rfx, device=device)
-    step = make_routed_stems_chunk_fn(rfx, T, C, chunk=chunk, device=device)
-
-    def finish(per_track, track_gain, auto=None):
-        F = per_track.shape[-1]
-        states = init_routed_states(rfx, C, device)
-        direct = torch.empty((C, F), dtype=torch.float32, device=per_track.device)
-        bus = torch.empty((rfx.num_buses, C, F), dtype=torch.float32, device=per_track.device)
-        for start in range(0, F, chunk):
-            (d, b), states = step(_chunk_input(per_track, start, chunk, ()), states, start, track_gain, auto)
-            n = min(chunk, F - start)
-            direct[:, start:start + n] = d[:, :n]
-            bus[..., start:start + n] = b[..., :n]
-        return direct, bus
-
-    return finish
+        x, new_g = _apply_groups(fx, self.rows, x, g_states, gparams, start)
+        gidx = start + torch.arange(chunk, dtype=torch.int32, device=x.device)
+        with span("wb.gains"):
+            y = x * _frame_gains(self.auto, self.track_gain, gidx, T, C)  # post-fader; x is the pre-fader tap
+        B = rfx.num_buses
+        key_in = None
+        with span("wb.route.matmul"), full_f32_matmul():
+            routed = _route(self.post, y)  # [1 + B (+ B keys), C, chunk]
+            direct = routed[0]
+            if B:
+                pre = _route(self.pre, x)  # [B (+ B keys), C, chunk]
+                bus_in = routed[1:1 + B] + pre[:B]
+                if rfx.has_key:  # the buses' sidechain key inputs [B, C, chunk]
+                    key_in = routed[1 + B:] + pre[B:]
+        if not B:
+            new_b = b_states
+            total = direct
+            if self.form == "stems":
+                return (direct, direct.new_zeros((0, C, chunk))), (new_g, new_b, m_states), None
+        else:
+            new_b = []
+            for g, r, pl, sts in zip(rfx.bus_groups, self.brows, bparams, b_states):
+                yb, ns = _apply_group(g, pl, bus_in[r], sts, start, sample_rate,
+                                      key=None if key_in is None else key_in[r], scope="bus")
+                bus_in.index_copy_(0, r, yb)
+                new_b.append(ns)
+            with span("wb.bus.fader"):
+                # the bus faders per frame: lanes where a bus has them, its
+                # constant gain elsewhere
+                bus_out = bus_in * _frame_gains(rfx.bus_auto, self.bus_gain, gidx, B, C)
+            if self.form == "stems":  # bus-stem export: the pre-master components
+                return (direct, bus_out), (new_g, new_b, m_states), None
+            if self.bus_pdc is not None:
+                # bus-chain latency compensation: every master input is delayed
+                # to the largest bus latency BL (direct by BL, bus b by
+                # BL - lat_b) so all paths align; the head trim takes BL off.
+                # Each delay line is concat(carry, x) and keep-the-tail.
+                BL, dbs = self.bus_pdc
+                new_d = dict(dstates)
+                if BL > 0:
+                    seq = torch.cat([dstates["direct"], direct], dim=-1)
+                    direct, new_d["direct"] = seq[:, :chunk], seq[:, chunk:]
+                rows = []
+                for b in range(B):
+                    row = bus_out[b]
+                    if dbs[b] > 0:
+                        seq = torch.cat([dstates[f"bus{b}"], row], dim=-1)
+                        row, new_d[f"bus{b}"] = seq[:, :chunk], seq[:, chunk:]
+                    rows.append(row)
+                bus_out = torch.stack(rows)
+                new_b = (new_b, new_d)
+            total = direct + _ordered_sum(bus_out)
+        total, new_m, partials = mix_tail(y, gidx, master_step(fx, mparams, start), m_states, self.meters, valid,
+                                          total=total)
+        return total, (new_g, new_b, new_m), partials
 
 
 # ---------------------------------------------------------------------------

@@ -8,11 +8,12 @@ processing position), so the stems sum back to the pre-master mix.
 The per-track mix is K4 (``CudaMixRenderer.render_device_per_track``: one
 launch of the CUDA kernel's per-track mode on the card, its plain version
 on the CPU) into ``[T, C, F]`` on the device, the MIDI tracks' synth added
-to a copy of it; then a stems finisher, chunk by chunk with its states
-carried: the chains' biquad cascade (``ops/biquad_cuda.py::
-biquad_cascade``, the hand kernel on the card) and the per-frame track
-gains for linear chains (:func:`stems_finish`), the generic finisher's
-stems form for every other chain, the routed finisher's for bus stems.
+to a copy of it; then a finisher's stems form (``render/finisher.py``:
+the steps stop before the sum), chunk by chunk with its states carried
+into one ``[T, C, F]`` buffer: the scan's biquad cascade
+(``ops/biquad_cuda.py::biquad_cascade``, the hand kernel on the card) and
+the per-frame track gains for linear chains, the generic finisher for
+every other chain, the routed finisher for bus stems.
 
 Where the slot plan cannot hold the session (a slot overflow at the
 smallest tile, or per-track buffers above
@@ -20,8 +21,9 @@ smallest tile, or per-track buffers above
 per-track chunks come from the gather mix (``ops/mix.py::
 render_chunk_per_track``) instead, one chunk at a time into the same
 finishers, each finished chunk copied to the host: nothing of the
-session's length is held on the device. The choice is made by those
-conditions only; a kernel that fails to build or launch raises.
+session's length is held on the device. The choice is
+``render/bounce.py::kernel_plan``'s, made by those conditions only; a
+kernel that fails to build or launch raises.
 """
 
 from __future__ import annotations
@@ -30,26 +32,12 @@ import numpy as np
 import torch
 
 from whitebox_tpu_torch.device import resolve_device
-from whitebox_tpu_torch.ops.biquad_cuda import biquad_cascade
 from whitebox_tpu_torch.ops.mix import pack_device_tables, render_chunk_per_track
 from whitebox_tpu_torch.ops.mix_cuda import CudaMixRenderer
-from whitebox_tpu_torch.ops.mix_plan import SlotOverflow, build_plan
 from whitebox_tpu_torch.ops.readback import to_host
-from whitebox_tpu_torch.render.bounce import (
-    _add_synth, _prepare_synth_tables, per_track_limit_bytes, session_has_midi,
-)
-from whitebox_tpu_torch.render.effects_generic import (
-    auto_chunk_frames, init_generic_states, make_generic_stems_chunk_fn, make_generic_stems_finisher,
-    prepare_generic_fx, session_fx_packable,
-)
-from whitebox_tpu_torch.render.effects_pipeline import (
-    CPU_CHUNK, CUDA_CHUNK, _frame_gains, prepare_automation_tables, prepare_effect_tables,
-)
+from whitebox_tpu_torch.render.bounce import _add_synth, _prepare_synth_tables, kernel_plan
+from whitebox_tpu_torch.render.finisher import choose_finisher, make_finisher, run
 from whitebox_tpu_torch.render.metrics import span
-from whitebox_tpu_torch.render.routing import (
-    init_routed_states, make_routed_stems_chunk_fn, make_routed_stems_finisher, prepare_routed_fx,
-    routed_auto_chunk_frames,
-)
 from whitebox_tpu_torch.session.bus import session_has_routing
 from whitebox_tpu_torch.session.session import Session
 from whitebox_tpu_torch.timeline.carve import carve_session
@@ -60,34 +48,6 @@ from whitebox_tpu_torch.timeline.prerender import resolve_sinc_device
 #: ``chunk_frames`` default); the generic and routed finishers round it to
 #: their own chunk
 GATHER_CHUNK = 1 << 17
-
-
-def stems_finish_chunk(xc, coeffs, track_gain, states, start: int, auto=None, *, T: int, C: int):
-    """One chunk ``xc`` ``[T, C, n]`` at global frame ``start``: the chains'
-    cascade from ``states``, then the per-frame track gains -> (stems
-    chunk ``[T, C, n]``, new states)."""
-    n = xc.shape[-1]
-    y, states = biquad_cascade(xc.reshape(T * C, n), coeffs, states)
-    g = start + torch.arange(n, dtype=torch.int32, device=xc.device)
-    return y.reshape(T, C, n) * _frame_gains(auto, track_gain, g, T, C), states
-
-
-def stems_finish(per_track, coeffs, track_gain, auto=None, *, T, C, S, chunk=None):
-    """per_track ``[T, C, F]`` -> post-chain post-gain stems ``[T, C, F]``,
-    written chunk by chunk into one buffer on ``per_track``'s device, the
-    section states carried; ``chunk`` frames each (default
-    ``effects_pipeline.CUDA_CHUNK`` on the card, ``CPU_CHUNK`` on the
-    CPU). ``per_track`` is read, not written."""
-    F = per_track.shape[-1]
-    dev = per_track.device
-    if chunk is None:
-        chunk = CUDA_CHUNK if dev.type == "cuda" else CPU_CHUNK
-    states = [torch.zeros((T * C, 2), dtype=torch.float32, device=dev) for _ in range(S)]
-    out = torch.empty((T, C, F), dtype=torch.float32, device=dev)
-    for start in range(0, F, chunk):
-        out[..., start:start + chunk], states = stems_finish_chunk(
-            per_track[..., start:start + chunk], coeffs, track_gain, states, start, auto, T=T, C=C)
-    return out
 
 
 def _track_gains(session: Session, channels: int, dev) -> torch.Tensor:
@@ -120,24 +80,12 @@ class _PerTrack:
                 table, pool, interp, pre_pool_dev, _ = resolve_sinc_device(table, pool, device=dev)
             else:
                 table, pool, interp = resolve_interpolation(table, pool, interpolation)
-            plan = None
-            if engine != "xla":
-                try:
-                    plan = build_plan(table, pool, session, channels=channels,
-                                      max_slots=16 if isinstance(interp, tuple) else 8)
-                except SlotOverflow as e:
-                    if engine == "pallas":
-                        raise SlotOverflow(f"{e} even at the smallest tile; engine='pallas' has no gather "
-                                           "fallback (engine='auto' takes it)") from e
-                if plan is not None and (plan.num_tracks * channels * plan.n_tiles * plan.tile * 4
-                                         > per_track_limit_bytes(dev)):
-                    plan = None  # per-track buffers would not fit: the gather path, chunk by chunk
+            plan = kernel_plan(table, pool, session, channels, interp, engine, dev, per_track=True)
         T = len(session.tracks)
         self.frames, self.interp, self.buffer = table.total_frames, interp, None
         with span("wb.fx.prepare"):
-            self.synth = (_prepare_synth_tables(session, sample_rate, buffer_size,
-                                                max(self.frames // buffer_size, 1), dev)
-                          if session_has_midi(session) else {})
+            self.synth = _prepare_synth_tables(session, sample_rate, buffer_size, max(self.frames // buffer_size, 1),
+                                               dev)
         self.kernel = plan is not None
         if self.kernel:
             renderer = CudaMixRenderer(table, pool, session, device=dev, channels=channels, plan=plan,
@@ -157,16 +105,19 @@ class _PerTrack:
         return _add_synth(pt, self.synth, start, n)
 
 
-def _gather_stems(src: _PerTrack, chunk: int, step, states, outs) -> None:
-    """The gather path: each per-track chunk of ``src`` through ``step``
-    (pt_chunk, states, start -> (outputs, states)), each output copied into
-    the matching host array of ``outs`` (``[..., frames]``)."""
-    F = src.frames
-    for start in range(0, F, chunk):
-        ys, states = step(src.chunk(start, chunk), states, start)
-        n = min(chunk, F - start)
-        for o, y in zip(outs, ys):
-            o[..., start:start + n] = y[..., :n].cpu().numpy()
+def _finish_stems(src: _PerTrack, session, sample_rate, channels, family: str, dev):
+    """``src``'s stems through the ``family`` finisher's stems form: K4's
+    buffer in one destination on the device, read back whole; the gather
+    path's chunks each copied into a host array."""
+    with span("wb.fx.prepare"):
+        fin = make_finisher(family, session, sample_rate, _track_gains(session, channels, dev), form="stems",
+                            max_chunk=None if src.kernel else GATHER_CHUNK, device=dev)
+    with span("wb.finish"):
+        res = run(fin, src.buffer[..., :src.frames] if src.kernel else src.chunk, src.frames, host=not src.kernel)
+    if not src.kernel:
+        return res.out
+    with span("wb.readback"):
+        return tuple(to_host(o) for o in res.out) if isinstance(res.out, tuple) else to_host(res.out)
 
 
 def render_stems(
@@ -194,44 +145,9 @@ def render_stems(
     speed==1 stems are always bit-exact."""
     with span("wb.stems"):
         dev = resolve_device(device)
-        T = len(session.tracks)
         src = _PerTrack(session, sample_rate, buffer_size, channels, interpolation, engine, dev)
-        F = src.frames
-        packable = session_fx_packable(session)
-        with span("wb.fx.prepare"):
-            tg = _track_gains(session, channels, dev)
-            auto = prepare_automation_tables(session, sample_rate, device=dev)
-            if packable:
-                (S, coeffs), _ = prepare_effect_tables(session, sample_rate, channels, device=dev)
-            else:
-                gfx = prepare_generic_fx(session, sample_rate, channels)
-        with span("wb.finish"):
-            if packable and src.kernel:
-                stems = stems_finish(src.buffer[..., :F], coeffs, tg, auto, T=T, C=channels, S=S)
-            elif packable:
-                stems = np.empty((T, channels, F), dtype=np.float32)
-
-                def step(xc, states, start):
-                    y, states = stems_finish_chunk(xc, coeffs, tg, states, start, auto, T=T, C=channels)
-                    return (y,), states
-
-                init = [torch.zeros((T * channels, 2), dtype=torch.float32, device=dev) for _ in range(S)]
-                _gather_stems(src, GATHER_CHUNK, step, init, (stems,))
-            elif src.kernel:
-                stems = make_generic_stems_finisher(gfx, T, channels, device=dev)(src.buffer[..., :F], tg, auto)
-            else:
-                chunk = auto_chunk_frames(gfx, GATHER_CHUNK, device=dev)
-                gstep = make_generic_stems_chunk_fn(gfx, T, channels, chunk=chunk, device=dev)
-                stems = np.empty((T, channels, F), dtype=np.float32)
-
-                def step(xc, states, start):
-                    y, states = gstep(xc, states, start, tg, auto)
-                    return (y,), states
-
-                _gather_stems(src, chunk, step, init_generic_states(gfx, channels, dev)[0], (stems,))
-        if src.kernel:
-            with span("wb.readback"):
-                stems = to_host(stems)
+        stems = _finish_stems(src, session, sample_rate, channels, choose_finisher(session, "scan", form="stems"),
+                              dev)
     return stems, [t.name or f"track{i}" for i, t in enumerate(session.tracks)]
 
 
@@ -258,25 +174,7 @@ def render_bus_stems(
                          "(use render_stems for per-track stems)")
     with span("wb.stems"):
         dev = resolve_device(device)
-        T = len(session.tracks)
         src = _PerTrack(session, sample_rate, buffer_size, channels, interpolation, engine, dev)
-        F = src.frames
-        with span("wb.fx.prepare"):
-            tg = _track_gains(session, channels, dev)
-            auto = prepare_automation_tables(session, sample_rate, device=dev)
-            rfx = prepare_routed_fx(session, sample_rate, channels, device=dev)
-        with span("wb.finish"):
-            if src.kernel:
-                finisher = make_routed_stems_finisher(rfx, T, channels, device=dev)
-                direct, bus = finisher(src.buffer[..., :F], tg, auto)
-            else:
-                chunk = routed_auto_chunk_frames(rfx, GATHER_CHUNK, device=dev)
-                rstep = make_routed_stems_chunk_fn(rfx, T, channels, chunk=chunk, device=dev)
-                direct = np.empty((channels, F), dtype=np.float32)
-                bus = np.empty((rfx.num_buses, channels, F), dtype=np.float32)
-                _gather_stems(src, chunk, lambda xc, states, start: rstep(xc, states, start, tg, auto),
-                              init_routed_states(rfx, channels, dev), (direct, bus))
-        if src.kernel:
-            with span("wb.readback"):
-                direct, bus = direct.cpu().numpy(), bus.cpu().numpy()
+        direct, bus = _finish_stems(src, session, sample_rate, channels,
+                                    choose_finisher(session, "routed", form="stems"), dev)
     return direct, bus, [b.name or f"bus{i}" for i, b in enumerate(session.buses)]

@@ -47,8 +47,9 @@ import torch
 from whitebox_tpu_torch.device import resolve_device
 from whitebox_tpu_torch.ops.automation import session_has_automation
 from whitebox_tpu_torch.ops.mix import pack_device_tables, render_chunk, render_chunk_per_track
-from whitebox_tpu_torch.render.bounce import session_has_midi, window_finisher
+from whitebox_tpu_torch.render.bounce import _add_synth, _prepare_synth_tables, session_has_midi
 from whitebox_tpu_torch.render.effects_pipeline import session_has_effects
+from whitebox_tpu_torch.render.finisher import choose_finisher, make_finisher, run
 from whitebox_tpu_torch.session.bus import session_has_routing
 from whitebox_tpu_torch.session.session import Session
 from whitebox_tpu_torch.timeline.carve import SegmentTable, carve_session
@@ -222,8 +223,7 @@ def bounce_streamed(
     F = table.total_frames
     has_fx = (session_has_effects(session) or session_has_automation(session)
               or session_has_midi(session) or session_has_routing(session))
-    finish = (window_finisher(session, sample_rate, buffer_size, channels, T, F, window_frames, dev)
-              if has_fx else None)
+    synth = _prepare_synth_tables(session, sample_rate, buffer_size, max(F // buffer_size, 1), dev) if has_fx else {}
 
     # two page-locked staging buffers and two device sub-pools (the CPU
     # renders from the staging buffers), at the largest window's size
@@ -266,6 +266,16 @@ def bounce_streamed(
     render_events = []
     render_host = 0.0
     staged = stage(0)
+    fin = states = None
+    if has_fx:
+        # the finisher's states carry from window to window; its chunk
+        # (the family's, up to a window) must divide the window
+        fin = make_finisher(choose_finisher(session), session, sample_rate, staged[2]["track_gain"],
+                            max_chunk=window_frames, device=dev)
+        states = fin.init()
+        if window_frames % fin.chunk:
+            raise ValueError(f"window_frames {window_frames} must be a multiple of the finisher's "
+                             f"chunk ({fin.chunk})")
     for i, win in enumerate(windows):
         k, n, jt = staged
         t0 = time.perf_counter()
@@ -275,11 +285,13 @@ def bounce_streamed(
             render_events[-1].record()
         pdev = pools[k][:n]
         w0 = win.start
-        if finish is None:
+        if fin is None:
             chunk = render_chunk(pdev, jt, w0, window_frames, strict_order=True, interp=interp)
         else:
-            pt = render_chunk_per_track(pdev, jt, w0, window_frames, interp=interp)
-            chunk = finish(pt, w0, jt["track_gain"])
+            pt = _add_synth(render_chunk_per_track(pdev, jt, w0, window_frames, interp=interp), synth, w0,
+                            window_frames)
+            res = run(fin, pt, window_frames, start=w0, states=states)
+            chunk, states = res.out, res.states
         out[:, w0:w0 + win.frames] = chunk[:, :win.frames]
         if on_card:
             rendered[k] = torch.cuda.Event(enable_timing=True)

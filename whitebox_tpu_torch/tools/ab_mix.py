@@ -67,7 +67,7 @@ for name, (s, mode, variant) in cells.items():
     args = (p.n_tiles, p.tile, p.channels)
     if variant == "scan_finish":
         pt = r.render_device_per_track()
-        finish = _effects_finisher(s, r, p, cs.RATE, p.channels, "scan", False, torch.device("cuda"))
+        finish = _effects_finisher(s, r, p, cs.RATE, "scan", False, torch.device("cuda"))
         finish(pt)
         torch.cuda.synchronize()
         out[name] = cs._event_ms(torch, lambda: finish(pt), 3)[0]
