@@ -45,7 +45,10 @@ every form and interpolation mode, the bounce through ``engine="xla"``
 launching it once a chunk and no slot-plan kernel, a failed build raising;
 the staged readback (``ops/readback.py``) giving the bytes of
 ``.cpu().numpy()`` in stems and bounce, kept exports independent, one ring
-allocation, and the size threshold.
+allocation, and the size threshold; the resident pool
+(``ops/mix_cuda.py::resident_pool``): after an edit that keeps the asset
+set, ``bounce`` and ``render_stems`` take the same tensor, bit-equal to a
+fresh upload's output, and a miss never leaves two pools on the card.
 """
 
 import importlib
@@ -692,6 +695,76 @@ def test_render_cache_on_the_card(card):
         s.tracks[0].clips[0].audio.gain *= 0.5
         np.testing.assert_array_equal(cache.render(), bounce(s, 48000.0, device=card).audio)
         assert cache._pool_dev is pool
+
+
+def _pool_heavy_session(seed, frames=2_000_000):
+    """One track of three short clips over three stereo assets of
+    ``frames`` frames: a ~48 MB pool beside a ~0.6 MB mix."""
+    from whitebox_tpu_torch.core.formats import AudioFormat
+    from whitebox_tpu_torch.session import Session
+    from whitebox_tpu_torch.session.sample import Sample
+
+    rng = np.random.default_rng(seed)
+    s = Session(bpm=120.0)
+    tr = s.add_track("t")
+    for i in range(3):
+        data = (rng.standard_normal((2, frames)) * 0.1).astype(np.float32)
+        a = s.sample_table.add_sample(Sample.from_planar(data, 48000, AudioFormat.F32, name=f"p{i}"), key=f"p{i}")
+        s.add_audio_clip(tr, f"c{i}", float(i), i + 0.9, asset=a)
+    return s
+
+
+def _resident_render(kind, s, dev):
+    from whitebox_tpu_torch.render.stems import render_stems
+
+    return render_stems(s, 48000.0, device=dev)[0] if kind == "stems" else bounce(s, 48000.0, device=dev).audio
+
+
+@pytest.mark.parametrize("kind", ["bounce", "eq_bounce", "stems"])
+def test_resident_pool_hits_after_an_edit_on_the_card(card, kind):
+    """A fader and clip move keep the asset set: the next ``bounce`` (K1;
+    K4 and the scan with EQ) or ``render_stems`` takes the same resident
+    pool tensor, and its output is bit-equal to a render whose pool was
+    uploaded anew."""
+    s = make_demo_session(n_tracks=6, duration_seconds=3.0, seed=4)
+    if kind != "bounce":
+        chip_smoke.add_eq_chains(s)
+    first = _resident_render(kind, s, card)
+    _, held = mix_cuda._RESIDENT_POOLS[f"cuda:{torch.cuda.current_device()}"]
+    s.tracks[0].volume_db += 1.5
+    s.move_clip(s.tracks[1], s.tracks[1].clips[1], 0.05)
+    hits, misses = mix_cuda.resident_pool_hits, mix_cuda.resident_pool_misses
+    got = _resident_render(kind, s, card)
+    assert (mix_cuda.resident_pool_hits, mix_cuda.resident_pool_misses) == (hits + 1, misses)
+    assert mix_cuda._RESIDENT_POOLS[f"cuda:{torch.cuda.current_device()}"][1] is held
+    mix_cuda._RESIDENT_POOLS.clear()
+    want = _resident_render(kind, s, card)
+    assert mix_cuda.resident_pool_misses == misses + 1
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    assert not np.array_equal(got, first)
+
+
+def test_a_resident_pool_miss_holds_one_pool_on_the_card(card):
+    """Two sessions on different assets bounced in turn (a, b, a): each
+    bounce misses, drops the old resident pool before it uploads its own,
+    so the card never holds two (the peak stays under 1.5 pools above the
+    start), and after each it holds at most one pool more than before the
+    first."""
+    from whitebox_tpu_torch.timeline.pool import build_sample_pool
+
+    a, b = _pool_heavy_session(1), _pool_heavy_session(2)
+    nbytes = max(build_sample_pool(x).data.nbytes for x in (a, b))
+    mix_cuda._RESIDENT_POOLS.clear()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(card)
+    for s in (a, b, a):
+        misses = mix_cuda.resident_pool_misses
+        torch.cuda.reset_peak_memory_stats(card)
+        bounce(s, 48000.0, device=card)
+        torch.cuda.synchronize()
+        assert mix_cuda.resident_pool_misses == misses + 1
+        assert torch.cuda.memory_allocated(card) - base <= nbytes + (1 << 20)
+        assert torch.cuda.max_memory_allocated(card) - base < 1.5 * nbytes
 
 
 def test_preview_on_the_card(card):

@@ -5,7 +5,9 @@
   every family (scan, generic, routed), form (mix, stems), with meters and
   PDC where the family has them: the fetch-ahead rows, the head trim and
   the meter window are ``run``'s, whatever feeds it;
-- ``choose_finisher`` names each family by the rules ``bounce`` keeps.
+- ``choose_finisher`` names each family by the rules ``bounce`` keeps;
+- the scan step gains the cascade's output in place and writes nothing of
+  its input.
 """
 
 import numpy as np
@@ -13,6 +15,7 @@ import pytest
 import torch
 
 from whitebox_tpu_torch import effects as fx
+from whitebox_tpu_torch.ops.biquad_cuda import biquad_cascade
 from whitebox_tpu_torch.render.demo import make_demo_session
 from whitebox_tpu_torch.render.finisher import _window, choose_finisher, make_finisher, run
 
@@ -101,6 +104,29 @@ def test_buffer_and_chunk_source_give_the_same_bits(case):
     assert all(o.shape[-1] == FRAMES for o in out) and float(out[0].abs().max()) > 1e-3
     if form == "stems" and family != "routed":
         assert out[0].shape == (T, 2, FRAMES)
+
+
+@pytest.mark.parametrize("track_chains", [True, False], ids=["eq", "identity"])
+def test_scan_step_writes_no_input_and_gains_the_cascade_output(track_chains):
+    """The gains go into the cascade's output in place: the step's input is
+    left as it was (also where the tracks have no chain and the cascade
+    runs their identity section), and the stems are the bits of the
+    cascade's output times the gains."""
+    s = _eq()
+    if not track_chains:
+        for tr in s.tracks:
+            tr.effects = fx.EffectChain([])
+    T = len(s.tracks)
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy((rng.standard_normal((T, 2, CHUNK)) * 0.4).astype(np.float32))
+    keep = x.clone()
+    tg = torch.from_numpy(rng.uniform(0.3, 1.2, (T, 2)).astype(np.float32))
+    fin = make_finisher("scan", s, RATE, tg, form="stems", chunk=CHUNK)
+    assert fin.S == (2 if track_chains else 1)
+    out, _, _ = fin.step(x, fin.init(), 0)
+    assert torch.equal(x, keep)
+    y, _ = biquad_cascade(keep.reshape(T * 2, CHUNK), fin.coeffs, fin.init()[0])
+    assert out.numpy().tobytes() == (y.reshape(T, 2, CHUNK) * tg[:, :, None]).numpy().tobytes()
 
 
 def test_chooser_names_each_family():

@@ -1,19 +1,24 @@
-"""The sample pool's cache (``timeline/pool.py::build_sample_pool``) on the CPU.
+"""The sample pool's cache (``timeline/pool.py::build_sample_pool``) and its
+resident device copy (``ops/mix_cuda.py::resident_pool``) on the CPU.
 
 The pool is keyed by the set of assets it holds and the layout arguments,
 not by the session's edit stamp: a fader or clip move keeps the pool, a
 change of the asset set flattens anew, and a freed asset's id never aliases
-a new one's. Each render here is compared bit for bit with a render whose
-pool was flattened from an empty cache.
+a new one's. The device copy is keyed by the ``SamplePool`` object: an edit
+that keeps the pool uploads nothing, a new pool replaces the device's one
+entry. Each render here is compared bit for bit with a render whose pool
+was flattened from an empty cache, or uploaded anew.
 """
 
 import gc
+import weakref
 
 import numpy as np
 import pytest
 
 from whitebox_tpu_torch.core.formats import AudioFormat
 from whitebox_tpu_torch.effects import Biquad, EffectChain, ParametricEQ
+from whitebox_tpu_torch.ops import mix_cuda
 from whitebox_tpu_torch.render.bounce import bounce
 from whitebox_tpu_torch.render.stems import render_stems
 from whitebox_tpu_torch.session import Session
@@ -28,6 +33,9 @@ def _fresh_pool_cache(monkeypatch):
     monkeypatch.setattr(pool, "_POOL_CACHE", {})
     monkeypatch.setattr(pool, "pool_cache_hits", 0)
     monkeypatch.setattr(pool, "pool_cache_misses", 0)
+    monkeypatch.setattr(mix_cuda, "_RESIDENT_POOLS", {})
+    monkeypatch.setattr(mix_cuda, "resident_pool_hits", 0)
+    monkeypatch.setattr(mix_cuda, "resident_pool_misses", 0)
 
 
 def _asset(s, i, seed):
@@ -102,8 +110,12 @@ def test_move_that_reorders_first_seen_assets_hits():
 
 @pytest.mark.parametrize("change", ["add_new_asset", "delete_last_clip", "replace_sample"])
 def test_a_changed_asset_set_misses(change):
+    """The host pool is flattened anew, and its device copy replaces the
+    old one: one resident entry a device, the old tensor freed."""
     s, assets = _session()
+    bounce(s, RATE, device="cpu")
     built = pool.build_sample_pool(s)
+    old = weakref.ref(mix_cuda._RESIDENT_POOLS["cpu"][1])
     if change == "add_new_asset":
         extra = _asset(s, 3, 7)
         s.add_audio_clip(s.tracks[1], "c4", 0.7, 0.9, asset=extra)
@@ -119,7 +131,11 @@ def test_a_changed_asset_set_misses(change):
     got = pool.build_sample_pool(s)
     assert pool.pool_cache_misses == misses + 1
     assert got is not built and set(got.index_of) == want and got.num_samples == len(want)
+    resident_misses = mix_cuda.resident_pool_misses
     res = bounce(s, RATE, device="cpu")
+    assert mix_cuda.resident_pool_misses == resident_misses + 1
+    assert list(mix_cuda._RESIDENT_POOLS) == ["cpu"] and mix_cuda._RESIDENT_POOLS["cpu"][0] is got
+    assert old() is None
     np.testing.assert_array_equal(res.audio, _cleared_bounce(s).audio)
 
 
@@ -131,10 +147,40 @@ def test_fresh_assets_after_a_freed_session_never_hit():
     # the cache keeps the freed session's assets alive, so no new object can
     # take their ids; and a key over new ids finds no entry
     s2, _ = _session(seed=2)
-    hits = pool.pool_cache_hits
+    hits, resident_hits = pool.pool_cache_hits, mix_cuda.resident_pool_hits
     res = bounce(s2, RATE, device="cpu")
-    assert pool.pool_cache_hits == hits
+    assert (pool.pool_cache_hits, mix_cuda.resident_pool_hits) == (hits, resident_hits)
     np.testing.assert_array_equal(res.audio, _cleared_bounce(s2).audio)
+
+
+RENDERS = {
+    "bounce": lambda s, engine: bounce(s, RATE, device="cpu", engine=engine).audio,
+    "stems": lambda s, engine: render_stems(s, RATE, device="cpu", engine=engine)[0],
+}
+
+
+@pytest.mark.parametrize("engine", ["auto", "xla"])
+@pytest.mark.parametrize("render", list(RENDERS))
+def test_resident_pool_hit_after_an_edit_bit_equal_to_a_fresh_upload(render, engine):
+    """A fader and clip move keep the ``SamplePool``, so the render takes
+    the same device tensor (the kernel path's ``CudaMixRenderer`` under
+    ``"auto"``, the gather path under ``"xla"``) and equals, bit for bit,
+    a render after the resident entry is cleared."""
+    s, _ = _session(eq=render == "stems")
+    first = RENDERS[render](s, engine)
+    held = mix_cuda._RESIDENT_POOLS["cpu"]
+    assert held[0] is pool.build_sample_pool(s)
+    _fader_and_move(s)
+    hits, misses = mix_cuda.resident_pool_hits, mix_cuda.resident_pool_misses
+    got = RENDERS[render](s, engine)
+    assert (mix_cuda.resident_pool_hits, mix_cuda.resident_pool_misses) == (hits + 1, misses)
+    assert mix_cuda._RESIDENT_POOLS["cpu"][1] is held[1]
+    mix_cuda._RESIDENT_POOLS.clear()
+    ref = RENDERS[render](s, engine)
+    assert mix_cuda.resident_pool_misses == misses + 1
+    assert mix_cuda._RESIDENT_POOLS["cpu"][1] is not held[1]
+    np.testing.assert_array_equal(got, ref)
+    assert not np.array_equal(got, first)  # the edit reached the render
 
 
 def test_stems_eq_hit_after_an_edit():

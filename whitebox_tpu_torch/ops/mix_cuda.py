@@ -375,6 +375,43 @@ def auto_tables_to_device(auto_tables, device: torch.device) -> dict:
             for f in AUTO_FIELDS}
 
 
+#: the pool last uploaded to each device by :func:`resident_pool`:
+#: ``str(device) -> (pool, tensor)``, at most one a device. The entry holds
+#: the host ``SamplePool`` strongly and a hit checks it by ``is``, so a
+#: freed pool's id can never alias a live one. ``timeline/pool.py``'s cache
+#: returns the same ``SamplePool`` for every edit that keeps the asset set,
+#: so such an edit uploads nothing. Exact because nothing writes a pool in
+#: place: ``pool.data`` is never written after it is built (extensions
+#: concatenate into fresh arrays) and the kernels read the device pool
+#: through ``const float*``.
+_RESIDENT_POOLS: dict = {}
+#: hits and misses of :func:`resident_pool` in this process; it adds one to
+#: either per call and nothing else touches them (callers may reset them to 0)
+resident_pool_hits = 0
+resident_pool_misses = 0
+
+
+def resident_pool(pool: SamplePool, device) -> torch.Tensor:
+    """``pool.data`` as a 1-D f32 tensor on ``device``, uploaded once for as
+    long as the same ``SamplePool`` object comes back. A miss drops the
+    device's previous entry before it uploads, so the card never holds two
+    resident pools (a caller still holding the old tensor keeps it alive).
+    Counts each call in ``resident_pool_hits`` or ``resident_pool_misses``."""
+    global resident_pool_hits, resident_pool_misses
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    key = str(dev)
+    if key in _RESIDENT_POOLS and _RESIDENT_POOLS[key][0] is pool:
+        resident_pool_hits += 1
+        return _RESIDENT_POOLS[key][1]
+    resident_pool_misses += 1
+    _RESIDENT_POOLS.pop(key, None)
+    data = torch.from_numpy(np.ascontiguousarray(pool.data, dtype=np.float32)).to(dev)
+    _RESIDENT_POOLS[key] = (pool, data)
+    return data
+
+
 class CudaMixRenderer:
     """Holds the plan tables and the pool on the device; renders in one launch.
 
@@ -383,7 +420,8 @@ class CudaMixRenderer:
     inside the one launch, as the JAX package's fused single pass does.
     ``interp`` is the resampled slots' interpolation. ``pool_device`` may
     be longer than ``pool.data`` (a pool extended on the card): the bounds
-    check runs against its length.
+    check runs against its length. Without it the renderer takes the
+    device's resident copy of ``pool`` (:func:`resident_pool`).
     """
 
     def __init__(self, table: SegmentTable, pool: SamplePool, session: Session, *,
@@ -398,11 +436,10 @@ class CudaMixRenderer:
 
         with span("wb.upload"):
             if pool_device is None:
-                pool_device = torch.from_numpy(np.ascontiguousarray(pool.data, dtype=np.float32)).to(self.device)
+                pool_device = resident_pool(pool, self.device)
             elif pool_device.device.type != self.device.type:
                 raise ValueError(f"pool_device lies on {pool_device.device}, renderer on {self.device}")
             check_pool_bounds(self.plan, pool_device.shape[0], interp)
-            # repeated renders of one session: samples stay device-resident
             self.pool_device = pool_device
             self.tables = {f: torch.from_numpy(np.ascontiguousarray(getattr(self.plan, f))).to(self.device)
                            for f in TABLE_FIELDS}

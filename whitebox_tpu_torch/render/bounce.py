@@ -69,7 +69,7 @@ from whitebox_tpu_torch.ops import cuda_build
 from whitebox_tpu_torch.ops.automation import session_has_automation
 from whitebox_tpu_torch.ops.loudness import measure_loudness
 from whitebox_tpu_torch.ops.mix import pack_device_tables, render_chunk, render_chunk_per_track
-from whitebox_tpu_torch.ops.mix_cuda import CudaMixRenderer
+from whitebox_tpu_torch.ops.mix_cuda import CudaMixRenderer, resident_pool
 from whitebox_tpu_torch.ops.mix_plan import SlotOverflow, build_plan
 from whitebox_tpu_torch.ops.readback import to_host
 from whitebox_tpu_torch.ops.resample import design_sinc_bank
@@ -322,7 +322,7 @@ def _render_gather(session, table, pool, sample_rate, channels, buffer_size, num
     with span("wb.upload"):
         tables = pack_device_tables(table, pool, session, channels=channels)
         jt = tables.as_torch(dev)
-        pool_dev = torch.from_numpy(pool.data).to(dev)
+        pool_dev = resident_pool(pool, dev)
     F = tables.total_frames
     T = tables.num_tracks
     chunk = min(chunk_frames, max(F, 1))

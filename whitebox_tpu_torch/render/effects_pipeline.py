@@ -168,7 +168,9 @@ class ScanFinisher:
         T, C, n = x.shape
         g = start + torch.arange(n, dtype=torch.int32, device=x.device)
         y, t_states = biquad_cascade(x.reshape(T * C, n), self.coeffs, states[0])
-        y = y.reshape(T, C, n) * _frame_gains(self.auto, self.track_gain, g, T, C)
+        # every track has a section (identity ones pad), so the cascade's output
+        # is a fresh tensor: the gains go in place, one [T, C, n] temporary
+        y = y.reshape(T, C, n).mul_(_frame_gains(self.auto, self.track_gain, g, T, C))
         if self.form == "stems":
             return y, (t_states, states[1]), None
         total, m_states, partials = mix_tail(y, g, lambda t, s: biquad_cascade(t, self.mcoeffs, s), states[1],

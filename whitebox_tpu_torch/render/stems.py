@@ -33,7 +33,7 @@ import torch
 
 from whitebox_tpu_torch.device import resolve_device
 from whitebox_tpu_torch.ops.mix import pack_device_tables, render_chunk_per_track
-from whitebox_tpu_torch.ops.mix_cuda import CudaMixRenderer
+from whitebox_tpu_torch.ops.mix_cuda import CudaMixRenderer, resident_pool
 from whitebox_tpu_torch.ops.readback import to_host
 from whitebox_tpu_torch.render.bounce import _add_synth, _prepare_synth_tables, kernel_plan
 from whitebox_tpu_torch.render.finisher import choose_finisher, make_finisher, run
@@ -97,8 +97,7 @@ class _PerTrack:
             with span("wb.upload"):
                 self.tables = pack_device_tables(table, pool, session, channels=channels).as_torch(dev)
                 # a prerendered pool extension lives on the device only
-                self.pool = (pre_pool_dev.reshape(-1) if pre_pool_dev is not None
-                             else torch.from_numpy(pool.data).to(dev))
+                self.pool = pre_pool_dev.reshape(-1) if pre_pool_dev is not None else resident_pool(pool, dev)
 
     def chunk(self, start: int, n: int) -> torch.Tensor:
         pt = render_chunk_per_track(self.pool, self.tables, start, n, interp=self.interp)
